@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and ignored):
+
+1. Print the card (``nvidia-smi`` name and power limit) and the torch and
+   CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
+   csrc`` with nvcc for sm_90a and print the build seconds.
+2. Hold every kernel against its plain PyTorch version on the card, at the
+   shapes h2o-danube-1.8b's decode step and prefill chunks give it
+   (absmax and matmul bitwise, MLP within 1e-5 relative, decode attention
+   within 1e-5), and time kernel, plain version and, where one exists,
+   the PyTorch library call computing the same function (CUDA events,
+   L2 flushed before every call).
+3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
+   weights on both devices, 3 prompts, 8 greedy tokens each through the
+   paged engine; the card's kernel path and the CPU's plain path must emit
+   the same tokens.
+4. The main path: the full h2o-danube-1.8b (24 layers, full width, seeded
+   random weights) in ``bp8_fused`` + ``bp8`` serves 8 requests (prompts of
+   32-256 tokens, 16 new tokens each) through ``PagedServeEngine`` (4 slots,
+   block 16, prefill chunk 64).  Launch counts are zeroed just before and
+   read just after; every kernel must have launched.  A short run under
+   ``torch.profiler`` then gives device time by kernel and the idle share.
+
+The last lines are the kernels JSON, the card line, and
+``{"ok": true, "device": {...}}``.  A detail report goes to
+``chiprun_out/chip_smoke_report.json``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
+H100_INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core rate
+H100_F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
+REPLACES = {
+    "absmax": "src/repro/kernels/fused.py:74",
+    "fused_matmul": "src/repro/kernels/fused.py:140",
+    "fused_mlp": "src/repro/kernels/fused.py:228",
+    "decode_attention": "src/repro/kernels/attention.py:121",
+}
+SOURCES = {
+    "absmax": "src/repro_torch/kernels/csrc/absmax.cu",
+    "fused_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
+    "fused_mlp": "src/repro_torch/kernels/csrc/fused_mlp.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Mean ms per iteration of a list of calls (the sum over the list),
+    the L2 cache flushed before each call.  A device-side sleep ahead of
+    each timed call lets the host enqueue the call before the card reaches
+    it, so host-side launch overhead is not counted."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, calls, iters: int = 10) -> float:
+        torch = self.torch
+        for f in calls:
+            f()
+        torch.cuda.synchronize()
+        events = []
+        for _ in range(iters):
+            for f in calls:
+                self.flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                f()
+                e.record()
+                events.append((s, e))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bound(byte_count: float, ops: float, peak_ops: float):
+    tb, to = byte_count / H100_BYTES_PER_S, ops / peak_ops
+    return max(tb, to) * 1e3, tb, to
+
+
+def phase_kernels(torch, timer, dev="cuda"):
+    """Kernel vs plain at the main path's shapes; returns per-kernel rows."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import fused as kf
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def weight(k, n):   # bf16 weights as the model holds them, cast to f32
+        return (randn(k, n, std=k ** -0.5)).to(torch.bfloat16).float()
+
+    d, hd, kvd, ff = 2560, 2560, 640, 6912
+    rows = {}
+    detail = {}
+
+    # ---- shapes of one layer of the decode step (M = 4 slots) ----
+    M = 4
+    mm_shapes = [(M, d, hd), (M, d, kvd), (M, d, kvd), (M, hd, d), (M, ff, d)]
+    xs = {k: randn(M, k) for k in (d, ff)}
+    ws = [weight(k, n) for (_, k, n) in mm_shapes]
+    up, gate = weight(d, ff), weight(d, ff)
+
+    # absmax: 13 per layer (x and w of 5 dense calls, x/up/gate of the MLP)
+    am_in = ([xs[k] for (_, k, _) in mm_shapes] + ws + [xs[d], up, gate])
+    err = 0.0
+    for t in am_in:
+        a, b = kf.absmax(t), ref.absmax_ref(t)
+        if not torch.equal(a, b):
+            fail(f"absmax differs at {tuple(t.shape)}: {a.item()} vs "
+                 f"{b.item()}")
+    b_ms = [bound(4 * t.numel() + 4, t.numel(), H100_F32_FLOPS_PER_S)
+            for t in am_in]
+    rows["absmax"] = dict(
+        max_abs_err=err,
+        ms=timer([lambda t=t: kf.absmax(t) for t in am_in]),
+        plain_ms=timer([lambda t=t: ref.absmax_ref(t) for t in am_in]),
+        library_ms=timer([lambda t=t: torch.amax(t.abs()) for t in am_in]),
+        b=b_ms)
+
+    # fused matmul: 5 per layer; bitwise, plus prefill rows, coded y, and
+    # a ragged shape
+    def scales(x, y):
+        return (torch.clamp_min(kf.absmax(x), ref._TINY),
+                torch.clamp_min(kf.absmax(y), ref._TINY))
+
+    mm_calls, mm_plain, mm_bounds = [], [], []
+    for (m, k, n), w in zip(mm_shapes, ws):
+        x = xs[k]
+        sx, sy = scales(x, w)
+        a = kf.fused_bp_matmul(x, w, sx, sy)
+        b = ref.fused_matmul_ref(x, w, sx, sy)
+        if not torch.equal(a, b):
+            fail(f"fused matmul differs at {(m, k, n)}: max "
+                 f"{(a - b).abs().max().item()}")
+        mm_calls.append(lambda x=x, w=w, sx=sx, sy=sy:
+                        kf.fused_bp_matmul(x, w, sx, sy))
+        mm_plain.append(lambda x=x, w=w, sx=sx, sy=sy:
+                        ref.fused_matmul_ref(x, w, sx, sy))
+        mm_bounds.append(bound(4 * m * k + 4 * k * n + 8 + 4 * m * n,
+                               2 * m * n * 8 * k, H100_INT8_OPS_PER_S))
+    extra = []
+    for (m, k, n) in [(64, d, hd), (64, ff, d), (130, 100, 96), (1, 7, 5)]:
+        x, w = randn(m, k), weight(k, n)
+        sx, sy = scales(x, w)
+        a = kf.fused_bp_matmul(x, w, sx, sy)
+        if not torch.equal(a, ref.fused_matmul_ref(x, w, sx, sy)):
+            fail(f"fused matmul differs at {(m, k, n)}")
+        extra.append((m, k, n))
+    codes, cs = ops.prepare_bp_weight(ws[1])
+    a = ops.oisma_matmul(xs[d], codes, y_scale=cs)
+    if not torch.equal(a, ref.fused_matmul_ref(xs[d], codes, None, cs)):
+        fail("fused matmul with int8-coded y differs")
+    x64 = randn(64, d)
+    p64 = (x64, ws[0], *scales(x64, ws[0]))
+    detail["fused_matmul_prefill_64x2560x2560_ms"] = timer(
+        [lambda: kf.fused_bp_matmul(*p64)])
+    rows["fused_matmul"] = dict(max_abs_err=0.0, ms=timer(mm_calls),
+                                plain_ms=timer(mm_plain, iters=3),
+                                library_ms=None, b=mm_bounds)
+    detail["fused_matmul_checked_extra_shapes"] = extra
+
+    # fused MLP: 1 per layer; 1e-5 relative to the output's magnitude
+    err = 0.0
+    x = xs[d]
+    sx, su, sg = (torch.clamp_min(kf.absmax(t), ref._TINY)
+                  for t in (x, up, gate))
+    for act in ("silu", "gelu", "relu"):
+        for xx in (x, randn(64, d)):
+            s0 = torch.clamp_min(kf.absmax(xx), ref._TINY)
+            a = kf.fused_mlp(xx, up, gate, s0, su, sg, act)
+            b = ref.fused_mlp_ref(xx, up, gate, act, s0, su, sg)
+            e = ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+            if not math.isfinite(e) or e > 1e-5:
+                fail(f"fused MLP ({act}, M={xx.shape[0]}) off by {e:.3g}")
+            err = max(err, (a - b).abs().max().item())
+    rows["fused_mlp"] = dict(
+        max_abs_err=err,
+        ms=timer([lambda: kf.fused_mlp(x, up, gate, sx, su, sg, "silu")]),
+        plain_ms=timer([lambda: ref.fused_mlp_ref(x, up, gate, "silu", sx,
+                                                  su, sg)], iters=3),
+        library_ms=None,
+        b=[bound(4 * M * d + 2 * 4 * d * ff + 12 + 4 * M * ff,
+                 2 * 2 * M * ff * 8 * d, H100_INT8_OPS_PER_S)])
+
+    # decode attention: B=4 rows, 8 kv heads x 4 queries, D=80, S=1024
+    def cache(b, s, kh, dd, empty_tail=0, dead_row=False):
+        kc, ks = ka.quantize_kv(randn(b, s, kh, dd))
+        vc, vs = ka.quantize_kv(randn(b, s, kh, dd))
+        pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+        if empty_tail:
+            pos[0, s - empty_tail:] = -1
+        if dead_row:
+            pos[-1] = -1
+        qp = (pos.max(dim=1).values.clamp_min(0)).to(torch.int32)
+        return kc, ks, vc, vs, pos, qp
+
+    B, KH, G, D, S = 4, 8, 4, 80, 1024
+    q = randn(B, KH, G, D) / math.sqrt(D)
+    main = cache(B, S, KH, D)
+    err = 0.0
+    cases = [(q, main, 4096, None),
+             (q, cache(B, S, KH, D, empty_tail=100, dead_row=True), 100, 30.0),
+             (randn(2, 2, 4, 80), cache(2, 48, 2, 80, empty_tail=5), 17, None)]
+    for qq, cc, win, cap in cases:
+        a = ka.bp8_decode_attention(qq, *cc, win, softcap=cap)
+        b = ka.bp8_decode_attention_ref(qq, *cc, win, softcap=cap)
+        e = (a - b).abs().max().item()
+        if not math.isfinite(e) or e > 1e-5:
+            fail(f"decode attention (S={cc[0].shape[1]}, window {win}, "
+                 f"softcap {cap}) off by {e:.3g}")
+        err = max(err, e)
+    kc, ks, vc, vs, pos, qp = main
+    kd, vd = ka.dequantize_kv(kc, ks), ka.dequantize_kv(vc, vs)
+    qs = q.reshape(B, KH * G, 1, D)
+    kt = kd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vt = vd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    mask = ((pos >= 0) & (pos <= qp[:, None])
+            & (qp[:, None] - pos < 4096))[:, None, None, :]
+    F = torch.nn.functional
+    rows["decode_attention"] = dict(
+        max_abs_err=err,
+        ms=timer([lambda: ka.bp8_decode_attention(q, *main, 4096)]),
+        plain_ms=timer([lambda: ka.bp8_decode_attention_ref(q, *main, 4096)]),
+        library_ms=timer([lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, scale=1.0)]),
+        b=[bound(4 * B * KH * G * D * 2 + 2 * B * S * KH * D
+                 + 2 * 4 * B * S * KH + 4 * B * S + 4 * B,
+                 4 * B * KH * G * S * D, H100_F32_FLOPS_PER_S)])
+    return rows, detail
+
+
+def serve(torch, cfg, params, prompts, max_new, device):
+    from repro_torch.models import build
+    from repro_torch.serve.paged_engine import (PagedEngineConfig,
+                                                PagedRequest, PagedServeEngine)
+    model = build(cfg)
+    ecfg = PagedEngineConfig(slots=4, block_size=16, num_blocks=96,
+                             max_prefill_tokens=64, eos_id=-1)
+    engine = PagedServeEngine(model, params, cfg, ecfg, device=device)
+    reqs = [PagedRequest(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.run(reqs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, engine
+
+
+def profile_serving(torch, cfg, params, prompts):
+    """Device time by kernel and the card's idle share over a short
+    serving run (4 requests, prompts cut to 64 tokens, 8 new tokens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_s, _ = serve(torch, cfg, params,
+                             [p[:64] for p in prompts[:4]], 8, "cuda")
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue        # host ops: their kernels are counted below
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    out = {"wall_s": wall_s, "device_busy_s": busy_s,
+           "idle_share": 1.0 - busy_s / wall_s,
+           "top": [{"name": k[:120], "ms": us / 1e3, "calls": n,
+                    "share_of_busy": us / 1e6 / busy_s}
+                   for us, k, n in rows[:15]]}
+    print(f"profile: wall {wall_s:.3f}s, device busy {busy_s:.3f}s, idle "
+          f"share {out['idle_share']:.3f}")
+    for r in out["top"][:8]:
+        print(f"  {r['share_of_busy']:.3f} {r['ms']:.1f} ms x{r['calls']} "
+              f"{r['name']}")
+    return out
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script needs one NVIDIA card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {__file__}: run from a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_map
+
+    resolve_device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    build.library()
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.1f}s "
+          f"({build.BUILD_ROOT / build.source_hash()})")
+    report = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": build_s}
+
+    # ---- phase 2: kernels vs plain ----
+    timer = Timer(torch)
+    rows, detail = phase_kernels(torch, timer)
+    report["kernel_detail"] = detail
+    for name, r in rows.items():
+        print(f"kernel {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"library_ms {r['library_ms']} max_abs_err {r['max_abs_err']}")
+
+    # ---- phase 3: card vs CPU at full width, 2 layers ----
+    rng = np.random.default_rng(0)
+    full = dataclasses.replace(get_config("h2o_danube_1p8b"),
+                               matmul_mode="bp8_fused", kv_quant="bp8")
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    p_cpu = init_params(build_model(cfg2).schema(), seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
+               for n in (37, 64, 101)]
+    t0 = time.perf_counter()
+    out_gpu, _, _ = serve(torch, cfg2, p_gpu, prompts, 8, "cuda")
+    out_cpu, cpu_s, _ = serve(torch, cfg2, p_cpu, prompts, 8, "cpu")
+    print(f"card vs cpu (2 layers, full width): card {out_gpu}")
+    print(f"                                     cpu  {out_cpu} "
+          f"({cpu_s:.1f}s on the CPU)")
+    if out_gpu != out_cpu:
+        fail("card and CPU paths emit different tokens")
+    del p_cpu, p_gpu
+
+    # ---- phase 4: the main path, full model ----
+    model = build_model(full)
+    params = init_params(model.schema(), seed=0, device="cuda")
+    lens = [32, 256] + [int(n) for n in rng.integers(32, 257, 6)]
+    prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
+               for n in lens]
+    serve(torch, full, params, prompts[:1], 2, "cuda")       # warm-up
+    build.reset_launches()
+    out, dt, engine = serve(torch, full, params, prompts, 16, "cuda")
+    launches = dict(build.LAUNCHES)
+    n_tok = sum(len(v) for v in out.values())
+    print(f"main path: {full.name} {full.num_layers} layers, {len(out)} "
+          f"requests (prompts {lens}), {n_tok} tokens in {dt:.3f}s = "
+          f"{n_tok / dt:.2f} tok/s, engine steps {engine.step_count}, "
+          f"prefill chunks {engine.stats.prefill_chunks}, decode ticks "
+          f"{engine.stats.decode_ticks}")
+    print(f"main path launches: {launches}")
+    for name in SOURCES:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    for rid, toks in out.items():
+        if len(toks) != 16 or not all(0 <= t < full.vocab_size for t in toks):
+            fail(f"request {rid}: bad output {toks}")
+    logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
+        prompts[0][None, :16].astype(np.int64), device="cuda")}, 16)
+    if logits.shape != (1, full.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    report["profile"] = profile_serving(torch, full, params, prompts)
+    report["main_path"] = {
+        "model": full.name, "layers": full.num_layers, "requests": len(out),
+        "prompt_lens": lens, "new_tokens": n_tok, "seconds": dt,
+        "tokens_per_s": n_tok / dt, "engine_steps": engine.step_count,
+        "prefill_chunks": engine.stats.prefill_chunks,
+        "decode_ticks": engine.stats.decode_ticks, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    kernels = []
+    for name in SOURCES:
+        r = rows[name]
+        b = r["b"]
+        t_bytes = sum(x[1] for x in b)
+        t_ops = sum(x[2] for x in b)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": sum(x[0] for x in b),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": r["library_ms"]})
+    report["kernels"] = kernels
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_report.json").write_text(
+        json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,52 @@
+"""Model configuration: the fields the decoder slice reads.
+
+Field names, defaults and meanings follow the reference's
+``ModelConfig``; fields of families and modes not yet ported are left
+out until their slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+ARCH_IDS = ("h2o_danube_1p8b", "qwen2_72b")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # decoder (the only family ported so far)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # attention
+    attention_type: str = "gqa"
+    qkv_bias: bool = False
+    window_size: Optional[int] = None        # SWA window (None = full attn)
+    rope_theta: float = 10_000.0
+    logit_softcap: Optional[float] = None
+    # MLP
+    mlp_gated: bool = True
+    act: str = "silu"
+    # execution policy
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    matmul_mode: str = "bf16"    # bf16 | bp8_fused (others: later slices)
+    # KV-cache storage: "none" keeps bf16 k/v; "bp8" stores int8 BP codes
+    # plus one f32 scale per (token, kv-head)
+    kv_quant: str = "none"
+    attn_chunk: int = 1024       # KV chunk for memory-efficient attention
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    arch = arch.replace("-", "_").replace(".", "p")
+    if arch not in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ported: {ARCH_IDS})")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.smoke_config() if smoke else mod.config()

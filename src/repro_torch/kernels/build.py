@@ -1,0 +1,147 @@
+"""Build and bind the CUDA kernels under ``csrc/``.
+
+All ``.cu`` sources compile in one ``nvcc`` call into a shared library
+with a plain C interface, loaded with ``ctypes``.  The library is built
+at first use (never at import: machines without ``nvcc`` import this
+package too) into ``build/repro_torch_kernels/<hash>/`` at the root of
+the checkout, keyed by a hash of the sources and the flags, so an edit
+rebuilds and an unchanged tree reuses the last build.
+
+Each C entry point launches its kernel (with its memset and, for the BP
+kernels, the epilogue kernel) on the stream it is given and returns
+``cudaGetLastError()``; ``launch`` raises on a non-zero code.  ``launch``
+also counts each call in ``LAUNCHES`` (one per launch of a kernel, and
+nowhere else), so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
+              / "repro_torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+LIB_NAME = "librepro_torch_kernels.so"
+
+#: kernel name -> launches since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+_P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_uint)
+_SIGNATURES = {
+    "oisma_absmax": (_P, _LL, _P, _P),
+    "oisma_fused_matmul": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _U, _U,
+                           _P),
+    "oisma_fused_mlp": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _U, _U, _P),
+    "oisma_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the library if this tree's sources have no build yet."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, lib)        # atomic: concurrent builders never see half
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``oisma_<name>``, raise on its CUDA error code,
+    and count the launch."""
+    err = getattr(library(), f"oisma_{name}")(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if every tensor is on CUDA, False if every one is on the CPU;
+    raise on a mix or on another device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors on mixed or unsupported devices: "
+                     f"{sorted(str(t.device) for t in tensors)}")
+
+
+def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream

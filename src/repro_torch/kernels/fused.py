@@ -1,0 +1,102 @@
+"""Wrappers of the three BP kernels: absmax, fused matmul, fused MLP.
+
+Each replaces a Pallas program of ``repro/kernels/fused.py`` (the CUDA
+sources say how).  For tensors on the CPU the wrapper runs the plain
+version from ``ref.py``; for CUDA tensors it checks device, dtype, shape
+and contiguity, allocates its output (and the BP kernels' int32
+workspace) with ``torch.empty``, launches on the current stream and
+counts the launch.  Nothing falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bp import packed_thresholds
+from repro_torch.kernels.build import launch, on_cuda, require, stream
+from repro_torch.kernels.ref import absmax_ref, fused_matmul_ref, fused_mlp_ref
+
+ACTIVATIONS = {"silu": 0, "gelu": 1, "relu": 2}
+
+__all__ = ["absmax", "fused_bp_matmul", "fused_mlp", "absmax_ref",
+           "fused_matmul_ref", "fused_mlp_ref"]
+
+
+def _require_scale(s: torch.Tensor, name: str) -> None:
+    if s.dtype != torch.float32 or s.numel() != 1 or not s.is_contiguous():
+        raise ValueError(f"{name}: expected one contiguous f32 value, got "
+                         f"{s.dtype} {tuple(s.shape)}")
+
+
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| of an f32 array as a (1, 1) f32 (no floor)."""
+    if not on_cuda(x):
+        return absmax_ref(x)
+    require(x, "x", torch.float32, x.dim())
+    if x.numel() == 0:
+        raise ValueError("absmax of an empty tensor")
+    out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+    launch("absmax", x.data_ptr(), x.numel(), out.data_ptr(), stream())
+    return out
+
+
+def _check_weight(w: torch.Tensor, name: str, k: int) -> bool:
+    coded = w.dtype == torch.int8
+    require(w, name, torch.int8 if coded else torch.float32, 2)
+    if w.shape[0] != k:
+        raise ValueError(f"{name}: contraction mismatch, K={k} vs "
+                         f"{tuple(w.shape)}")
+    return coded
+
+
+def fused_bp_matmul(x: torch.Tensor, y: torch.Tensor, x_scale: torch.Tensor,
+                    y_scale: torch.Tensor) -> torch.Tensor:
+    """OISMA ``x @ y`` with the scales given: x (M, K) f32; y (K, N) f32
+    or int8 sign*level codes; scales one f32 each.  Returns (M, N) f32."""
+    if not on_cuda(x, y, x_scale, y_scale):
+        return fused_matmul_ref(x, y, x_scale, y_scale)
+    require(x, "x", torch.float32, 2)
+    m, k = x.shape
+    coded = _check_weight(y, "y", k)
+    _require_scale(x_scale, "x_scale")
+    _require_scale(y_scale, "y_scale")
+    n = y.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    ws = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if m and n:
+        launch("fused_matmul", x.data_ptr(), y.data_ptr(), int(coded),
+               x_scale.data_ptr(), y_scale.data_ptr(), out.data_ptr(),
+               ws.data_ptr(), m, k, n, packed_thresholds("right"),
+               packed_thresholds("left"), stream())
+    return out
+
+
+def fused_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor,
+              x_scale: torch.Tensor, up_scale: torch.Tensor,
+              gate_scale: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up)`` over BP-encoded operands: x (M, K)
+    f32; w_up, w_gate (K, F), both f32 or both int8 codes."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    if not on_cuda(x, w_up, w_gate, x_scale, up_scale, gate_scale):
+        return fused_mlp_ref(x, w_up, w_gate, act, x_scale, up_scale,
+                             gate_scale)
+    require(x, "x", torch.float32, 2)
+    m, k = x.shape
+    coded = _check_weight(w_up, "w_up", k)
+    if _check_weight(w_gate, "w_gate", k) != coded or \
+            w_gate.shape != w_up.shape:
+        raise ValueError(f"w_up {w_up.dtype} {tuple(w_up.shape)} and w_gate "
+                         f"{w_gate.dtype} {tuple(w_gate.shape)} must agree")
+    for s, name in ((x_scale, "x_scale"), (up_scale, "up_scale"),
+                    (gate_scale, "gate_scale")):
+        _require_scale(s, name)
+    f = w_up.shape[1]
+    out = torch.empty((m, f), dtype=torch.float32, device=x.device)
+    ws = torch.empty((2, m, f), dtype=torch.int32, device=x.device)
+    if m and f:
+        launch("fused_mlp", x.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
+               int(coded), x_scale.data_ptr(), up_scale.data_ptr(),
+               gate_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k, f,
+               ACTIVATIONS[act], packed_thresholds("right"),
+               packed_thresholds("left"), stream())
+    return out

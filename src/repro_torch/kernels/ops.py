@@ -1,0 +1,67 @@
+"""Public ops of the fused BP path: ``oisma_matmul``, ``oisma_mlp`` and
+``prepare_bp_weight``.
+
+``oisma_matmul`` is what ``dense`` dispatches to under
+``matmul_mode="bp8_fused"``: two absmax scans (x and, for a real weight,
+y), each floored at f32 ``tiny``, then one fused kernel that encodes
+both tiles on the fly, multiplies and rescales.  The kernels mask their
+ragged edges, so no operand is padded; zero padding would add nothing
+to the integer accumulation, so the results equal the reference's, which
+pads to its block grid.  A weight encoded once by ``prepare_bp_weight``
+(int8 codes plus its scale) feeds the same kernel as ``y``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quantize import quantize_bp
+from repro_torch.kernels import fused as _f
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def _scale(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(_f.absmax(x), _TINY)
+
+
+def prepare_bp_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode a (K, N) weight once: (int8 sign*level codes, (1, 1) scale)."""
+    q = quantize_bp(w.to(torch.float32))
+    return q.sign * q.levels, q.scale.reshape(1, 1)
+
+
+def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
+                 y_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """OISMA-simulated ``x @ y`` for 2-D operands; ``y`` real (K, N) or
+    int8 codes from ``prepare_bp_weight`` (then ``y_scale`` is needed)."""
+    if x.shape[-1] != y.shape[0]:
+        raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)}")
+    x = x.to(torch.float32).contiguous()
+    if y.dtype == torch.int8:
+        if y_scale is None:
+            raise ValueError("coded y needs y_scale (see prepare_bp_weight)")
+        y = y.contiguous()
+        sy = y_scale.to(torch.float32).reshape(1, 1).contiguous()
+    elif torch.is_floating_point(y):
+        y = y.to(torch.float32).contiguous()
+        sy = _scale(y)
+    else:
+        raise TypeError(f"y must be real or int8 codes, not {y.dtype}")
+    return _f.fused_bp_matmul(x, y, _scale(x), sy)
+
+
+def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
+              act: str = "silu") -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up)``, both BP-fused in one kernel."""
+    m, k = x.shape
+    if k != w_up.shape[0] or w_gate.shape != w_up.shape:
+        raise ValueError(f"mlp shapes: {tuple(x.shape)}, "
+                         f"{tuple(w_up.shape)}, {tuple(w_gate.shape)}")
+    x = x.to(torch.float32).contiguous()
+    up = w_up.to(torch.float32).contiguous()
+    gate = w_gate.to(torch.float32).contiguous()
+    return _f.fused_mlp(x, up, gate, _scale(x), _scale(up), _scale(gate),
+                        act=act)

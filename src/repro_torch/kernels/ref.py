@@ -1,0 +1,116 @@
+"""Plain PyTorch versions of the kernels: the same functions, written as
+tensor code.
+
+The CPU tests hold them against the JAX reference, the wrappers run them
+for tensors on the CPU, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.  They never run on the card's main path.
+
+The BP matmul here is an f32 matmul over the 8x-expanded signed
+bitplanes.  Every plane product is in {-1, 0, 1} and every partial sum
+an integer below 2**24 (|acc| <= 8K), so it is exact in any summation
+order: the result is bitwise that of the integer AND+popcount, scaled in
+the epilogue as ``acc * ((sx * sy) * 0.1)`` in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.bp import NUM_LEVELS, plane_thresholds
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+_K_CHUNK = 512          # K rows expanded at a time (bounds the 8x planes)
+
+
+def absmax_ref(x: torch.Tensor) -> torch.Tensor:
+    """max|x| as a (1, 1) f32, with no floor."""
+    return x.float().abs().amax().reshape(1, 1)
+
+
+def tensor_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor max-|x| scale floored at f32 tiny, as (1, 1)."""
+    return torch.clamp_min(absmax_ref(x), _TINY)
+
+
+def bp_levels(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(|x| / scale * 10), 0, 9)`` in f32, half to even."""
+    return torch.clamp(torch.round(x.abs() / scale * 10.0), 0.0,
+                       float(NUM_LEVELS - 1))
+
+
+def _planes(levels: torch.Tensor, sign: torch.Tensor, which: str):
+    """(..., 8) signed bitplanes: ``sign * (level >= threshold[p])``."""
+    t = torch.tensor(plane_thresholds(which), dtype=torch.float32,
+                     device=levels.device)
+    return (levels[..., None] >= t).to(torch.float32) * sign[..., None]
+
+
+def _scalar(s: torch.Tensor) -> torch.Tensor:
+    return s.to(torch.float32).reshape(1, 1)
+
+
+def fused_matmul_ref(x: torch.Tensor, y: torch.Tensor,
+                     x_scale: Optional[torch.Tensor] = None,
+                     y_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """OISMA ``x @ y``: x encoded right-biased, y left-biased (or given as
+    int8 sign*level codes with ``y_scale``), integer plane products,
+    f32 epilogue.  Scales left as None are the floored max-|.| of the
+    operand, as the reference oracle computes them."""
+    x = x.to(torch.float32)
+    sx = tensor_scale(x) if x_scale is None else _scalar(x_scale)
+    coded = not torch.is_floating_point(y)
+    if coded:
+        if y_scale is None:
+            raise ValueError("coded y needs y_scale")
+        sy = _scalar(y_scale)
+    else:
+        y = y.to(torch.float32)
+        sy = tensor_scale(y) if y_scale is None else _scalar(y_scale)
+    m, k = x.shape
+    n = y.shape[1]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for k0 in range(0, k, _K_CHUNK):
+        xs, ys = x[:, k0:k0 + _K_CHUNK], y[k0:k0 + _K_CHUNK]
+        xp = _planes(bp_levels(xs, sx), torch.sign(xs), "right")
+        if coded:
+            yl = ys.abs().to(torch.float32)
+            ysg = torch.sign(ys).to(torch.float32)
+        else:
+            yl, ysg = bp_levels(ys, sy), torch.sign(ys)
+        yp = _planes(yl, ysg, "left").permute(0, 2, 1)
+        acc += xp.reshape(m, -1) @ yp.reshape(-1, n)
+    return acc * ((sx * sy) * 0.1)
+
+
+def kernel_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The fused MLP's epilogue activation, in f32 (silu as
+    ``g * (1 / (1 + exp(-g)))``, as the reference's logistic expands)."""
+    if kind == "silu":
+        return x * (1.0 / (1.0 + torch.exp(-x)))
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu":
+        return torch.clamp_min(x, 0.0)
+    raise ValueError(kind)
+
+
+def fused_mlp_ref(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor,
+                  act: str = "silu", x_scale: Optional[torch.Tensor] = None,
+                  up_scale: Optional[torch.Tensor] = None,
+                  gate_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up)``, both as OISMA matmuls sharing
+    x's scale."""
+    sx = tensor_scale(x) if x_scale is None else x_scale
+    u = fused_matmul_ref(x, w_up, sx, up_scale)
+    g = fused_matmul_ref(x, w_gate, sx, gate_scale)
+    return kernel_activation(g, act) * u
+
+
+from repro_torch.kernels.attention import (  # noqa: E402  (re-export)
+    bp8_decode_attention_ref, dequantize_kv, quantize_kv)
+
+__all__ = ["absmax_ref", "tensor_scale", "bp_levels", "fused_matmul_ref",
+           "fused_mlp_ref", "kernel_activation", "bp8_decode_attention_ref",
+           "quantize_kv", "dequantize_kv"]

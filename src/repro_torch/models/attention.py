@@ -1,0 +1,291 @@
+"""GQA attention with KV caches, plain or BP8-quantised.
+
+``sdpa`` is the reference's masked-softmax attention written in torch
+einsum/softmax (direct, or an online softmax over KV chunks when the
+cache is long), not ``F.scaled_dot_product_attention``.  Caches carry a
+per-slot position array; ``pos < 0`` marks an empty slot.
+
+Caches are updated in place (``_cache_write`` / ``_cache_append`` write
+into the tensors they are given and return the same dict): the paged
+engine hands each step a freshly gathered view, so nothing else sees
+the writes, and no second copy of the cache is made per layer.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import attention as kq
+from repro_torch.models.layers import ParamDef, apply_rope, dense, linear_def
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# mask + softmax core
+# ---------------------------------------------------------------------------
+
+def _allowed(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+             window: Optional[int]) -> torch.Tensor:
+    """(B, Sq, Skv) boolean mask from absolute positions (kv_pos < 0 =
+    empty slot)."""
+    qp = q_pos[:, :, None]
+    kp = kv_pos[:, None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (qp - kp < window)
+    return ok
+
+
+def _masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, scores, torch.tensor(
+        NEG_INF, dtype=scores.dtype, device=scores.device))
+
+
+def _sdpa_direct(q, k, v, mask, softcap=None):
+    """q: (B,KH,G,Sq,D) k: (B,KH,Skv,D) v: (B,KH,Skv,Dv) mask: (B,Sq,Skv)."""
+    scores = torch.einsum("bhgqd,bhsd->bhgqs", q.to(torch.float32),
+                          k.to(torch.float32))
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    p = torch.softmax(_masked(scores, mask[:, None, None]), dim=-1)
+    return torch.einsum("bhgqs,bhsv->bhgqv", p, v.to(torch.float32))
+
+
+def _sdpa_chunked(q, k, v, q_pos, kv_pos, *, causal, window, chunk,
+                  softcap=None):
+    """Online softmax over KV chunks; never forms (Sq, Skv) in full."""
+    b, kh, g, sq, _ = q.shape
+    dv = v.shape[-1]
+    qf = q.to(torch.float32)
+    m = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kh, g, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, k.shape[2], chunk):
+        kc = k[:, :, c0:c0 + chunk].to(torch.float32)
+        vc = v[:, :, c0:c0 + chunk].to(torch.float32)
+        s = torch.einsum("bhgqd,bhsd->bhgqs", qf, kc)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        mask = _allowed(q_pos, kv_pos[:, c0:c0 + chunk], causal=causal,
+                        window=window)
+        s = _masked(s, mask[:, None, None])
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqs,bhsv->bhgqv", p,
+                                                    vc)
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def sdpa(q, k, v, q_pos, kv_pos, *, causal=True, window=None, chunk=1024,
+         softcap=None):
+    """Grouped SDPA. q: (B,Sq,H,D) k/v: (B,Skv,KH,D[v]) -> (B,Sq,H,Dv) f32."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 1, 3)
+    vt = v.permute(0, 2, 1, 3)
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    qg = qg.to(torch.float32) * scale.to(q.device)
+    if skv > chunk and skv % chunk == 0:
+        out = _sdpa_chunked(qg, kt, vt, q_pos, kv_pos, causal=causal,
+                            window=window, chunk=chunk, softcap=softcap)
+    else:
+        mask = _allowed(q_pos, kv_pos, causal=causal, window=window)
+        out = _sdpa_direct(qg, kt, vt, mask, softcap=softcap)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def kv_quantized(cfg: ModelConfig) -> bool:
+    if cfg.kv_quant == "none":
+        return False
+    if cfg.kv_quant != "bp8":
+        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
+    if cfg.attention_type != "gqa":
+        raise ValueError("kv_quant='bp8' is GQA/MQA-only")
+    return True
+
+
+def kv_cache_spec(cfg: ModelConfig, batch: int,
+                  length: int) -> Dict[str, tuple]:
+    """One attention layer's cache: {leaf: (shape, dtype)}."""
+    kh, d = cfg.num_kv_heads, cfg.head_dim
+    if kv_quantized(cfg):
+        # int8 sign*level codes + one f32 scale per (token, kv-head), so
+        # appends never re-encode neighbours and scales page with tokens
+        return {
+            "k_codes": ((batch, length, kh, d), torch.int8),
+            "k_scale": ((batch, length, kh), torch.float32),
+            "v_codes": ((batch, length, kh, d), torch.int8),
+            "v_scale": ((batch, length, kh), torch.float32),
+            "pos": ((batch, length), torch.int32),
+        }
+    return {
+        "k": ((batch, length, kh, d), torch.bfloat16),
+        "v": ((batch, length, kh, d), torch.bfloat16),
+        "pos": ((batch, length), torch.int32),
+    }
+
+
+def kv_cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axis names per stacked cache leaf: "batch" then "kv_seq"
+    (the names the paged block pool keys on)."""
+    def ax(*names):
+        return ("stack", "batch") + names
+
+    if kv_quantized(cfg):
+        return {"k_codes": ax("kv_seq", "kv_heads", None),
+                "k_scale": ax("kv_seq", "kv_heads"),
+                "v_codes": ax("kv_seq", "kv_heads", None),
+                "v_scale": ax("kv_seq", "kv_heads"),
+                "pos": ax("kv_seq")}
+    return {"k": ax("kv_seq", "kv_heads", None),
+            "v": ax("kv_seq", "kv_heads", None),
+            "pos": ax("kv_seq")}
+
+
+def _cache_write(cache: Dict[str, torch.Tensor],
+                 updates: Dict[str, torch.Tensor],
+                 pos) -> Dict[str, torch.Tensor]:
+    """Write one token (Sq=1) at absolute position ``pos`` (in place).
+
+    ``pos`` is a scalar (every row writes the same slot) or a (B,) tensor
+    (per-row positions, as the paged engine decodes).  Slot = pos % len.
+    """
+    n, b = cache["pos"].shape[1], cache["pos"].shape[0]
+    pos = torch.as_tensor(pos, device=cache["pos"].device)
+    if pos.dim() == 0:
+        slot = int(pos) % n
+        for key, val in updates.items():
+            cache[key][:, slot] = val[:, 0].to(cache[key].dtype)
+        cache["pos"][:, slot] = pos.to(torch.int32)
+        return cache
+    rows = torch.arange(b, device=pos.device)
+    slot = pos.to(torch.int64) % n
+    for key, val in updates.items():
+        cache[key][rows, slot] = val[:, 0].to(cache[key].dtype)
+    cache["pos"][rows, slot] = pos.to(torch.int32)
+    return cache
+
+
+def _cache_append(cache: Dict[str, torch.Tensor],
+                  updates: Dict[str, torch.Tensor],
+                  q_pos: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Append a contiguous chunk at slots [p0, p0+Sq) (in place).
+
+    ``q_pos`` is the (B, Sq) position array of the chunk; rows share one
+    contiguous span, so the slots come from row 0."""
+    slots = q_pos[0].to(torch.int64)
+    for key, val in updates.items():
+        cache[key].index_copy_(1, slots, val.to(cache[key].dtype))
+    cache["pos"].index_copy_(1, slots, q_pos.to(torch.int32))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def gqa_defs(cfg: ModelConfig, dtype=torch.bfloat16):
+    h, kh, d, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    defs = {
+        "wq": linear_def(dm, h * d, "d_model", "heads", dtype),
+        "wk": linear_def(dm, kh * d, "d_model", "kv_heads", dtype),
+        "wv": linear_def(dm, kh * d, "d_model", "kv_heads", dtype),
+        "wo": linear_def(h * d, dm, "heads", "d_model", dtype),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h * d,), ("heads",), dtype, "zeros")
+        defs["bk"] = ParamDef((kh * d,), ("kv_heads",), dtype, "zeros")
+        defs["bv"] = ParamDef((kh * d,), ("kv_heads",), dtype, "zeros")
+    return defs
+
+
+def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+              *, window: Optional[int], cache: Optional[Dict] = None,
+              append: bool = False):
+    """Returns (out, cache).  Modes:
+       * no cache: self-attention over x;
+       * decode (Sq == 1): write one slot, attend over the cache — through
+         the fused kernel when the cache is BP8;
+       * chunked prefill (``append``): append the Sq tokens at slots
+         [p0, p0+Sq) and attend over the whole cache;
+       * prefill: write the cache densely from slot 0.
+    A quantised cache is attended as the values it stores (dequantised
+    codes), so decode over it reproduces prefill's logits.
+    """
+    b, sq, _ = x.shape
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mode = cfg.matmul_mode
+    q = dense(x, p["wq"], mode, p.get("bq")).reshape(b, sq, h, d)
+    k = dense(x, p["wk"], mode, p.get("bk")).reshape(b, sq, kh, d)
+    v = dense(x, p["wv"], mode, p.get("bv")).reshape(b, sq, kh, d)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    q_pos = positions if positions.dim() == 2 else positions[None].expand(
+        b, sq)
+
+    quant = cache is not None and kv_quantized(cfg)
+    if quant:
+        kc, ks = kq.quantize_kv(k)
+        vc, vs = kq.quantize_kv(v)
+        updates = {"k_codes": kc, "k_scale": ks, "v_codes": vc,
+                   "v_scale": vs}
+    else:
+        updates = {"k": k, "v": v}
+    out = None
+    if cache is None:
+        k_all, v_all, kv_pos = k, v, q_pos
+    elif sq == 1:
+        _cache_write(cache, updates, q_pos[:, 0])
+        if quant:
+            # codes stream into the kernel and dequantise on chip; the
+            # cache is never expanded in device memory
+            qg = q[:, 0].reshape(b, kh, h // kh, d).to(torch.float32)
+            qg = qg / torch.sqrt(torch.tensor(d, dtype=torch.float32,
+                                              device=qg.device))
+            o = kq.bp8_decode_attention(
+                qg.contiguous(), cache["k_codes"], cache["k_scale"],
+                cache["v_codes"], cache["v_scale"], cache["pos"],
+                q_pos[:, 0].to(torch.int32).contiguous(), window,
+                softcap=cfg.logit_softcap)
+            out = o.reshape(b, 1, h, d)
+        else:
+            k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
+    elif append:
+        _cache_append(cache, updates, q_pos)
+        if quant:
+            k_all = kq.dequantize_kv(cache["k_codes"], cache["k_scale"])
+            v_all = kq.dequantize_kv(cache["v_codes"], cache["v_scale"])
+        else:
+            k_all, v_all = cache["k"], cache["v"]
+        kv_pos = cache["pos"]
+    else:
+        for key, val in updates.items():
+            cache[key][:, :sq] = val.to(cache[key].dtype)
+        cache["pos"][:, :sq] = q_pos.to(torch.int32)
+        if quant:
+            k_all, v_all = kq.dequantize_kv(kc, ks), kq.dequantize_kv(vc, vs)
+        else:
+            k_all, v_all = k, v
+        kv_pos = q_pos
+    if out is None:
+        out = sdpa(q, k_all, v_all, q_pos, kv_pos, causal=True,
+                   window=window, chunk=cfg.attn_chunk,
+                   softcap=cfg.logit_softcap)
+    out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
+    return out, cache

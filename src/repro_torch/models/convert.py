@@ -1,0 +1,41 @@
+"""Reference param tree (as numpy) -> the port's parameters.
+
+The reference's trees and the port's schema have the same nesting, leaf
+names and shapes.  bf16 leaves arrive as float32 numpy arrays (exact:
+every bf16 value is an f32 value) and go back to ``torch.bfloat16``.
+Turning the reference's arrays into numpy is the caller's step, so this
+module never touches jax.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import build
+from repro_torch.models.params import tree_leaves
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """Convert ``tree`` (nested dicts of numpy arrays, the reference's
+    layout) to tensors of the port's schema dtypes on ``device``."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for path, d in tree_leaves(build(cfg).schema()):
+        node = tree
+        for k in path:
+            node = node[k]
+        arr = np.asarray(node)
+        if arr.shape != d.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, schema "
+                             f"wants {d.shape}")
+        leaf = torch.from_numpy(np.array(arr)).to(
+            device=dev, dtype=d.dtype)
+        dst = out
+        for k in path[:-1]:
+            dst = dst.setdefault(k, {})
+        dst[path[-1]] = leaf
+    return out

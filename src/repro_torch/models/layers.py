@@ -1,0 +1,135 @@
+"""Common layers: matmul dispatch, RMSNorm, rotary embeddings, MLP.
+
+``dense`` is where the paper's technique plugs in: under
+``matmul_mode="bp8_fused"`` every projection is an OISMA matmul run by
+the fused kernel; ``"bf16"`` is the plain bf16 matmul.  The other modes
+of the reference (bp8, bp8_lowrank, fp8) come with a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops as _ops
+from repro_torch.models.params import ParamDef
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, mode: str = "bf16",
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (..., K) @ w: (K, N) under the configured matmul mode."""
+    if mode == "bf16":
+        y = torch.matmul(x, w.to(x.dtype))
+    elif mode == "bp8_fused":
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        y = _ops.oisma_matmul(x2, w.to(torch.float32))
+        y = y.reshape(*lead, w.shape[-1]).to(x.dtype)
+    else:
+        raise NotImplementedError(
+            f"matmul mode {mode!r} is not ported yet (bf16, bp8_fused)")
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def linear_def(d_in: int, d_out: int, in_axis: str, out_axis: str,
+               dtype=torch.bfloat16, scale: float = 1.0) -> ParamDef:
+    return ParamDef((d_in, d_out), (in_axis, out_axis), dtype, "normal", scale)
+
+
+def norm_def(d: int) -> ParamDef:
+    return ParamDef((d,), (None,), torch.float32, "zeros")
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32 with the ``(1 + gamma)`` gain, cast back to x's type."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + gamma.to(torch.float32))).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,).  Half-split rotation."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)              # (D/2,)
+    pos = positions.to(torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    angles = pos[..., None] * freqs[None, None, :]            # (B, S, D/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    cos = torch.cos(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A constant in x's dtype, as a weak-typed Python scalar is in jax."""
+    return torch.tensor(v, dtype=like.dtype)
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """jax.nn's definitions op for op, each op rounding to x's dtype, so a
+    bf16 activation rounds where the reference's does (XLA expands the
+    logistic as ``1 / (1 + exp(-x))`` in the input's type)."""
+    if kind == "silu":
+        one = _const(1.0, x)
+        return x * (one / (one + torch.exp(-x)))
+    if kind == "gelu":                      # the tanh approximation
+        inner = x + _const(0.044715, x) * (x * x * x)
+        cdf = _const(0.5, x) * (_const(1.0, x) + torch.tanh(
+            _const(math.sqrt(2 / math.pi), x) * inner))
+        return x * cdf
+    if kind == "relu":
+        return torch.clamp_min(x, 0)
+    raise ValueError(kind)
+
+
+def mlp_defs(d_model: int, d_ff: int, gated: bool, dtype=torch.bfloat16):
+    defs = {
+        "up": linear_def(d_model, d_ff, "d_model", "ffn", dtype),
+        "down": linear_def(d_ff, d_model, "ffn", "d_model", dtype),
+    }
+    if gated:
+        defs["gate"] = linear_def(d_model, d_ff, "d_model", "ffn", dtype)
+    return defs
+
+
+def mlp_apply(p, x: torch.Tensor, act: str, gated: bool,
+              mode: str) -> torch.Tensor:
+    if mode == "bp8_fused" and gated and act in ("silu", "gelu", "relu"):
+        # one kernel: up and gate share one BP encode of x, and the two
+        # (tokens, d_ff) projections never reach device memory
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        up = _ops.oisma_mlp(x2, p["up"].to(torch.float32),
+                            p["gate"].to(torch.float32), act=act)
+        up = up.reshape(*lead, p["up"].shape[-1]).to(x.dtype)
+    else:
+        up = dense(x, p["up"], mode)
+        if gated:
+            up = activation(dense(x, p["gate"], mode), act) * up
+        else:
+            up = activation(up, act)
+    return dense(up, p["down"], mode)
+
+
+def embed_def(vocab: int, d_model: int, dtype=torch.bfloat16) -> ParamDef:
+    return ParamDef((vocab, d_model), ("vocab", "d_model"), dtype, "embed")
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]

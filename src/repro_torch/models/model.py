@@ -1,0 +1,159 @@
+"""``DecoderModel``: the decoder family's serving entry points.
+
+Functional like the reference: parameters are a nested dict of tensors
+(layer parameters stacked on a leading ``L`` axis) passed to every call,
+and a Python loop over the layers takes the place of ``lax.scan``.
+Caches are nested dicts of stacked tensors, updated in place layer by
+layer.  The model runs wherever its parameters live; every entry point
+runs under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_def, embed_lookup, linear_def,
+                                       mlp_apply, mlp_defs, norm_def,
+                                       rms_norm)
+from repro_torch.models.params import stack, tree_map
+
+BIG_WINDOW = 1 << 30  # "no window"
+
+
+def _decoder_layer_defs(cfg: ModelConfig):
+    return {"ln1": norm_def(cfg.d_model), "ln2": norm_def(cfg.d_model),
+            "attn": attn.gqa_defs(cfg),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)}
+
+
+def _layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer attention windows (BIG_WINDOW = full attention)."""
+    return np.full((cfg.num_layers,), cfg.window_size or BIG_WINDOW,
+                   np.int64)
+
+
+def _decoder_layer_apply(p, cfg: ModelConfig, x, positions, *, window,
+                         cache=None, append=False):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
+                              cache=cache, append=append)
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    m = mlp_apply(p["mlp"], h, cfg.act, cfg.mlp_gated, cfg.matmul_mode)
+    return x + m, cache
+
+
+def _decode_positions(pos, b: int, device) -> torch.Tensor:
+    """(B, 1) positions from a scalar (lock-step) or (B,) (paged) pos."""
+    pos = torch.as_tensor(pos, device=device)
+    if pos.dim() == 1:
+        return pos.reshape(b, 1)
+    return pos.reshape(1, 1).expand(b, 1)
+
+
+@dataclasses.dataclass
+class DecoderModel:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if cfg.family != "decoder" or cfg.attention_type != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name}: only GQA decoders are ported so far")
+        attn.kv_quantized(cfg)            # validates kv_quant
+
+    # ---------------- schema / caches ----------------
+    def schema(self):
+        cfg = self.cfg
+        sch: Dict[str, Any] = {
+            "embed": embed_def(cfg.vocab_size, cfg.d_model),
+            "final_norm": norm_def(cfg.d_model),
+            "layers": stack(_decoder_layer_defs(cfg), cfg.num_layers),
+        }
+        if not cfg.tie_embeddings:
+            sch["head"] = linear_def(cfg.d_model, cfg.vocab_size,
+                                     "d_model", "vocab")
+        return sch
+
+    def cache_spec(self, batch: int, length: int):
+        """{"layers": {leaf: ((L, batch, length, ...), dtype)}}."""
+        one = attn.kv_cache_spec(self.cfg, batch, length)
+        return {"layers": {k: ((self.cfg.num_layers,) + shape, dtype)
+                           for k, (shape, dtype) in one.items()}}
+
+    def cache_axes(self):
+        return {"layers": attn.kv_cache_axes(self.cfg)}
+
+    def init_cache(self, batch: int, length: int, device):
+        """Empty cache: zeros, and ``pos = -1`` (empty) everywhere."""
+        return tree_map(
+            lambda sd: (torch.full(sd[0], -1, dtype=sd[1], device=device)
+                        if sd[1] == torch.int32 else
+                        torch.zeros(sd[0], dtype=sd[1], device=device)),
+            self.cache_spec(batch, length), )
+
+    # ---------------- forward over the stack ----------------
+    def _stack(self, params, x, positions, caches, mode: str):
+        cfg = self.cfg
+        windows = _layer_windows(cfg)
+        layers = params["layers"]
+        for i in range(cfg.num_layers):
+            lp = tree_map(lambda t: t[i], layers)
+            lc = (None if caches is None else
+                  {k: v[i] for k, v in caches["layers"].items()})
+            x, _ = _decoder_layer_apply(lp, cfg, x, positions,
+                                        window=int(windows[i]), cache=lc,
+                                        append=mode == "prefill_chunk")
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+
+    def _embed_in(self, params, batch):
+        return embed_lookup(params["embed"], batch["tokens"])
+
+    def _logits(self, params, h):
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        logits = torch.matmul(h.to(torch.float32), w.to(torch.float32))
+        if self.cfg.logit_softcap:
+            sc = self.cfg.logit_softcap
+            logits = torch.tanh(logits / sc) * sc
+        return logits
+
+    # ---------------- entry points ----------------
+    @torch.inference_mode()
+    def prefill(self, params, batch, cache_len: int):
+        """Prefill ``batch["tokens"]`` (B, S) into a fresh cache of
+        ``cache_len``; returns (last-position logits (B, V), cache)."""
+        x = self._embed_in(params, batch)
+        b, s, _ = x.shape
+        cache = self.init_cache(b, cache_len, x.device)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h, cache = self._stack(params, x, positions, cache, "prefill")
+        return self._logits(params, h[:, -1:])[:, 0], cache
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params, batch, cache, pos0):
+        """Append a chunk at positions [pos0, pos0+C): it attends over the
+        whole cache, which already holds every earlier chunk."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed_lookup(params["embed"], tokens)
+        positions = (int(pos0) + torch.arange(s, device=x.device))[None]
+        h, cache = self._stack(params, x, positions.expand(b, s), cache,
+                               "prefill_chunk")
+        return self._logits(params, h[:, -1:])[:, 0], cache
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, cache, pos):
+        """One token per row: ``tokens`` (B, 1); ``pos`` a scalar or (B,)."""
+        x = embed_lookup(params["embed"], tokens)
+        positions = _decode_positions(pos, x.shape[0], x.device)
+        h, cache = self._stack(params, x, positions, cache, "decode")
+        return self._logits(params, h)[:, 0], cache
+
+
+def build(cfg: ModelConfig) -> DecoderModel:
+    return DecoderModel(cfg)

@@ -1,0 +1,188 @@
+"""Paged KV cache: per-slot block tables over a shared physical pool.
+
+The sequence axis is cut into fixed ``block_size`` blocks pooled across
+slots; each slot holds a block table, the ordered physical block ids
+whose concatenation is its logical cache.  Blocks are reserved at
+admission and returned when the request retires.
+
+Every cache leaf of the decoder has a ``kv_seq`` axis right after its
+``batch`` axis (``cache_axes``); in the pool that pair becomes
+(physical block, offset in block).  For each step the engine *gathers* a
+dense view — ``(rows, V)`` tokens, ``V`` a power-of-two number of
+blocks — runs the model on it, then *commits* only the newly written
+cells.  Rows padded past a slot's table gather block 0, the permanently
+unallocated **null block**: its positions are -1, which the attention
+masks treat as empty, so padding needs no extra masking.  Freed blocks
+are scrubbed back to ``pos = -1``, so reuse needs no reset.
+
+The pool tensors live on the model's device; gather and commit are
+``index_select`` / indexed writes there.
+"""
+from __future__ import annotations
+
+import collections
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models.params import tree_leaves
+
+NULL_BLOCK = 0
+
+
+def round_up_pow2(n: int) -> int:
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
+class BlockAllocator:
+    """Free-list over physical blocks ``1..num_blocks-1`` (0 is null)."""
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self._free = collections.deque(range(1, num_blocks))
+        self._used: set = set()
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"pool exhausted: want {n} blocks, {len(self._free)} free")
+        out = [self._free.popleft() for _ in range(n)]
+        self._used.update(out)
+        return out
+
+    def free(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            if b not in self._used:
+                raise RuntimeError(f"double free of block {b}")
+            self._used.discard(b)
+            self._free.append(b)
+
+
+def _set_path(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+class PagedCache:
+    """Physical pool + block tables + gather/commit cache surgery."""
+
+    def __init__(self, model, *, slots: int, num_blocks: int,
+                 block_size: int, device):
+        if block_size & (block_size - 1):
+            raise ValueError("block_size must be a power of two")
+        if num_blocks < 2:
+            raise ValueError("need at least the null block plus one")
+        self.slots, self.num_blocks = slots, num_blocks
+        self.block_size = block_size
+        self.device = torch.device(device)
+        self.allocator = BlockAllocator(num_blocks)
+        self.tables: List[List[int]] = [[] for _ in range(slots)]
+        axes = dict(tree_leaves(model.cache_axes()))
+        self.paths = []
+        self.pool: List[torch.Tensor] = []
+        self._bi: List[int] = []
+        for path, (shape, dtype) in tree_leaves(
+                model.cache_spec(num_blocks, block_size)):
+            ax = axes[path]
+            bi = ax.index("batch")
+            if ax[bi + 1:bi + 2] != ("kv_seq",):
+                raise NotImplementedError(
+                    f"cache leaf {path} has no kv_seq axis after batch; "
+                    "dense per-slot leaves come with their families")
+            self.paths.append(path)
+            self._bi.append(bi)
+            self.pool.append(
+                torch.full(shape, -1, dtype=dtype, device=self.device)
+                if dtype == torch.int32 else
+                torch.zeros(shape, dtype=dtype, device=self.device))
+
+    # -- block accounting ----------------------------------------------
+
+    @property
+    def free_blocks(self) -> int:
+        return self.allocator.free_blocks
+
+    def alloc_slot(self, slot: int, n_blocks: int) -> None:
+        if self.tables[slot]:
+            raise RuntimeError(f"slot {slot} already allocated")
+        self.tables[slot] = self.allocator.alloc(n_blocks)
+
+    def free_slot(self, slot: int) -> None:
+        """Return the slot's blocks, scrubbing their positions to -1 (the
+        pool invariant: every free block reads as empty)."""
+        blocks = self.tables[slot]
+        self.tables[slot] = []
+        if not blocks:
+            return
+        barr = torch.as_tensor(blocks, dtype=torch.int64, device=self.device)
+        for leaf, bi in zip(self.pool, self._bi):
+            if leaf.dtype == torch.int32:
+                leaf.index_fill_(bi, barr, -1)
+        self.allocator.free(blocks)
+
+    # -- gather / commit -----------------------------------------------
+
+    def view_len(self, tokens_needed: int) -> int:
+        """Dense-view length covering ``tokens_needed``: a power-of-two
+        count of blocks."""
+        return round_up_pow2(-(-tokens_needed // self.block_size)) \
+            * self.block_size
+
+    def gather(self, slot_ids: Sequence[int], view_tokens: int):
+        """Dense cache view for ``slot_ids`` rows, ``view_tokens`` wide."""
+        nb = view_tokens // self.block_size
+        table = np.full((len(slot_ids), nb), NULL_BLOCK, np.int64)
+        for r, s in enumerate(slot_ids):
+            row = self.tables[s][:nb]
+            table[r, :len(row)] = row
+        flat = torch.from_numpy(table.reshape(-1)).to(self.device)
+        view: dict = {}
+        for path, leaf, bi in zip(self.paths, self.pool, self._bi):
+            g = leaf.index_select(bi, flat)
+            shape = (g.shape[:bi] + (len(slot_ids), view_tokens)
+                     + g.shape[bi + 2:])
+            _set_path(view, path, g.reshape(shape))
+        return view
+
+    def _commit(self, view, rows, blocks, offs, positions) -> None:
+        vleaves = dict(tree_leaves(view))
+        for path, leaf, bi in zip(self.paths, self.pool, self._bi):
+            lead = (slice(None),) * bi
+            vals = vleaves[path][lead + (rows, positions)]
+            leaf[lead + (blocks, offs)] = vals.to(leaf.dtype)
+
+    def _index(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int64),
+                               device=self.device)
+
+    def commit_prefill(self, view, slot: int, pos0: int, chunk: int) -> None:
+        """Write a slot's prefilled cells ``[pos0, pos0+chunk)`` from a
+        gathered batch-1 view back to the pool."""
+        offsets = np.arange(pos0, pos0 + chunk)
+        table = self.tables[slot]
+        blocks = [table[o // self.block_size] for o in offsets]
+        self._commit(view, self._index(np.zeros(chunk)),
+                     self._index(blocks),
+                     self._index(offsets % self.block_size),
+                     self._index(offsets))
+
+    def commit_decode(self, view, rows: Sequence[int],
+                      slot_ids: Sequence[int],
+                      positions: Sequence[int]) -> None:
+        """Write each live row's newly decoded cell (``positions[j]`` of
+        slot ``slot_ids[j]``, view row ``rows[j]``) back to the pool.
+        Padding rows are simply not listed."""
+        if not rows:
+            return
+        pos = np.asarray(positions, np.int64)
+        blocks = [self.tables[s][p // self.block_size]
+                  for s, p in zip(slot_ids, pos)]
+        self._commit(view, self._index(rows), self._index(blocks),
+                     self._index(pos % self.block_size), self._index(pos))

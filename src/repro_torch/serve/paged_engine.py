@@ -1,0 +1,273 @@
+"""Paged serving engine: chunked prefill interleaved with decode over a
+block-pool KV cache, fed by a priority scheduler.
+
+Engine loop (one ``step()``):
+
+1. **retire** — finished slots return their blocks to the pool;
+2. **admit** — the scheduler offers queued requests that fit the free
+   slots/blocks (strict priority, FIFO within a class); each admitted
+   request reserves its worst-case block count so it can always finish;
+3. **prefill tick** — every prefilling slot advances by one chunk: the
+   largest power of two <= min(tokens left, ``max_prefill_tokens``).  A
+   long prompt takes several steps and interleaves with other slots'
+   decode, and the power-of-two decomposition (13 -> 8+4+1) pads
+   nothing, so chunked prefill equals one-shot prefill;
+4. **decode tick** — all decoding slots advance one token in one batched
+   ``decode_step`` with per-row positions, padded to a constant batch of
+   ``slots`` rows (padding rows gather the null block and their writes
+   are never committed).
+
+Time is counted in engine steps (one ``step()`` = one unit); each request
+keeps its lifecycle record (arrival, admission, first token, finish).
+The reference's observability hooks (tracer spans, registry series,
+retrace watchdog) come with the observability slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.serve.paged_cache import PagedCache
+from repro_torch.serve.sampling import check_temperature, sample_tokens
+from repro_torch.serve.scheduler import PriorityScheduler
+
+
+@dataclasses.dataclass
+class PagedRequest:
+    rid: int
+    prompt: np.ndarray                  # (P,) int32
+    max_new_tokens: int = 16
+    priority: int = 0                   # lower = more urgent
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # engine-step timestamps (filled in by the engine)
+    arrival_step: int = 0
+    admitted_step: Optional[int] = None
+    first_token_step: Optional[int] = None
+    finish_step: Optional[int] = None
+
+
+@dataclasses.dataclass
+class PagedEngineConfig:
+    slots: int = 4                      # concurrent sequences
+    block_size: int = 8                 # tokens per cache block (2^k)
+    num_blocks: int = 64                # physical pool incl. null block
+    max_prefill_tokens: int = 16        # per-slot chunk budget per step (2^k)
+    eos_id: int = 1
+    temperature: float = 0.0            # 0 = greedy (the only mode so far)
+    max_steps: int = 100_000            # drain-loop safety valve
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Shape and tick accounting; ``snapshot()`` is JSON-serializable."""
+    prefill_shapes: Set[Tuple] = dataclasses.field(default_factory=set)
+    decode_shapes: Set[Tuple] = dataclasses.field(default_factory=set)
+    steps: int = 0
+    prefill_chunks: int = 0
+    decode_ticks: int = 0
+    admitted: int = 0
+    rejected: int = 0
+    deferred_steps: int = 0             # a free slot, but the head-of-line
+                                        # request did not fit the blocks
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "steps": self.steps,
+            "prefill_chunks": self.prefill_chunks,
+            "decode_ticks": self.decode_ticks,
+            "admitted": self.admitted,
+            "rejected": self.rejected,
+            "deferred_steps": self.deferred_steps,
+            "prefill_shapes": sorted([list(s) for s in self.prefill_shapes]),
+            "decode_shapes": sorted([list(s) for s in self.decode_shapes]),
+            "prefill_shape_count": len(self.prefill_shapes),
+            "decode_shape_count": len(self.decode_shapes),
+        }
+
+
+def lifecycle_record(req: PagedRequest) -> Dict[str, Any]:
+    """One finished request's lifecycle as a flat JSON-safe record."""
+    return {
+        "kind": "request",
+        "rid": req.rid,
+        "priority": req.priority,
+        "prompt_tokens": int(len(req.prompt)),
+        "max_new_tokens": req.max_new_tokens,
+        "output_tokens": len(req.out_tokens),
+        "arrival_step": req.arrival_step,
+        "admitted_step": req.admitted_step,
+        "first_token_step": req.first_token_step,
+        "finish_step": req.finish_step,
+        "queue_wait_steps": req.admitted_step - req.arrival_step,
+        "ttft_steps": req.first_token_step - req.arrival_step,
+        "latency_steps": req.finish_step - req.arrival_step,
+    }
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: PagedRequest
+    pos: int = 0                        # tokens written to the cache so far
+    next_token: Optional[int] = None    # sampled, not yet written
+
+    @property
+    def prefilling(self) -> bool:
+        return self.pos < len(self.req.prompt)
+
+
+class PagedServeEngine:
+    """model: a ``DecoderModel``; ``params`` must live on ``device``."""
+
+    @torch.inference_mode()
+    def __init__(self, model, params, cfg: ModelConfig,
+                 ecfg: PagedEngineConfig, device="cuda"):
+        if ecfg.max_prefill_tokens & (ecfg.max_prefill_tokens - 1):
+            raise ValueError("max_prefill_tokens must be a power of two")
+        check_temperature(ecfg.temperature)
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.model, self.params, self.cfg, self.ecfg = model, params, cfg, ecfg
+        self.cache = PagedCache(model, slots=ecfg.slots,
+                                num_blocks=ecfg.num_blocks,
+                                block_size=ecfg.block_size,
+                                device=self.device)
+        self.scheduler = PriorityScheduler(ecfg.num_blocks - 1,
+                                           ecfg.block_size)
+        self._slots: List[Optional[_Slot]] = [None] * ecfg.slots
+        self.step_count = 0
+        self.results: Dict[int, List[int]] = {}
+        self.lifecycle: List[Dict[str, Any]] = []
+        self.stats = EngineStats()
+
+    @property
+    def live(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    # -- request intake -------------------------------------------------
+
+    def submit(self, req: PagedRequest) -> None:
+        req.arrival_step = self.step_count
+        if not self.scheduler.submit(req):
+            self.stats.rejected += 1
+            raise ValueError(
+                f"request {req.rid}: prompt {len(req.prompt)} + max_new "
+                f"{req.max_new_tokens} exceeds the cache pool "
+                f"({self.ecfg.num_blocks - 1} blocks of "
+                f"{self.ecfg.block_size})")
+
+    # -- engine loop ----------------------------------------------------
+
+    @torch.inference_mode()
+    def step(self) -> None:
+        """Retire, admit, prefill one chunk per prefilling slot, decode one
+        token for every decoding slot."""
+        self._retire()
+        self._admit()
+        self._prefill_tick()
+        self._decode_tick()
+        self.step_count += 1
+        self.stats.steps += 1
+
+    def run(self, requests: List[PagedRequest]) -> Dict[int, List[int]]:
+        """Serve ``requests`` to completion (batch mode: all arrive now)."""
+        for r in requests:
+            self.submit(r)
+        self.drain()
+        return {r.rid: r.out_tokens for r in requests}
+
+    @torch.inference_mode()
+    def drain(self) -> None:
+        start = self.step_count
+        while self.scheduler.pending or any(self._slots):
+            if self.step_count - start > self.ecfg.max_steps:
+                raise RuntimeError("engine failed to drain (livelock?)")
+            self.step()
+        self._retire()                   # collect the last finishers
+
+    # -- phases ---------------------------------------------------------
+
+    def _retire(self) -> None:
+        for i, s in enumerate(self._slots):
+            if s is not None and s.req.done:
+                self.results[s.req.rid] = s.req.out_tokens
+                self.lifecycle.append(lifecycle_record(s.req))
+                self.cache.free_slot(i)
+                self._slots[i] = None
+
+    def _admit(self) -> None:
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        admitted = self.scheduler.admit(len(free), self.cache.free_blocks)
+        for req in admitted:
+            i = free.pop(0)
+            self.cache.alloc_slot(i, self.scheduler.reservation(req))
+            req.admitted_step = self.step_count
+            self._slots[i] = _Slot(req)
+        self.stats.admitted += len(admitted)
+        if free and self.scheduler.pending:
+            self.stats.deferred_steps += 1
+
+    def _prefill_tick(self) -> None:
+        for i, s in enumerate(self._slots):
+            if s is None or not s.prefilling:
+                continue
+            remaining = len(s.req.prompt) - s.pos
+            chunk = min(remaining, self.ecfg.max_prefill_tokens)
+            chunk = 1 << (chunk.bit_length() - 1)      # largest 2^k <= chunk
+            view_tokens = self.cache.view_len(s.pos + chunk)
+            tokens = torch.from_numpy(np.ascontiguousarray(
+                s.req.prompt[s.pos:s.pos + chunk], np.int64))[None]
+            batch = {"tokens": tokens.to(self.device)}
+            view = self.cache.gather([i], view_tokens)
+            logits, view = self.model.prefill_chunk(self.params, batch, view,
+                                                    s.pos)
+            self.cache.commit_prefill(view, i, s.pos, chunk)
+            self.stats.prefill_shapes.add((chunk, view_tokens, False))
+            self.stats.prefill_chunks += 1
+            s.pos += chunk
+            if not s.prefilling:          # prompt complete: first token
+                tok = sample_tokens(logits, self.ecfg.temperature)[0]
+                self._accept(s, int(tok))
+
+    def _decode_tick(self) -> None:
+        live = [(i, s) for i, s in enumerate(self._slots)
+                if s is not None and not s.prefilling and not s.req.done]
+        if not live:
+            return
+        n = self.ecfg.slots
+        slot_ids = np.zeros(n, np.int64)      # padding rows gather slot 0
+        tokens = np.zeros(n, np.int64)
+        positions = np.zeros(n, np.int32)
+        for r, (i, s) in enumerate(live):
+            slot_ids[r], tokens[r], positions[r] = i, s.next_token, s.pos
+        view_tokens = self.cache.view_len(int(positions.max()) + 1)
+        view = self.cache.gather(slot_ids.tolist(), view_tokens)
+        logits, view = self.model.decode_step(
+            self.params, torch.from_numpy(tokens)[:, None].to(self.device),
+            view, torch.from_numpy(positions).to(self.device))
+        self.cache.commit_decode(view, list(range(len(live))),
+                                 [i for i, _ in live],
+                                 [s.pos for _, s in live])
+        self.stats.decode_shapes.add((n, view_tokens))
+        self.stats.decode_ticks += 1
+        sampled = sample_tokens(logits, self.ecfg.temperature)
+        for r, (i, s) in enumerate(live):
+            s.pos += 1                     # the input token is now cached
+            self._accept(s, int(sampled[r]))
+
+    def _accept(self, s: _Slot, tok: int) -> None:
+        req = s.req
+        if req.first_token_step is None:
+            req.first_token_step = self.step_count
+        req.out_tokens.append(tok)
+        s.next_token = tok
+        if tok == self.ecfg.eos_id or len(req.out_tokens) >= req.max_new_tokens:
+            req.done = True
+            req.finish_step = self.step_count

@@ -1,0 +1,70 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: without a card they skip.  The file imports neither jax
+nor the reference package, so it runs on a machine that has only torch
+and nvcc:
+
+    python -m pytest -m gpu tests/test_torch_cuda.py -q
+
+Tolerances: absmax and the fused matmul (real and int8-coded y) bitwise;
+the fused MLP and decode attention 1e-5 (the card's expf/tanhf and the
+chunked softmax differ from the host's in the last bits).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import attention as tattn  # noqa: E402
+from repro_torch.kernels import fused as tfused  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+SHAPES = [(130, 100, 96), (16, 128, 128), (1, 7, 5), (129, 257, 130),
+          (4, 2560, 640), (64, 640, 260)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dev, scale=2.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_bp_kernels_match_plain(m, k, n, cuda, rng):
+    x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    assert torch.equal(tfused.absmax(y), tref.absmax_ref(y))
+    got = tops.oisma_matmul(x, y)
+    assert torch.equal(got, tref.fused_matmul_ref(x, y))
+    codes, scale = tops.prepare_bp_weight(y)
+    assert torch.equal(tops.oisma_matmul(x, codes, y_scale=scale), got)
+    for act in ("silu", "gelu", "relu"):
+        torch.testing.assert_close(tops.oisma_mlp(x, y, y, act=act),
+                                   tref.fused_mlp_ref(x, y, y, act),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", [(None, None), (17, 30.0)])
+@pytest.mark.parametrize("s,d", [(64, 16), (48, 80), (1024, 80)])
+def test_decode_attention_matches_plain(s, d, window, softcap, cuda, rng):
+    b, kh, g = 3, 2, 4
+    q = _randn(rng, (b, kh, g, d), cuda, 1.0) / d ** 0.5
+    kc, ks = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    vc, vs = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).repeat(b, 1)
+    pos[0, s - 7:] = -1                       # empty tail
+    pos[-1] = -1                              # an all-masked row
+    qp = torch.tensor([s - 8, s - 1, s - 1], dtype=torch.int32, device=cuda)
+    args = (q, kc, ks, vc, vs, pos, qp, window)
+    torch.testing.assert_close(
+        tattn.bp8_decode_attention(*args, softcap=softcap),
+        tattn.bp8_decode_attention_ref(*args, softcap=softcap),
+        rtol=0, atol=1e-5)
