@@ -3,31 +3,46 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and ignored):
+Phases (any failure exits non-zero; nothing is caught and ignored; each
+prints its wall time):
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a and print the build seconds.
 2. Hold every kernel against its plain PyTorch version on the card, at the
    shapes h2o-danube-1.8b's decode step and prefill chunks give it
-   (absmax and matmul bitwise, MLP within 1e-5 relative, decode attention
-   within 1e-5), and time kernel, plain version and, where one exists,
-   the PyTorch library call computing the same function (CUDA events,
-   L2 flushed before every call).
+   (absmax, matmul, codes matmul and BP quantise bitwise, popcount exact,
+   MLP within 1e-5 relative, decode attention within 1e-5), and time
+   kernel, plain version and, where one exists, the PyTorch library call
+   computing the same function (CUDA events, L2 flushed before every
+   call).
 3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
    weights on both devices, 3 prompts, 8 greedy tokens each through the
-   paged engine; the card's kernel path and the CPU's plain path must emit
-   the same tokens.
-4. The main path: the full h2o-danube-1.8b (24 layers, full width, seeded
-   random weights) in ``bp8_fused`` + ``bp8`` serves 8 requests (prompts of
-   32-256 tokens, 16 new tokens each) through ``PagedServeEngine`` (4 slots,
-   block 16, prefill chunk 64).  Launch counts are zeroed just before and
-   read just after; every kernel must have launched.  A short run under
-   ``torch.profiler`` then gives device time by kernel and the idle share.
+   paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
+   cache); the card's path and the CPU's plain path must emit the same
+   tokens.
+4. The served path: the full h2o-danube-1.8b (24 layers, full width,
+   seeded random weights) in ``bp8_fused`` + ``bp8`` serves 8 requests
+   (prompts of 32-256 tokens, 16 new tokens each) through
+   ``PagedServeEngine`` (4 slots, block 16, prefill chunk 64).  Launch
+   counts are zeroed just before and read just after; every kernel of the
+   path must have launched.  A short run under ``torch.profiler`` then
+   gives device time by kernel and the idle share.
+5. The unfused path: ``oisma_matmul(impl="unfused")`` at every projection
+   shape of one h2o-danube-1.8b layer (4 and 256 rows) and at
+   qwen2-72b's 256x8192x29568, with its accumulation periphery (the
+   signed AND bits of every output as a row, summed by the popcount
+   kernel, equal the codes matmul).  Launch counts are zeroed just before
+   and read just after; each result must equal ``impl="fused"`` bitwise.
+6. Full depth in ``bp8``: the 24-layer h2o-danube-1.8b with
+   ``matmul_mode="bp8"`` serves 2 requests x 8 new tokens after a short
+   warm-up; tokens/s, peak device memory, and a profile of one short
+   request.
 
-The last lines are the kernels JSON, the card line, and
-``{"ok": true, "device": {...}}``.  A detail report goes to
-``chiprun_out/chip_smoke_report.json``.
+The last lines are the kernels JSON (each kernel with the path its
+launches come from), the card line, and ``{"ok": true, "device":
+{...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
+output directory beside this script.
 """
 from __future__ import annotations
 
@@ -48,13 +63,22 @@ REPLACES = {
     "fused_matmul": "src/repro/kernels/fused.py:140",
     "fused_mlp": "src/repro/kernels/fused.py:228",
     "decode_attention": "src/repro/kernels/attention.py:121",
+    "bp_matmul": "src/repro/kernels/bp_matmul.py:95",
+    "bp_quantize": "src/repro/kernels/bp_matmul.py:179",
+    "popcount": "src/repro/kernels/bp_matmul.py:147",
 }
-SOURCES = {
-    "absmax": "src/repro_torch/kernels/csrc/absmax.cu",
-    "fused_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
-    "fused_mlp": "src/repro_torch/kernels/csrc/fused_mlp.cu",
-    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
-}
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+           for name in REPLACES}
+#: the path whose launch counts each kernel reports
+PATHS = {"absmax": "serve_bp8_fused", "fused_matmul": "serve_bp8_fused",
+         "fused_mlp": "serve_bp8_fused", "decode_attention": "serve_bp8_fused",
+         "bp_matmul": "unfused", "bp_quantize": "unfused",
+         "popcount": "unfused"}
+# h2o-danube-1.8b: d_model, q/o width, k/v width, d_ff
+D, HD, KVD, FF = 2560, 2560, 640, 6912
+#: (K, N) of one layer's projections: wq, wk, wv, wo, up, gate, down
+LAYER = [(D, HD), (D, KVD), (D, KVD), (HD, D), (D, FF), (D, FF), (FF, D)]
+QWEN_UP = (256, 8192, 29568)     # qwen2-72b's up projection at 256 tokens
 
 
 def fail(msg: str) -> None:
@@ -258,7 +282,100 @@ def phase_kernels(torch, timer, dev="cuda"):
         b=[bound(4 * B * KH * G * D * 2 + 2 * B * S * KH * D
                  + 2 * 4 * B * S * KH + 4 * B * S + 4 * B,
                  4 * B * KH * G * S * D, H100_F32_FLOPS_PER_S)])
+    unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev)
     return rows, detail
+
+
+def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
+    """The unfused pipeline's kernels against their plain versions: the
+    codes matmul and the BP quantise bitwise, popcount exact; timed over
+    one layer at 256 rows (the unfused path's prefill half)."""
+    from repro_torch.kernels import bp_matmul as kb
+    from repro_torch.kernels import ref
+    from repro_torch.core.quantize import quantize_bp
+
+    def codes_of(t):
+        return ref.bp_quantize_ref(t, ref.tensor_scale(t))
+
+    def ints(*shape, lo, hi):     # seeded integers in [lo, hi] as int8
+        return (randn(*shape) * (hi - lo) / 4).round().clamp(lo, hi).to(
+            torch.int8)
+
+    # codes matmul: codes of real data at the layer's shapes, plus ragged
+    checked = []
+    for (m, k, n) in [(4, D, HD), (4, D, KVD), (4, FF, D), (256, D, HD),
+                      (256, D, FF)]:
+        xc, yc = codes_of(randn(m, k)), codes_of(weight(k, n))
+        if not torch.equal(kb.bp_matmul(xc, yc), ref.bp_matmul_ref(xc, yc)):
+            fail(f"codes matmul differs at {(m, k, n)}")
+        checked.append((m, k, n))
+    for (m, k, n) in [(130, 100, 96), (1, 7, 5), (100, 300, 130)]:
+        xc, yc = ints(m, k, lo=-9, hi=9), ints(k, n, lo=-9, hi=9)
+        if not torch.equal(kb.bp_matmul(xc, yc), ref.bp_matmul_ref(xc, yc)):
+            fail(f"codes matmul differs at {(m, k, n)}")
+        checked.append((m, k, n))
+    detail["bp_matmul_checked_shapes"] = checked
+    M = 256
+    xcs = {k: codes_of(randn(M, k)) for k in (D, FF)}
+    ycs = [codes_of(weight(k, n)) for (k, n) in LAYER]
+    pairs = [(xcs[k], yc) for (k, _), yc in zip(LAYER, ycs)]
+    rows["bp_matmul"] = dict(
+        max_abs_err=0.0,
+        ms=timer([lambda a=a, b=b: kb.bp_matmul(a, b) for a, b in pairs]),
+        plain_ms=timer([lambda a=a, b=b: ref.bp_matmul_ref(a, b)
+                        for a, b in pairs], iters=3),
+        library_ms=None,
+        b=[bound(M * k + k * n + 4 * M * n, 2 * M * n * 8 * k,
+                 H100_INT8_OPS_PER_S) for (k, n) in LAYER])
+    detail["bp_matmul_256x2560x6912_ms"] = timer(
+        [lambda: kb.bp_matmul(xcs[D], ycs[4])])
+    detail["bp_matmul_4x2560x2560_ms"] = timer(
+        [lambda: kb.bp_matmul(xcs[D][:4].contiguous(), ycs[0])])
+
+    # BP quantise: the 14 operands of one layer at 256 rows (7 x, 7 w),
+    # bitwise, plus half-level boundaries and quantize_bp's codes
+    ins = [randn(M, k) for (k, _) in LAYER] + [weight(k, n)
+                                                for (k, n) in LAYER]
+    scales = [ref.tensor_scale(t) for t in ins]
+    for t, sc in zip(ins, scales):
+        if not torch.equal(kb.bp_quantize(t, sc), ref.bp_quantize_ref(t, sc)):
+            fail(f"BP quantise differs at {tuple(t.shape)}")
+    q = quantize_bp(ins[-1])
+    if not torch.equal(kb.bp_quantize(ins[-1], scales[-1]), ref.to_codes(q)):
+        fail("BP quantise differs from quantize_bp's codes")
+    sc = scales[7]
+    mid = (torch.arange(9, device=dev) + 0.5) * sc[0, 0] / 10
+    edge = torch.cat([mid, torch.nextafter(mid, mid + 1),
+                      torch.nextafter(mid, mid - 1)])
+    edge = torch.cat([edge, -edge])
+    if not torch.equal(kb.bp_quantize(edge, sc), ref.bp_quantize_ref(edge, sc)):
+        fail("BP quantise differs at half-level boundaries")
+    rows["bp_quantize"] = dict(
+        max_abs_err=0.0,
+        ms=timer([lambda t=t, c=c: kb.bp_quantize(t, c)
+                  for t, c in zip(ins, scales)]),
+        plain_ms=timer([lambda t=t, c=c: ref.bp_quantize_ref(t, c)
+                        for t, c in zip(ins, scales)]),
+        library_ms=None,
+        b=[bound(5 * t.numel() + 4, 3 * t.numel(), H100_F32_FLOPS_PER_S)
+           for t in ins])
+
+    # popcount: 0/1 tiles, then int8, uint8 and bool tiles of any value
+    tiles = [ints(*shape, lo=0, hi=1) for shape in ((4096, 2048), (300, 100))]
+    wide = ints(513, 1000, lo=-128, hi=127)
+    tiles += [wide, wide.to(torch.uint8), wide > 0]
+    for t in tiles:
+        if not torch.equal(kb.popcount_accumulate(t),
+                           ref.popcount_accumulate_ref(t)):
+            fail(f"popcount differs at {tuple(t.shape)} {t.dtype}")
+    big = tiles[0]
+    r, c = big.shape
+    rows["popcount"] = dict(
+        max_abs_err=0.0,
+        ms=timer([lambda: kb.popcount_accumulate(big)]),
+        plain_ms=timer([lambda: ref.popcount_accumulate_ref(big)]),
+        library_ms=timer([lambda: big.sum(-1, dtype=torch.int32)]),
+        b=[bound(r * c + 4 * r, r * c, H100_F32_FLOPS_PER_S)])
 
 
 def serve(torch, cfg, params, prompts, max_new, device):
@@ -280,15 +397,16 @@ def serve(torch, cfg, params, prompts, max_new, device):
     return out, time.perf_counter() - t0, engine
 
 
-def profile_serving(torch, cfg, params, prompts):
+def profile_serving(torch, cfg, params, prompts, prompt_len=64, new=8):
     """Device time by kernel and the card's idle share over a short
-    serving run (4 requests, prompts cut to 64 tokens, 8 new tokens)."""
+    serving run (the prompts cut to ``prompt_len`` tokens, ``new`` new
+    tokens each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_s, _ = serve(torch, cfg, params,
-                             [p[:64] for p in prompts[:4]], 8, "cuda")
+                             [p[:prompt_len] for p in prompts], new, "cuda")
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -313,6 +431,111 @@ def profile_serving(torch, cfg, params, prompts):
     return out
 
 
+def phase_unfused(torch, timer, build, dev="cuda"):
+    """The unfused pipeline at full width, with its periphery; returns the
+    path's launch counts and a detail record."""
+    from repro_torch.core.bp import bitstreams_bp8
+    from repro_torch.kernels import bp_matmul as kb
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def weight(k, n):
+        return randn(k, n, std=k ** -0.5).to(torch.bfloat16).float()
+
+    ws = {kn: weight(*kn) for kn in dict.fromkeys(LAYER)}
+    cases = [(randn(m, k), ws[(k, n)]) for m in (4, 256) for (k, n) in LAYER]
+    m, k, n = QWEN_UP
+    cases.append((randn(m, k), weight(k, n)))
+    # periphery: 32 x 64 outputs over K = 256 (rows of 2048 signed bits)
+    px, pw = randn(32, 256), weight(256, 64)
+    tab_r, tab_l = (torch.as_tensor(bitstreams_bp8(w), dtype=torch.int8,
+                                    device=dev) for w in ("right", "left"))
+    torch.cuda.synchronize()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    outs = [ops.oisma_matmul(x, w, impl="unfused") for x, w in cases]
+    xc = kb.bp_quantize(px, ref.tensor_scale(px))
+    wc = kb.bp_quantize(pw, ref.tensor_scale(pw))
+    bits = (tab_r[xc.abs().long()][:, :, None, :]
+            * tab_l[wc.abs().long()][None]
+            * (torch.sign(xc)[:, :, None] * torch.sign(wc)[None])[..., None])
+    rows = bits.permute(0, 2, 1, 3).reshape(32 * 64, 256 * 8).contiguous()
+    periphery = ops.popcount_accumulate(rows).reshape(32, 64)
+    product = ops.bp_matmul_codes(xc, wc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+
+    for (x, w), a in zip(cases, outs):
+        b = ops.oisma_matmul(x, w)
+        if not torch.equal(a, b):
+            fail(f"unfused != fused at {tuple(x.shape)} @ {tuple(w.shape)}: "
+                 f"max {(a - b).abs().max().item()}")
+    if not torch.equal(periphery.to(torch.float32), product):
+        fail("periphery popcounts differ from the codes matmul")
+    layer = {}
+    for m in (4, 256):
+        pairs = [(x, w) for x, w in cases[:-1] if x.shape[0] == m]
+        layer[m] = dict(
+            unfused_ms=timer([lambda x=x, w=w: ops.oisma_matmul(
+                x, w, impl="unfused") for x, w in pairs]),
+            fused_ms=timer([lambda x=x, w=w: ops.oisma_matmul(x, w)
+                            for x, w in pairs]))
+    x, w = cases[-1]
+    qwen = dict(unfused_ms=timer([lambda: ops.oisma_matmul(
+        x, w, impl="unfused")], iters=3),
+        fused_ms=timer([lambda: ops.oisma_matmul(x, w)], iters=3))
+    qs = "x".join(map(str, QWEN_UP))
+    print(f"unfused path: {len(cases)} matmuls (7 per layer at M 4 and 256, "
+          f"qwen2-72b {qs}) + periphery in {wall:.3f}s, all equal to the "
+          f"fused path bitwise; launches {launches}")
+    for m, r in layer.items():
+        print(f"  one layer, M {m}: unfused {r['unfused_ms']:.4f} ms, fused "
+              f"{r['fused_ms']:.4f} ms")
+    print(f"  qwen2-72b {qs}: unfused {qwen['unfused_ms']:.4f} ms, fused "
+          f"{qwen['fused_ms']:.4f} ms")
+    return launches, {"wall_s": wall, "launches": launches,
+                      "layer_ms": layer, f"qwen2_72b_{qs}_ms": qwen}
+
+
+class Phase:
+    """Prints a phase's wall time when it ends."""
+
+    def __init__(self, name: str, report: dict):
+        self.name, self.report = name, report
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.report.setdefault("phase_s", {})[self.name] = dt
+        print(f"phase {self.name}: {dt:.1f}s")
+
+
+def card_vs_cpu(torch, cfg, prompts):
+    """The same seeded 2-layer weights on the card and on the CPU must emit
+    the same greedy tokens."""
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_map
+    p_cpu = init_params(build_model(cfg).schema(), seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    out_gpu, _, _ = serve(torch, cfg, p_gpu, prompts, 8, "cuda")
+    out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, 8, "cpu")
+    print(f"card vs cpu ({cfg.matmul_mode}, 2 layers, full width): card "
+          f"{out_gpu}")
+    print(f"    cpu {out_cpu} ({cpu_s:.1f}s on the CPU)")
+    if out_gpu != out_cpu:
+        fail(f"{cfg.matmul_mode}: card and CPU paths emit different tokens")
+    return cpu_s
+
+
 def main() -> None:
     try:
         import torch
@@ -329,87 +552,121 @@ def main() -> None:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
     from repro_torch.models import build as build_model
-    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.params import init_params
 
     resolve_device("cuda")
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.library()
-    build_s = time.perf_counter() - t0
-    print(f"kernels built in {build_s:.1f}s "
-          f"({build.BUILD_ROOT / build.source_hash()})")
     report = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "build_s": build_s}
+              "cuda": torch.version.cuda}
+    with Phase("1 build", report):
+        build.build(verbose=True)
+        build.library()
+    print(f"kernels built ({build.BUILD_ROOT / build.source_hash()})")
 
     # ---- phase 2: kernels vs plain ----
-    timer = Timer(torch)
-    rows, detail = phase_kernels(torch, timer)
+    with Phase("2 kernels vs plain", report):
+        timer = Timer(torch)
+        rows, detail = phase_kernels(torch, timer)
     report["kernel_detail"] = detail
     for name, r in rows.items():
         print(f"kernel {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms']} max_abs_err {r['max_abs_err']}")
+    for k, v in detail.items():
+        if k.endswith("_ms"):
+            print(f"  {k}: {v:.4f}")
 
     # ---- phase 3: card vs CPU at full width, 2 layers ----
     rng = np.random.default_rng(0)
     full = dataclasses.replace(get_config("h2o_danube_1p8b"),
                                matmul_mode="bp8_fused", kv_quant="bp8")
-    cfg2 = dataclasses.replace(full, num_layers=2)
-    p_cpu = init_params(build_model(cfg2).schema(), seed=0, device="cpu")
-    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
     prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
                for n in (37, 64, 101)]
-    t0 = time.perf_counter()
-    out_gpu, _, _ = serve(torch, cfg2, p_gpu, prompts, 8, "cuda")
-    out_cpu, cpu_s, _ = serve(torch, cfg2, p_cpu, prompts, 8, "cpu")
-    print(f"card vs cpu (2 layers, full width): card {out_gpu}")
-    print(f"                                     cpu  {out_cpu} "
-          f"({cpu_s:.1f}s on the CPU)")
-    if out_gpu != out_cpu:
-        fail("card and CPU paths emit different tokens")
-    del p_cpu, p_gpu
+    report["cpu_s"] = {}
+    for mode in ("bp8_fused", "bp8"):
+        with Phase(f"3 card vs cpu, {mode}", report):
+            cfg2 = dataclasses.replace(full, num_layers=2, matmul_mode=mode)
+            report["cpu_s"][mode] = card_vs_cpu(torch, cfg2, prompts)
 
-    # ---- phase 4: the main path, full model ----
-    model = build_model(full)
-    params = init_params(model.schema(), seed=0, device="cuda")
-    lens = [32, 256] + [int(n) for n in rng.integers(32, 257, 6)]
-    prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
-               for n in lens]
-    serve(torch, full, params, prompts[:1], 2, "cuda")       # warm-up
-    build.reset_launches()
-    out, dt, engine = serve(torch, full, params, prompts, 16, "cuda")
-    launches = dict(build.LAUNCHES)
-    n_tok = sum(len(v) for v in out.values())
-    print(f"main path: {full.name} {full.num_layers} layers, {len(out)} "
-          f"requests (prompts {lens}), {n_tok} tokens in {dt:.3f}s = "
-          f"{n_tok / dt:.2f} tok/s, engine steps {engine.step_count}, "
-          f"prefill chunks {engine.stats.prefill_chunks}, decode ticks "
-          f"{engine.stats.decode_ticks}")
-    print(f"main path launches: {launches}")
-    for name in SOURCES:
-        if launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    for rid, toks in out.items():
-        if len(toks) != 16 or not all(0 <= t < full.vocab_size for t in toks):
-            fail(f"request {rid}: bad output {toks}")
-    logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
-        prompts[0][None, :16].astype(np.int64), device="cuda")}, 16)
-    if logits.shape != (1, full.vocab_size) or \
-            not bool(torch.isfinite(logits).all()):
-        fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
-             f"{bool(torch.isfinite(logits).all())}")
-    report["profile"] = profile_serving(torch, full, params, prompts)
-    report["main_path"] = {
-        "model": full.name, "layers": full.num_layers, "requests": len(out),
-        "prompt_lens": lens, "new_tokens": n_tok, "seconds": dt,
-        "tokens_per_s": n_tok / dt, "engine_steps": engine.step_count,
-        "prefill_chunks": engine.stats.prefill_chunks,
-        "decode_ticks": engine.stats.decode_ticks, "launches": launches,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # ---- phase 4: the served path, full model ----
+    with Phase("4 served path (bp8_fused)", report):
+        model = build_model(full)
+        params = init_params(model.schema(), seed=0, device="cuda")
+        lens = [32, 256] + [int(n) for n in rng.integers(32, 257, 6)]
+        prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        serve(torch, full, params, prompts[:1], 2, "cuda")       # warm-up
+        build.reset_launches()
+        out, dt, engine = serve(torch, full, params, prompts, 16, "cuda")
+        launches = dict(build.LAUNCHES)
+        n_tok = sum(len(v) for v in out.values())
+        print(f"served path: {full.name} {full.num_layers} layers, "
+              f"{len(out)} requests (prompts {lens}), {n_tok} tokens in "
+              f"{dt:.3f}s = {n_tok / dt:.2f} tok/s, engine steps "
+              f"{engine.step_count}, prefill chunks "
+              f"{engine.stats.prefill_chunks}, decode ticks "
+              f"{engine.stats.decode_ticks}")
+        print(f"served path launches: {launches}")
+        for name, path in PATHS.items():
+            if path == "serve_bp8_fused" and launches.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched on the served path")
+        for rid, toks in out.items():
+            if len(toks) != 16 or not all(0 <= t < full.vocab_size
+                                          for t in toks):
+                fail(f"request {rid}: bad output {toks}")
+        logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
+            prompts[0][None, :16].astype(np.int64), device="cuda")}, 16)
+        if logits.shape != (1, full.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        report["profile"] = profile_serving(torch, full, params, prompts[:4])
+        report["main_path"] = {
+            "model": full.name, "layers": full.num_layers,
+            "requests": len(out), "prompt_lens": lens, "new_tokens": n_tok,
+            "seconds": dt, "tokens_per_s": n_tok / dt,
+            "engine_steps": engine.step_count,
+            "prefill_chunks": engine.stats.prefill_chunks,
+            "decode_ticks": engine.stats.decode_ticks, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
+    # ---- phase 5: the unfused pipeline at full width ----
+    with Phase("5 unfused path", report):
+        unfused_launches, report["unfused_path"] = phase_unfused(
+            torch, timer, build)
+        for name, path in PATHS.items():
+            if path == "unfused" and unfused_launches.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched on the unfused path")
+
+    # ---- phase 6: full depth in bp8 ----
+    with Phase("6 full depth, bp8", report):
+        full8 = dataclasses.replace(full, matmul_mode="bp8")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        serve(torch, full8, params, prompts[:1], 2, "cuda")       # warm-up
+        warm_s = time.perf_counter() - t0
+        out, dt, engine = serve(torch, full8, params, prompts[:2], 8, "cuda")
+        n_tok = sum(len(v) for v in out.values())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for rid, toks in out.items():
+            if len(toks) != 8 or not all(0 <= t < full.vocab_size
+                                         for t in toks):
+                fail(f"bp8 request {rid}: bad output {toks}")
+        print(f"bp8 full depth: {full8.num_layers} layers, 2 requests "
+              f"(prompts {lens[:2]}), {n_tok} tokens in {dt:.3f}s = "
+              f"{n_tok / dt:.2f} tok/s (warm-up: 1 request x 2 tokens in "
+              f"{warm_s:.3f}s), engine steps {engine.step_count}, peak "
+              f"device memory {peak:.2f} GB")
+        report["bp8_full_depth"] = {
+            "seconds": dt, "warm_up_s": warm_s, "new_tokens": n_tok,
+            "tokens_per_s": n_tok / dt, "engine_steps": engine.step_count,
+            "peak_mem_gb": peak,
+            "profile": profile_serving(torch, full8, params, prompts[:1],
+                                       16, 2)}
+
+    path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches}
     kernels = []
     for name in SOURCES:
         r = rows[name]
@@ -418,7 +675,8 @@ def main() -> None:
         t_ops = sum(x[2] for x in b)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "path": PATHS[name],
+            "launches": path_launches[PATHS[name]][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": sum(x[0] for x in b),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

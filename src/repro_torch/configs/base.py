@@ -36,7 +36,7 @@ class ModelConfig:
     # execution policy
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
-    matmul_mode: str = "bf16"    # bf16 | bp8_fused (others: later slices)
+    matmul_mode: str = "bf16"    # bf16 | bp8 | bp8_lowrank | bp8_fused | fp8
     # KV-cache storage: "none" keeps bf16 k/v; "bp8" stores int8 BP codes
     # plus one f32 scale per (token, kv-head)
     kv_quant: str = "none"

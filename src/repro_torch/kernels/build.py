@@ -47,6 +47,9 @@ _SIGNATURES = {
                         _U, _U, _P),
     "oisma_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, _I, _P),
+    "oisma_bp_matmul": (_P, _P, _P, _P, _I, _I, _I, _U, _U, _P),
+    "oisma_bp_quantize": (_P, _P, _P, _LL, _P),
+    "oisma_popcount": (_P, _I, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

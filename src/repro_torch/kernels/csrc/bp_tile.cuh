@@ -1,4 +1,5 @@
-// Integer core shared by the fused BP matmul and the fused BP MLP.
+// Integer core shared by the fused BP matmul, the fused BP MLP and the
+// codes matmul of the unfused pipeline.
 //
 // The TPU kernels (repro/kernels/fused.py) expand each operand tile into
 // 8 signed bitplanes in VMEM and run one f32 MXU dot over the 8x-wide
@@ -17,7 +18,9 @@
 // workspace with atomics: integer addition in any order gives the same
 // bits.  A second kernel turns the sums into f32 only in the epilogue,
 // acc * ((sx * sy) * 0.1f), in the reference's association, so the result
-// is bitwise the reference's.
+// is bitwise the reference's.  The codes matmul (XC: x given as int8
+// sign*level codes, y too) skips the encode and writes the integer sums as
+// f32 unscaled.
 //
 // Encode: level = clip(rint(|v| / s * 10), 0, 9): a true f32 division, a
 // multiply, round half to even (rintf, not roundf).  The build uses no fast
@@ -108,6 +111,36 @@ __device__ __forceinline__ void load_x(const float* __restrict__ x, int M,
   }
 }
 
+// The same x tile from int8 sign*level codes: one 4-byte load per word
+// when aligned, expanded with the right-biased thresholds, not encoded.
+template <int BM>
+__device__ __forceinline__ void load_x_codes(const int8_t* __restrict__ x,
+                                             int M, int K, int m0, int k0,
+                                             uint32_t thr, bool vec,
+                                             uint32_t (*xp)[kKW],
+                                             uint32_t (*xn)[kKW]) {
+  for (int w = threadIdx.x; w < BM * kKW; w += kThreads) {
+    const int r = w / kKW, kw = w % kKW, m = m0 + r, kb = k0 + 4 * kw;
+    int v[4] = {0, 0, 0, 0};
+    if (m < M) {
+      const int8_t* row = x + (size_t)m * K;
+      if (vec && kb + 3 < K) {
+        const char4 b = *reinterpret_cast<const char4*>(row + kb);
+        v[0] = b.x; v[1] = b.y; v[2] = b.z; v[3] = b.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (kb + j < K) v[j] = row[kb + j];
+      }
+    }
+    uint32_t p = 0, q = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pack_code(v[j], thr, j, p, q);
+    xp[r][kw] = p;
+    xn[r][kw] = q;
+  }
+}
+
 // y tile (kBK k x kBN columns) -> packed left-biased words.  Thread t owns
 // k rows 4*(t/16)..+3 and columns 4*(t%16)..+3: four 16-byte loads (f32)
 // or four 4-byte loads (int8 codes) when the rows allow it.  CODED: y holds
@@ -169,10 +202,11 @@ __device__ __forceinline__ void load_y(const void* __restrict__ y, int K,
 
 // One (BM x kBN) output tile over the k steps [z*steps, (z+1)*steps) of
 // split z = blockIdx.z, added into the int32 workspace ws (NW planes of
-// M x N: ws[w] += x @ y_w).
-template <int BM, int NW, bool CODED>
+// M x N: ws[w] += x @ y_w).  XC: x holds int8 codes (f32 otherwise); a
+// coded operand's scale is not read and may be null.
+template <int BM, int NW, bool CODED, bool XC>
 __global__ void __launch_bounds__(kThreads)
-bp_tile_kernel(const float* __restrict__ x, const void* __restrict__ y0,
+bp_tile_kernel(const void* __restrict__ x, const void* __restrict__ y0,
                const void* __restrict__ y1, const float* __restrict__ sx_p,
                const float* __restrict__ s0_p, const float* __restrict__ s1_p,
                int* __restrict__ ws, int M, int K, int N, int steps,
@@ -182,7 +216,8 @@ bp_tile_kernel(const float* __restrict__ x, const void* __restrict__ y0,
   __shared__ uint32_t yp[NW][kKW][kBN], yn[NW][kKW][kBN];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
   const int tn = threadIdx.x % kBN, tm = (threadIdx.x / kBN) * TM;
-  const float sx = *sx_p, s0 = *s0_p, s1 = NW == 2 ? *s1_p : 0.0f;
+  const float sx = XC ? 0.0f : *sx_p, s0 = CODED ? 0.0f : *s0_p,
+              s1 = NW == 2 && !CODED ? *s1_p : 0.0f;
   int acc[NW][TM];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
@@ -192,7 +227,12 @@ bp_tile_kernel(const float* __restrict__ x, const void* __restrict__ y0,
   const int z = (int)blockIdx.z;
   const int k_end = min(K, (z + 1) * steps * kBK);
   for (int k0 = z * steps * kBK; k0 < k_end; k0 += kBK) {
-    load_x<BM>(x, M, K, m0, k0, sx, thr_r, x_vec, xp, xn);
+    if (XC)
+      load_x_codes<BM>(static_cast<const int8_t*>(x), M, K, m0, k0, thr_r,
+                       x_vec, xp, xn);
+    else
+      load_x<BM>(static_cast<const float*>(x), M, K, m0, k0, sx, thr_r,
+                 x_vec, xp, xn);
     load_y<CODED>(y0, K, N, k0, n0, s0, thr_l, y_vec, yp[0], yn[0]);
     if (NW == 2)
       load_y<CODED>(y1, K, N, k0, n0, s1, thr_l, y_vec, yp[NW - 1], yn[NW - 1]);
@@ -235,7 +275,8 @@ __device__ __forceinline__ float activate(float g, int act) {
   return fmaxf(g, 0.0f);
 }
 
-// Epilogue: NW = 1: out = acc * ((sx * s0) * 0.1f).  NW = 2 (the MLP):
+// Epilogue: NW = 0 (the codes matmul): out = (float)acc, unscaled.
+// NW = 1: out = acc * ((sx * s0) * 0.1f).  NW = 2 (the MLP):
 // out = act(acc_gate * ((sx * s1) * 0.1f)) * (acc_up * ((sx * s0) * 0.1f)).
 template <int NW>
 __global__ void bp_epilogue_kernel(const int* __restrict__ ws,
@@ -246,6 +287,10 @@ __global__ void bp_epilogue_kernel(const int* __restrict__ ws,
                                    int act) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= size) return;
+  if (NW == 0) {
+    out[i] = (float)ws[i];
+    return;
+  }
   const float sx = *sx_p;
   const float u = (float)ws[i] * ((sx * *s0_p) * 0.1f);
   if (NW == 1) {
@@ -268,9 +313,10 @@ inline int sm_count() {
 }
 
 // Zero the workspace, run the tiles split over K so that about
-// kBlocksPerSm blocks land on every SM, then the epilogue.
-template <int NW, bool CODED>
-inline int launch_bp(const float* x, const void* y0, const void* y1,
+// kBlocksPerSm blocks land on every SM, then the epilogue (unscaled when x
+// is coded).
+template <int NW, bool CODED, bool XC = false>
+inline int launch_bp(const void* x, const void* y0, const void* y1,
                      const float* sx, const float* s0, const float* s1,
                      float* out, int* ws, int M, int K, int N, int act,
                      uint32_t thr_r, uint32_t thr_l, cudaStream_t stream) {
@@ -282,27 +328,29 @@ inline int launch_bp(const float* x, const void* y0, const void* y1,
   const int total = (K + kBK - 1) / kBK;
   int splits = (kBlocksPerSm * sm_count() + tiles_n * tiles_m - 1) /
                (tiles_n * tiles_m);
-  splits = splits < 1 ? 1 : (splits > total ? total : splits);
-  const int steps = (total + splits - 1) / splits;
+  splits = splits > total ? total : splits;
+  splits = splits < 1 ? 1 : splits;
+  const int steps = total > splits ? (total + splits - 1) / splits : 1;
   splits = (total + steps - 1) / steps;
-  const bool x_vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool x_vec = K % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(x) & (XC ? 3 : 15)) == 0;
   const uintptr_t align = CODED ? 3 : 15;
   const bool y_vec = N % 4 == 0 &&
                      (reinterpret_cast<uintptr_t>(y0) & align) == 0 &&
                      (NW == 1 || (reinterpret_cast<uintptr_t>(y1) & align) == 0);
   const dim3 grid(tiles_n, tiles_m, splits);
-  if (bm == 8)
-    bp_tile_kernel<8, NW, CODED><<<grid, kThreads, 0, stream>>>(
+  if (bm == 8 && total > 0)       // K = 0: the zeroed workspace is the sum
+    bp_tile_kernel<8, NW, CODED, XC><<<grid, kThreads, 0, stream>>>(
         x, y0, y1, sx, s0, s1, ws, M, K, N, steps, thr_r, thr_l, x_vec, y_vec);
-  else
-    bp_tile_kernel<32, NW, CODED><<<grid, kThreads, 0, stream>>>(
+  else if (total > 0)
+    bp_tile_kernel<32, NW, CODED, XC><<<grid, kThreads, 0, stream>>>(
         x, y0, y1, sx, s0, s1, ws, M, K, N, steps, thr_r, thr_l, x_vec, y_vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
-  bp_epilogue_kernel<NW><<<(unsigned)((size + threads - 1) / threads), threads,
-                           0, stream>>>(ws, sx, s0, s1, out, (long long)size,
-                                        act);
+  const unsigned blocks = (unsigned)((size + threads - 1) / threads);
+  bp_epilogue_kernel<(XC ? 0 : NW)><<<blocks, threads, 0, stream>>>(
+      ws, sx, s0, s1, out, (long long)size, act);
   return (int)cudaGetLastError();
 }
 

@@ -1,14 +1,22 @@
-"""Public ops of the fused BP path: ``oisma_matmul``, ``oisma_mlp`` and
-``prepare_bp_weight``.
+"""Public ops of the BP kernels: ``oisma_matmul`` (fused and unfused),
+``oisma_mlp``, ``prepare_bp_weight``, ``bp_matmul_codes`` and
+``popcount_accumulate``.
 
 ``oisma_matmul`` is what ``dense`` dispatches to under
 ``matmul_mode="bp8_fused"``: two absmax scans (x and, for a real weight,
 y), each floored at f32 ``tiny``, then one fused kernel that encodes
-both tiles on the fly, multiplies and rescales.  The kernels mask their
-ragged edges, so no operand is padded; zero padding would add nothing
-to the integer accumulation, so the results equal the reference's, which
-pads to its block grid.  A weight encoded once by ``prepare_bp_weight``
-(int8 codes plus its scale) feeds the same kernel as ``y``.
+both tiles on the fly, multiplies and rescales.  ``impl="unfused"`` runs
+the reference pipeline instead: the same two scales, a BP quantise
+kernel per operand (int8 codes through device memory), the codes matmul
+kernel, then the rescale ``acc * ((sx * sy) * 0.1)`` in torch.  Every
+float expression matches, so the two are bitwise equal.
+
+The kernels mask their ragged edges, so no operand is padded and the
+reference's block-size arguments are not carried; zero padding would add
+nothing to the integer accumulation, so the results equal the
+reference's, which pads to its block grid.  A weight encoded once by
+``prepare_bp_weight`` (int8 codes plus its scale) feeds the fused kernel
+as ``y``.
 """
 from __future__ import annotations
 
@@ -17,7 +25,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.quantize import quantize_bp
+from repro_torch.kernels import bp_matmul as _k
 from repro_torch.kernels import fused as _f
+from repro_torch.kernels.ref import to_codes
 
 _TINY = float(torch.finfo(torch.float32).tiny)
 
@@ -29,16 +39,45 @@ def _scale(x: torch.Tensor) -> torch.Tensor:
 def prepare_bp_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode a (K, N) weight once: (int8 sign*level codes, (1, 1) scale)."""
     q = quantize_bp(w.to(torch.float32))
-    return q.sign * q.levels, q.scale.reshape(1, 1)
+    return to_codes(q), q.scale.reshape(1, 1)
+
+
+def bp_matmul_codes(x_codes: torch.Tensor,
+                    y_codes: torch.Tensor) -> torch.Tensor:
+    """The codes matmul: int8 sign*level codes in, the integer
+    accumulation out as f32 (unscaled)."""
+    if x_codes.shape[-1] != y_codes.shape[0]:
+        raise ValueError(f"contraction mismatch: {tuple(x_codes.shape)} @ "
+                         f"{tuple(y_codes.shape)}")
+    return _k.bp_matmul(x_codes.contiguous(), y_codes.contiguous())
+
+
+def oisma_matmul_unfused(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The reference pipeline: quantise -> codes matmul -> rescale, in the
+    fused epilogue's association ``acc * ((sx * sy) * 0.1)``."""
+    x = x.to(torch.float32).contiguous()
+    y = y.to(torch.float32).contiguous()
+    sx, sy = _scale(x), _scale(y)
+    acc = _k.bp_matmul(_k.bp_quantize(x, sx), _k.bp_quantize(y, sy))
+    return acc * ((sx * sy) * 0.1)
 
 
 def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
-                 y_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 y_scale: Optional[torch.Tensor] = None,
+                 impl: str = "fused") -> torch.Tensor:
     """OISMA-simulated ``x @ y`` for 2-D operands; ``y`` real (K, N) or
-    int8 codes from ``prepare_bp_weight`` (then ``y_scale`` is needed)."""
+    int8 codes from ``prepare_bp_weight`` (then ``y_scale`` is needed).
+    ``impl``: "fused" (one kernel) or "unfused" (the reference pipeline,
+    real ``y`` only)."""
     if x.shape[-1] != y.shape[0]:
         raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
                          f"{tuple(y.shape)}")
+    if impl == "unfused":
+        if not torch.is_floating_point(y):
+            raise ValueError("impl='unfused' takes real weights")
+        return oisma_matmul_unfused(x, y)
+    if impl != "fused":
+        raise ValueError(f"unknown impl {impl!r}")
     x = x.to(torch.float32).contiguous()
     if y.dtype == torch.int8:
         if y_scale is None:
@@ -65,3 +104,9 @@ def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
     gate = w_gate.to(torch.float32).contiguous()
     return _f.fused_mlp(x, up, gate, _scale(x), _scale(up), _scale(gate),
                         act=act)
+
+
+def popcount_accumulate(bits: torch.Tensor) -> torch.Tensor:
+    """Row popcount of a 2-D 0/1 matrix by the accumulation-periphery
+    kernel, as (R,) int32 (any R and C: nothing is padded)."""
+    return _k.popcount_accumulate(bits.contiguous())

@@ -5,11 +5,13 @@ The CPU tests hold them against the JAX reference, the wrappers run them
 for tensors on the CPU, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.  They never run on the card's main path.
 
-The BP matmul here is an f32 matmul over the 8x-expanded signed
-bitplanes.  Every plane product is in {-1, 0, 1} and every partial sum
-an integer below 2**24 (|acc| <= 8K), so it is exact in any summation
-order: the result is bitwise that of the integer AND+popcount, scaled in
-the epilogue as ``acc * ((sx * sy) * 0.1)`` in f32.
+The BP matmul here (``bp_matmul_ref``, on int8 sign*level codes) is an
+f32 matmul over the 8x-expanded signed bitplanes.  Every plane product is
+in {-1, 0, 1} and every partial sum an integer below 2**24 (|acc| <= 8K),
+so it is exact in any summation order: the result is bitwise that of the
+integer AND+popcount.  The fused matmul quantises both operands
+(``bp_quantize_ref``), takes that product and scales it in the epilogue
+as ``acc * ((sx * sy) * 0.1)`` in f32.
 """
 from __future__ import annotations
 
@@ -40,6 +42,22 @@ def bp_levels(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
                        float(NUM_LEVELS - 1))
 
 
+def bp_quantize_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 codes ``sign(x) * clip(round(|x| / scale * 10), 0, 9)``."""
+    s = scale.to(torch.float32).reshape(())
+    return (torch.sign(x) * bp_levels(x, s)).to(torch.int8)
+
+
+def to_codes(q) -> torch.Tensor:
+    """A ``BPQuantized`` -> int8 sign*level codes."""
+    return q.sign.to(torch.int8) * q.levels.to(torch.int8)
+
+
+def popcount_accumulate_ref(bits: torch.Tensor) -> torch.Tensor:
+    """Row sums of a 2-D 0/1 (or any integer) matrix as int32."""
+    return bits.to(torch.int32).sum(-1, dtype=torch.int32)
+
+
 def _planes(levels: torch.Tensor, sign: torch.Tensor, which: str):
     """(..., 8) signed bitplanes: ``sign * (level >= threshold[p])``."""
     t = torch.tensor(plane_thresholds(which), dtype=torch.float32,
@@ -51,6 +69,23 @@ def _scalar(s: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32).reshape(1, 1)
 
 
+def bp_matmul_ref(x_codes: torch.Tensor,
+                  y_codes: torch.Tensor) -> torch.Tensor:
+    """Signed BP8 product of int8 sign*level codes (x right-biased, y
+    left-biased): the integer accumulation as f32, unscaled."""
+    m, k = x_codes.shape
+    n = y_codes.shape[1]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x_codes.device)
+    for k0 in range(0, k, _K_CHUNK):
+        xs, ys = x_codes[:, k0:k0 + _K_CHUNK], y_codes[k0:k0 + _K_CHUNK]
+        xp = _planes(xs.abs().to(torch.float32),
+                     torch.sign(xs).to(torch.float32), "right")
+        yp = _planes(ys.abs().to(torch.float32),
+                     torch.sign(ys).to(torch.float32), "left")
+        acc += xp.reshape(m, -1) @ yp.permute(0, 2, 1).reshape(-1, n)
+    return acc
+
+
 def fused_matmul_ref(x: torch.Tensor, y: torch.Tensor,
                      x_scale: Optional[torch.Tensor] = None,
                      y_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -60,28 +95,15 @@ def fused_matmul_ref(x: torch.Tensor, y: torch.Tensor,
     operand, as the reference oracle computes them."""
     x = x.to(torch.float32)
     sx = tensor_scale(x) if x_scale is None else _scalar(x_scale)
-    coded = not torch.is_floating_point(y)
-    if coded:
-        if y_scale is None:
-            raise ValueError("coded y needs y_scale")
-        sy = _scalar(y_scale)
-    else:
+    if torch.is_floating_point(y):
         y = y.to(torch.float32)
         sy = tensor_scale(y) if y_scale is None else _scalar(y_scale)
-    m, k = x.shape
-    n = y.shape[1]
-    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    for k0 in range(0, k, _K_CHUNK):
-        xs, ys = x[:, k0:k0 + _K_CHUNK], y[k0:k0 + _K_CHUNK]
-        xp = _planes(bp_levels(xs, sx), torch.sign(xs), "right")
-        if coded:
-            yl = ys.abs().to(torch.float32)
-            ysg = torch.sign(ys).to(torch.float32)
-        else:
-            yl, ysg = bp_levels(ys, sy), torch.sign(ys)
-        yp = _planes(yl, ysg, "left").permute(0, 2, 1)
-        acc += xp.reshape(m, -1) @ yp.reshape(-1, n)
-    return acc * ((sx * sy) * 0.1)
+        y = bp_quantize_ref(y, sy)
+    elif y_scale is None:
+        raise ValueError("coded y needs y_scale")
+    else:
+        sy = _scalar(y_scale)
+    return bp_matmul_ref(bp_quantize_ref(x, sx), y) * ((sx * sy) * 0.1)
 
 
 def kernel_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -111,6 +133,7 @@ def fused_mlp_ref(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor,
 from repro_torch.kernels.attention import (  # noqa: E402  (re-export)
     bp8_decode_attention_ref, dequantize_kv, quantize_kv)
 
-__all__ = ["absmax_ref", "tensor_scale", "bp_levels", "fused_matmul_ref",
-           "fused_mlp_ref", "kernel_activation", "bp8_decode_attention_ref",
-           "quantize_kv", "dequantize_kv"]
+__all__ = ["absmax_ref", "tensor_scale", "bp_levels", "bp_quantize_ref",
+           "to_codes", "popcount_accumulate_ref", "bp_matmul_ref",
+           "fused_matmul_ref", "fused_mlp_ref", "kernel_activation",
+           "bp8_decode_attention_ref", "quantize_kv", "dequantize_kv"]

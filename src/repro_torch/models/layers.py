@@ -2,8 +2,10 @@
 
 ``dense`` is where the paper's technique plugs in: under
 ``matmul_mode="bp8_fused"`` every projection is an OISMA matmul run by
-the fused kernel; ``"bf16"`` is the plain bf16 matmul.  The other modes
-of the reference (bp8, bp8_lowrank, fp8) come with a later slice.
+the fused kernel; ``"bp8"`` and ``"bp8_lowrank"`` run the bit-exact
+bitplane or low-rank formulation as plain f32 matmuls with a
+straight-through gradient (``core/bp_matmul.py``); ``"fp8"`` is the
+paper's E4M3 baseline; ``"bf16"`` is the plain bf16 matmul.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import bp_matmul as _bpm
+from repro_torch.core import quantize as _q
 from repro_torch.kernels import ops as _ops
 from repro_torch.models.params import ParamDef
 
@@ -21,14 +25,22 @@ def dense(x: torch.Tensor, w: torch.Tensor, mode: str = "bf16",
     """x: (..., K) @ w: (K, N) under the configured matmul mode."""
     if mode == "bf16":
         y = torch.matmul(x, w.to(x.dtype))
-    elif mode == "bp8_fused":
+    elif mode in ("bp8", "bp8_lowrank", "bp8_fused"):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        y = _ops.oisma_matmul(x2, w.to(torch.float32))
+        if mode == "bp8_fused":
+            y = _ops.oisma_matmul(x2, w.to(torch.float32))
+        else:
+            y = _bpm.bp_matmul_ste(
+                x2, w.to(torch.float32),
+                impl="bitplane" if mode == "bp8" else "lowrank")
         y = y.reshape(*lead, w.shape[-1]).to(x.dtype)
+    elif mode == "fp8":
+        xq = _q.fake_quantize_e4m3(x.to(torch.float32))
+        wq = _q.fake_quantize_e4m3(w.to(torch.float32))
+        y = torch.matmul(xq, wq).to(x.dtype)
     else:
-        raise NotImplementedError(
-            f"matmul mode {mode!r} is not ported yet (bf16, bp8_fused)")
+        raise ValueError(f"unknown matmul mode {mode!r}")
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -8,7 +8,9 @@ and nvcc:
 
 Tolerances: absmax and the fused matmul (real and int8-coded y) bitwise;
 the fused MLP and decode attention 1e-5 (the card's expf/tanhf and the
-chunked softmax differ from the host's in the last bits).
+chunked softmax differ from the host's in the last bits); the unfused
+pipeline's kernels (codes matmul, BP quantise, popcount) bitwise, and
+``impl="unfused"`` bitwise equal to ``impl="fused"``.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import attention as tattn  # noqa: E402
+from repro_torch.kernels import bp_matmul as tbpm  # noqa: E402
 from repro_torch.kernels import fused as tfused  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -68,3 +71,48 @@ def test_decode_attention_matches_plain(s, d, window, softcap, cuda, rng):
         tattn.bp8_decode_attention(*args, softcap=softcap),
         tattn.bp8_decode_attention_ref(*args, softcap=softcap),
         rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_unfused_kernels_match_plain(m, k, n, cuda, rng):
+    def codes(shape):
+        return torch.from_numpy(rng.integers(-9, 10, shape, dtype=np.int8)
+                                ).to(cuda)
+
+    xc, yc = codes((m, k)), codes((k, n))
+    assert torch.equal(tbpm.bp_matmul(xc, yc), tref.bp_matmul_ref(xc, yc))
+    x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    s = tref.tensor_scale(x)
+    assert torch.equal(tbpm.bp_quantize(x, s), tref.bp_quantize_ref(x, s))
+    for bits in (codes((m, k)), codes((m, k)).to(torch.uint8),
+                 codes((m, k)) > 0):
+        assert torch.equal(tbpm.popcount_accumulate(bits),
+                           tref.popcount_accumulate_ref(bits))
+    assert torch.equal(tops.oisma_matmul(x, y, impl="unfused"),
+                       tops.oisma_matmul(x, y))
+
+
+@pytest.mark.gpu
+def test_bp_quantize_half_level_boundaries(cuda):
+    s = torch.tensor([[5.128217]], device=cuda)
+    mid = (torch.arange(9, device=cuda) + 0.5) * s[0, 0] / 10
+    x = torch.cat([mid, torch.nextafter(mid, mid + 1),
+                   torch.nextafter(mid, mid - 1)])
+    x = torch.cat([x, -x, torch.tensor([4.358984, 0.0], device=cuda)])
+    assert torch.equal(tbpm.bp_quantize(x, s), tref.bp_quantize_ref(x, s))
+
+
+@pytest.mark.gpu
+def test_empty_contraction_gives_zeros(cuda):
+    x = torch.zeros((3, 0), dtype=torch.int8, device=cuda)
+    y = torch.zeros((0, 4), dtype=torch.int8, device=cuda)
+    assert torch.equal(tbpm.bp_matmul(x, y),
+                       torch.zeros((3, 4), device=cuda))
+
+
+@pytest.mark.gpu
+def test_popcount_rejects_wide_types(cuda):
+    with pytest.raises(TypeError, match="int8"):
+        tbpm.popcount_accumulate(torch.ones((4, 8), dtype=torch.int32,
+                                            device=cuda))
