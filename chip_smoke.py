@@ -8,14 +8,22 @@ prints its wall time):
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` with nvcc for sm_90a and print the build seconds.
+   csrc`` with nvcc for sm_90a and print the build seconds; check in the
+   library's SASS (``cuobjdump``) that the fused matmul's kernels
+   multiply with IMMA (int8 tensor cores), and print where any POPC
+   sits.
 2. Hold every kernel against its plain PyTorch version on the card, at the
    shapes h2o-danube-1.8b's decode step and prefill chunks give it
    (absmax, matmul, codes matmul and BP quantise bitwise, popcount exact,
    MLP within 1e-5 relative, decode attention within 1e-5), and time
    kernel, plain version and, where one exists, the PyTorch library call
    computing the same function (CUDA events, L2 flushed before every
-   call).
+   call).  The fused matmul is also checked bitwise at M 1-256, with
+   coded y, on its encode's plane boundaries, and for at most two
+   kernels a call (profiler); decode attention at S 1-4096, dead rows
+   and qwen2-72b's heads (D 128, G 8).  The redesigned kernels' times
+   print beside the earlier designs' (PR12_MS), and the build's ptxas
+   registers and spills beside their dynamic shared memory.
 3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
    weights on both devices, 3 prompts, 8 greedy tokens each through the
    paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
@@ -74,6 +82,14 @@ PATHS = {"absmax": "serve_bp8_fused", "fused_matmul": "serve_bp8_fused",
          "fused_mlp": "serve_bp8_fused", "decode_attention": "serve_bp8_fused",
          "bp_matmul": "unfused", "bp_quantize": "unfused",
          "popcount": "unfused"}
+#: the earlier designs' times (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6:
+#: PR 12's chip call 4, the 64-row prefill from PR 11's)
+PR12_MS = {"fused_matmul": 0.1935, "decode_attention": 0.4224,
+           "fused_matmul_prefill_64x2560x2560_ms": 0.123,
+           "fused_layer_256_rows_ms": 4.8000, "qwen2_72b_fused_ms": 14.3541}
+#: kernels whose registers and shared memory the build report prints
+PTXAS_SHOWN = ("bp_mma_kernel", "decode_partial_kernel",
+               "decode_combine_kernel")
 # h2o-danube-1.8b: d_model, q/o width, k/v width, d_ff
 D, HD, KVD, FF = 2560, 2560, 640, 6912
 #: (K, N) of one layer's projections: wq, wk, wv, wo, up, gate, down
@@ -123,6 +139,66 @@ class Timer:
                 events.append((s, e))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def kernels_enqueued(torch, fn) -> int:
+    """Device activities (kernels and memsets) one call of ``fn`` enqueues,
+    from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def ptxas_report(log: str) -> list:
+    """``-Xptxas -v`` lines (registers, shared memory, spills) of the
+    kernels named in PTXAS_SHOWN, one line per kernel instance."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in PTXAS_SHOWN if k in line), None)
+            if name:
+                out.append(line.split("'")[1] if "'" in line else line)
+        elif name and ("Used" in line or "spill" in line):
+            out[-1] += " |" + line.split(":", 1)[-1].rstrip()
+    return out
+
+
+def sass_counts(build, lib_path) -> dict:
+    """Per kernel of the fused matmul's core (``bp_mma_kernel``), the IMMA
+    (int8 tensor-core) and POPC instructions in the built library's SASS
+    (``cuobjdump -sass``), and each POPC with the two instructions either
+    side of it."""
+    tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[-500:]}")
+    counts, name, body = {}, None, []
+
+    def close():
+        if name:
+            ops = [ln.split(";")[0].split("*/")[-1].strip() for ln in body
+                   if "*/" in ln]
+            popc = [i for i, op in enumerate(ops) if "POPC" in op]
+            counts[name] = {
+                "IMMA": sum("IMMA" in op for op in ops), "POPC": len(popc),
+                "POPC_context": [ops[max(0, i - 2):i + 3] for i in popc]}
+
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            close()
+            fn = line.split("Function :", 1)[1].strip()
+            name, body = (fn if "bp_mma_kernel" in fn else None), []
+        elif name:
+            body.append(line)
+    close()
+    return counts
 
 
 def bound(byte_count: float, ops: float, peak_ops: float):
@@ -195,17 +271,54 @@ def phase_kernels(torch, timer, dev="cuda"):
         mm_bounds.append(bound(4 * m * k + 4 * k * n + 8 + 4 * m * n,
                                2 * m * n * 8 * k, H100_INT8_OPS_PER_S))
     extra = []
-    for (m, k, n) in [(64, d, hd), (64, ff, d), (130, 100, 96), (1, 7, 5)]:
+    for (m, k, n) in ([(m, d, hd) for m in (1, 4, 8, 16, 64, 65, 256)]
+                      + [(64, ff, d), (130, 100, 96), (1, 7, 5)]):
         x, w = randn(m, k), weight(k, n)
         sx, sy = scales(x, w)
         a = kf.fused_bp_matmul(x, w, sx, sy)
         if not torch.equal(a, ref.fused_matmul_ref(x, w, sx, sy)):
             fail(f"fused matmul differs at {(m, k, n)}")
+        codes, cs = ops.prepare_bp_weight(w)
+        if not torch.equal(kf.fused_bp_matmul(x, codes, sx, cs),
+                           ref.fused_matmul_ref(x, codes, sx, cs)):
+            fail(f"fused matmul with int8-coded y differs at {(m, k, n)}")
         extra.append((m, k, n))
     codes, cs = ops.prepare_bp_weight(ws[1])
     a = ops.oisma_matmul(xs[d], codes, y_scale=cs)
     if not torch.equal(a, ref.fused_matmul_ref(xs[d], codes, None, cs)):
         fail("fused matmul with int8-coded y differs")
+    # operands exactly on the encode's plane boundaries and one ulp off:
+    # x at several scales, y at scale 1 (so that sx * sy stays finite)
+    def on_edges(sc, *shape):
+        s_ = torch.full((1, 1), sc, device=dev)
+        b = ref.level_boundaries(s_)
+        inf = torch.full_like(b, math.inf)
+        vals = torch.cat([b, torch.nextafter(b, inf), torch.nextafter(b, -inf),
+                          torch.zeros(1, device=dev), s_.reshape(1)])
+        i = torch.randint(0, len(vals), shape, generator=gen, device=dev)
+        sign = torch.randint(0, 2, shape, generator=gen, device=dev) * 2 - 1
+        return vals[i] * sign, s_
+
+    wb, sw = on_edges(1.0, d, kvd)
+    for sc in (0.37, 5.128217, ref._TINY, 3e38):
+        for m in (8, 72):
+            xb, s_ = on_edges(sc, m, d)
+            if not torch.equal(kf.fused_bp_matmul(xb, wb, s_, sw),
+                               ref.fused_matmul_ref(xb, wb, s_, sw)):
+                fail(f"fused matmul differs on the plane boundaries of "
+                     f"scale {sc} at M {m}")
+    launches = {}
+    for (m, k, n) in sorted(set(mm_shapes) | {(64, d, hd), (256, d, ff),
+                                              (1, 7, 5)}):
+        x, w = randn(m, k), weight(k, n)
+        sx, sy = scales(x, w)
+        seen = kernels_enqueued(torch, lambda: kf.fused_bp_matmul(
+            x, w, sx, sy))
+        if not 1 <= seen <= 2:
+            fail(f"fused matmul at {(m, k, n)}: {seen} kernels enqueued "
+                 f"(at most 2)")
+        launches["x".join(map(str, (m, k, n)))] = seen
+    detail["fused_matmul_kernels_per_call"] = launches
     x64 = randn(64, d)
     p64 = (x64, ws[0], *scales(x64, ws[0]))
     detail["fused_matmul_prefill_64x2560x2560_ms"] = timer(
@@ -256,7 +369,14 @@ def phase_kernels(torch, timer, dev="cuda"):
     err = 0.0
     cases = [(q, main, 4096, None),
              (q, cache(B, S, KH, D, empty_tail=100, dead_row=True), 100, 30.0),
-             (randn(2, 2, 4, 80), cache(2, 48, 2, 80, empty_tail=5), 17, None)]
+             (randn(2, 2, 4, 80), cache(2, 48, 2, 80, empty_tail=5), 17, None),
+             (q, cache(B, 1, KH, D), 4096, None),
+             (q, cache(B, 33, KH, D, dead_row=True), 4096, None),
+             (q, cache(B, 4096, KH, D, empty_tail=1000, dead_row=True), 1500,
+              30.0),
+             # qwen2-72b's heads: D 128, G 8
+             (randn(B, KH, 8, 128) / math.sqrt(128),
+              cache(B, 1024, KH, 128, dead_row=True), 4096, None)]
     for qq, cc, win, cap in cases:
         a = ka.bp8_decode_attention(qq, *cc, win, softcap=cap)
         b = ka.bp8_decode_attention_ref(qq, *cc, win, softcap=cap)
@@ -496,10 +616,12 @@ def phase_unfused(torch, timer, build, dev="cuda"):
           f"qwen2-72b {qs}) + periphery in {wall:.3f}s, all equal to the "
           f"fused path bitwise; launches {launches}")
     for m, r in layer.items():
+        was = (f" (PR 12: {PR12_MS['fused_layer_256_rows_ms']})"
+               if m == 256 else "")
         print(f"  one layer, M {m}: unfused {r['unfused_ms']:.4f} ms, fused "
-              f"{r['fused_ms']:.4f} ms")
+              f"{r['fused_ms']:.4f} ms{was}")
     print(f"  qwen2-72b {qs}: unfused {qwen['unfused_ms']:.4f} ms, fused "
-          f"{qwen['fused_ms']:.4f} ms")
+          f"{qwen['fused_ms']:.4f} ms (PR 12: {PR12_MS['qwen2_72b_fused_ms']})")
     return launches, {"wall_s": wall, "launches": launches,
                       "layer_ms": layer, f"qwen2_72b_{qs}_ms": qwen}
 
@@ -562,8 +684,26 @@ def main() -> None:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     with Phase("1 build", report):
-        build.build(verbose=True)
-        build.library()
+        lib_path = build.build()
+        log = (lib_path.parent / build.LOG_NAME).read_text()
+        report["build_log"] = log
+        for line in ptxas_report(log):
+            print(f"ptxas: {line}")
+        sass = sass_counts(build, lib_path)
+        report["bp_mma_sass"] = sass
+        for fn, c in sass.items():
+            print(f"SASS {fn}: {c['IMMA']} IMMA, {c['POPC']} POPC")
+        for ctx in next(iter(sass.values()), {}).get("POPC_context", []):
+            print(f"  POPC in context: {' | '.join(ctx)}")
+        if not sass or any(c["IMMA"] == 0 for c in sass.values()):
+            fail("the fused matmul's kernels must multiply with IMMA")
+        lib = build.library()
+        from repro_torch.kernels.attention import _split_smem
+        print("dynamic shared memory: fused matmul tiles "
+              + ", ".join(f"M {m}: {lib.oisma_fused_matmul_smem(m, 0)} B"
+                          for m in (4, 64, 256))
+              + f"; decode attention split block (G 4, D 80, 64 tokens) "
+              f"{_split_smem(4, 80, 64)} B")
     print(f"kernels built ({build.BUILD_ROOT / build.source_hash()})")
 
     # ---- phase 2: kernels vs plain ----
@@ -572,11 +712,16 @@ def main() -> None:
         rows, detail = phase_kernels(torch, timer)
     report["kernel_detail"] = detail
     for name, r in rows.items():
-        print(f"kernel {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-              f"library_ms {r['library_ms']} max_abs_err {r['max_abs_err']}")
+        was = f" (PR 12: {PR12_MS[name]})" if name in PR12_MS else ""
+        print(f"kernel {name}: ms {r['ms']:.4f}{was} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms {r['library_ms']} max_abs_err "
+              f"{r['max_abs_err']}")
     for k, v in detail.items():
         if k.endswith("_ms"):
-            print(f"  {k}: {v:.4f}")
+            was = f" (PR 11/12: {PR12_MS[k]})" if k in PR12_MS else ""
+            print(f"  {k}: {v:.4f}{was}")
+        elif k == "fused_matmul_kernels_per_call":
+            print(f"  {k}: {v}")
 
     # ---- phase 3: card vs CPU at full width, 2 layers ----
     rng = np.random.default_rng(0)

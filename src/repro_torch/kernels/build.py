@@ -5,11 +5,14 @@ with a plain C interface, loaded with ``ctypes``.  The library is built
 at first use (never at import: machines without ``nvcc`` import this
 package too) into ``build/repro_torch_kernels/<hash>/`` at the root of
 the checkout, keyed by a hash of the sources and the flags, so an edit
-rebuilds and an unchanged tree reuses the last build.
+rebuilds and an unchanged tree reuses the last build.  The compiler's
+output (``-Xptxas -v``: registers, spills, static shared memory of every
+kernel) is kept beside the library as ``nvcc.log``.
 
-Each C entry point launches its kernel (with its memset and, for the BP
-kernels, the epilogue kernel) on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises on a non-zero code.  ``launch``
+Each C entry point launches its kernels (with a workspace memset, an
+epilogue or a combine kernel where its design has one) on the stream it
+is given and returns ``cudaGetLastError()``; ``launch`` raises on a
+non-zero code.  ``launch``
 also counts each call in ``LAUNCHES`` (one per launch of a kernel, and
 nowhere else), so a run can show that its path went through the kernels.
 """
@@ -31,8 +34,10 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--threads", "0")
 LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "nvcc.log"       # the build's output: ptxas registers, smem
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = collections.Counter()
@@ -43,14 +48,17 @@ _SIGNATURES = {
     "oisma_absmax": (_P, _LL, _P, _P),
     "oisma_fused_matmul": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                            _P),
+    "oisma_fused_matmul_workspace": (_I, _I, _I, _I),
+    "oisma_fused_matmul_smem": (_I, _I),
     "oisma_fused_mlp": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _U, _U, _P),
-    "oisma_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _P),
+    "oisma_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _I, _P),
     "oisma_bp_matmul": (_P, _P, _P, _P, _I, _I, _I, _U, _U, _P),
     "oisma_bp_quantize": (_P, _P, _P, _LL, _P),
     "oisma_popcount": (_P, _I, _P, _I, _I, _P),
 }
+_RESTYPES = {"oisma_fused_matmul_workspace": _LL}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -81,7 +89,7 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> pathlib.Path:
+def build() -> pathlib.Path:
     """Compile the library if this tree's sources have no build yet."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
@@ -90,14 +98,12 @@ def build(verbose: bool = False) -> pathlib.Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
     cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *cus]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
                            f"\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
+    (out_dir / LOG_NAME).write_text(res.stdout + res.stderr)
     os.replace(tmp, lib)        # atomic: concurrent builders never see half
     return lib
 
@@ -111,7 +117,7 @@ def library() -> ctypes.CDLL:
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bp import packed_thresholds
-from repro_torch.kernels.build import launch, on_cuda, require, stream
+from repro_torch.kernels.build import (launch, library, on_cuda, require,
+                                      stream)
 from repro_torch.kernels.ref import absmax_ref, fused_matmul_ref, fused_mlp_ref
 
 ACTIVATIONS = {"silu": 0, "gelu": 1, "relu": 2}
@@ -61,8 +62,9 @@ def fused_bp_matmul(x: torch.Tensor, y: torch.Tensor, x_scale: torch.Tensor,
     _require_scale(y_scale, "y_scale")
     n = y.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    ws = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m and n:
+        words = library().oisma_fused_matmul_workspace(m, k, n, int(coded))
+        ws = torch.empty((words,), dtype=torch.int32, device=x.device)
         launch("fused_matmul", x.data_ptr(), y.data_ptr(), int(coded),
                x_scale.data_ptr(), y_scale.data_ptr(), out.data_ptr(),
                ws.data_ptr(), m, k, n, packed_thresholds("right"),

@@ -42,6 +42,35 @@ def bp_levels(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
                        float(NUM_LEVELS - 1))
 
 
+def level_boundaries(scale: torch.Tensor) -> torch.Tensor:
+    """(9,) f32: for level l = 1..9, the least f32 ``a >= 0`` whose
+    ``bp_levels(a, scale)`` is l or more (NaN if no f32 reaches l).
+
+    The level never decreases as |x| grows, so ``bp_levels(x) >= l`` iff
+    ``|x| >= b_l``: the plain version of the kernels' bisection on the f32
+    bit pattern, which runs the level's own division."""
+    s = scale.to(torch.float32).reshape(())
+    lv = torch.arange(1, NUM_LEVELS, dtype=torch.float32, device=s.device)
+    lo = torch.zeros(lv.shape, dtype=torch.int32, device=s.device)
+    hi = torch.full(lv.shape, 0x7F800000, dtype=torch.int32, device=s.device)
+    for _ in range(31):             # the range holds 2**31 bit patterns
+        mid = lo + (hi - lo) // 2
+        ok = bp_levels(mid.view(torch.float32), s) >= lv
+        hi = torch.where(ok, mid, hi)
+        lo = torch.where(ok, lo, mid + 1)
+    b = hi.view(torch.float32)
+    return torch.where(bp_levels(b, s) >= lv, b, torch.nan)
+
+
+def plane_boundaries(scale: torch.Tensor, which: str) -> torch.Tensor:
+    """(8,) f32: plane p of a value is set iff ``|x| >= boundary[p]``, the
+    boundary of the plane's level threshold under ``scale``."""
+    t = torch.tensor(plane_thresholds(which), dtype=torch.long)
+    b = torch.cat([level_boundaries(scale),
+                   torch.full((1,), torch.nan, device=scale.device)])
+    return b[(t - 1).clamp(0, NUM_LEVELS - 1).to(scale.device)]
+
+
 def bp_quantize_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 codes ``sign(x) * clip(round(|x| / scale * 10), 0, 9)``."""
     s = scale.to(torch.float32).reshape(())
@@ -131,9 +160,12 @@ def fused_mlp_ref(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor,
 
 
 from repro_torch.kernels.attention import (  # noqa: E402  (re-export)
-    bp8_decode_attention_ref, dequantize_kv, quantize_kv)
+    bp8_decode_attention_ref, bp8_decode_attention_split_ref, dequantize_kv,
+    quantize_kv)
 
-__all__ = ["absmax_ref", "tensor_scale", "bp_levels", "bp_quantize_ref",
+__all__ = ["absmax_ref", "tensor_scale", "bp_levels", "level_boundaries",
+           "plane_boundaries", "bp_quantize_ref",
            "to_codes", "popcount_accumulate_ref", "bp_matmul_ref",
            "fused_matmul_ref", "fused_mlp_ref", "kernel_activation",
-           "bp8_decode_attention_ref", "quantize_kv", "dequantize_kv"]
+           "bp8_decode_attention_ref", "bp8_decode_attention_split_ref",
+           "quantize_kv", "dequantize_kv"]

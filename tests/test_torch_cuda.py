@@ -8,7 +8,8 @@ and nvcc:
 
 Tolerances: absmax and the fused matmul (real and int8-coded y) bitwise;
 the fused MLP and decode attention 1e-5 (the card's expf/tanhf and the
-chunked softmax differ from the host's in the last bits); the unfused
+softmax reassociated over chunks or splits differ from the host's in the
+last bits); the unfused
 pipeline's kernels (codes matmul, BP quantise, popcount) bitwise, and
 ``impl="unfused"`` bitwise equal to ``impl="fused"``.
 """
@@ -116,3 +117,113 @@ def test_popcount_rejects_wide_types(cuda):
     with pytest.raises(TypeError, match="int8"):
         tbpm.popcount_accumulate(torch.ones((4, 8), dtype=torch.int32,
                                             device=cuda))
+
+
+def _boundary_values(rng, scale, shape, dev):
+    """Values on the plane boundaries of ``scale`` and one ulp either side,
+    with random signs, tiled to ``shape``."""
+    b = tref.level_boundaries(scale.cpu())
+    inf = torch.full_like(b, torch.inf)
+    vals = torch.cat([b, torch.nextafter(b, inf), torch.nextafter(b, -inf),
+                      torch.tensor([0.0, float(scale)])])
+    idx = torch.from_numpy(rng.integers(0, len(vals), shape))
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], shape).astype(np.float32))
+    return (vals[idx] * sign).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 64, 65, 256])
+def test_fused_matmul_rows_bitwise(m, cuda, rng):
+    k, n = 640, 384
+    x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    sx, sy = tref.tensor_scale(x), tref.tensor_scale(y)
+    got = tfused.fused_bp_matmul(x, y, sx, sy)
+    assert torch.equal(got, tref.fused_matmul_ref(x, y, sx, sy))
+    codes, cs = tops.prepare_bp_weight(y)
+    assert torch.equal(tfused.fused_bp_matmul(x, codes, sx, cs),
+                       tref.fused_matmul_ref(x, codes, sx, cs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coded", [False, True], ids=["real_y", "coded_y"])
+@pytest.mark.parametrize("m,k,n", [(130, 100, 96), (1, 7, 5), (4, 2560, 640),
+                                   (3, 33, 50)])
+def test_fused_matmul_ragged_bitwise(m, k, n, coded, cuda, rng):
+    x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    sx, sy = tref.tensor_scale(x), tref.tensor_scale(y)
+    if coded:
+        y, sy = tops.prepare_bp_weight(y)
+    assert torch.equal(tfused.fused_bp_matmul(x, y, sx, sy),
+                       tref.fused_matmul_ref(x, y, sx, sy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [5.128217, 0.37, 1.1754944e-38, 3e38])
+def test_fused_matmul_on_plane_boundaries(scale, cuda, rng):
+    """Operands placed exactly on the encode's boundaries and one ulp
+    either side (x at ``scale``, y at scale 1, so sx * sy stays finite):
+    the comparison encode gives the division's levels."""
+    sx = torch.tensor([[scale]], dtype=torch.float32, device=cuda)
+    sy = torch.ones((1, 1), device=cuda)
+    x = _boundary_values(rng, sx, (8, 96), cuda)
+    y = _boundary_values(rng, sy, (96, 136), cuda)
+    for xx in (x, torch.cat([x] * 9)):          # M 8 and 72
+        assert torch.equal(tfused.fused_bp_matmul(xx, y, sx, sy),
+                           tref.fused_matmul_ref(xx, y, sx, sy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 2560), (64, 2560, 2560),
+                                   (256, 2560, 6912), (1, 7, 5)])
+def test_fused_matmul_at_most_two_launches(m, k, n, cuda, rng):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    sx, sy = tref.tensor_scale(x), tref.tensor_scale(y)
+    tfused.fused_bp_matmul(x, y, sx, sy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfused.fused_bp_matmul(x, y, sx, sy)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    assert 1 <= kernels <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 33, 1024, 4096])
+def test_decode_attention_cache_lengths(s, cuda, rng):
+    b, kh, g, d = 4, 8, 4, 80
+    q = _randn(rng, (b, kh, g, d), cuda, 1.0) / d ** 0.5
+    kc, ks = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    vc, vs = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).repeat(b, 1)
+    pos[1, s // 2:] = -1                       # empty tail
+    pos[-1] = -1                               # a dead row over every split
+    qp = torch.full((b,), s - 1, dtype=torch.int32, device=cuda)
+    for window, cap in ((None, None), (max(s // 3, 1), 30.0)):
+        args = (q, kc, ks, vc, vs, pos, qp, window)
+        got = tattn.bp8_decode_attention(*args, softcap=cap)
+        torch.testing.assert_close(
+            got, tattn.bp8_decode_attention_ref(*args, softcap=cap),
+            rtol=0, atol=1e-5)
+        uniform = tattn.dequantize_kv(vc, vs)[-1].mean(0)     # (KH, D)
+        torch.testing.assert_close(got[-1], uniform[:, None].expand(kh, g, d),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [100, 1024])
+def test_decode_attention_wide_heads(s, cuda, rng):
+    """D 128 with G 8 (qwen2-72b's heads)."""
+    b, kh, g, d = 2, 8, 8, 128
+    q = _randn(rng, (b, kh, g, d), cuda, 1.0) / d ** 0.5
+    kc, ks = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    vc, vs = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).repeat(b, 1)
+    qp = torch.tensor([s - 1, s // 2], dtype=torch.int32, device=cuda)
+    args = (q, kc, ks, vc, vs, pos, qp, None)
+    torch.testing.assert_close(tattn.bp8_decode_attention(*args),
+                               tattn.bp8_decode_attention_ref(*args),
+                               rtol=0, atol=1e-5)

@@ -1,0 +1,161 @@
+"""Plain versions of the redesigned kernels' schedules, on the CPU.
+
+* The fused matmul encodes by comparison: ``|x| >= boundary`` with the
+  plane boundaries of the scale (``ref.plane_boundaries``, the plain
+  version of the kernel's bisection) gives bitwise the levels of the
+  division form (``ref.bp_levels``) and of the JAX reference's
+  ``quantize_bp``, on the boundaries, one ulp either side, and at random,
+  tiny and huge scales.  (At scale f32 ``tiny`` every nonzero |x| below
+  the scale is subnormal, and XLA's CPU backend flushes subnormals to
+  zero; there the JAX side is compared on the normal values only.)
+* Decode attention splits the cache (``split_tokens``) and merges the
+  splits' softmax partials; ``bp8_decode_attention_split_ref`` is that
+  schedule as tensor code, held within 1e-5 of the JAX kernel (interpret
+  mode, as the reference's tests run it) and of the plain version.
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.quantize import quantize_bp as j_quantize_bp  # noqa: E402
+from repro.kernels import attention as jattn  # noqa: E402
+from repro_torch.core.bp import plane_thresholds  # noqa: E402
+from repro_torch.kernels import attention as tattn  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+TINY = float(np.finfo(np.float32).tiny)
+SCALES = [1.0, 5.128217, 0.37, 1e-20, 7.5e12, TINY, 3e38,
+          float(np.finfo(np.float32).max)]
+
+
+def _boundary_values(rng, scale):
+    """|values| in [0, scale]: every level boundary, one ulp either side,
+    random magnitudes, zero and the scale itself; random signs."""
+    b = tref.level_boundaries(torch.tensor([[scale]])).numpy()
+    up = np.nextafter(b, np.float32(np.inf))
+    down = np.nextafter(b, np.float32(0))
+    rand = (rng.random(4000) * scale).astype(np.float32)
+    mag = np.concatenate([b, up, down, rand, [0.0, scale]]).astype(np.float32)
+    mag = np.minimum(mag, np.float32(scale))
+    return mag * rng.choice([-1.0, 1.0], mag.shape).astype(np.float32)
+
+
+def _compare_levels(x, scale):
+    """Levels as the count of boundaries |x| reaches."""
+    b = tref.level_boundaries(scale)
+    return (x.abs()[..., None] >= b).sum(-1).to(torch.float32)
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_comparison_levels_equal_division_levels(scale, rng):
+    x = torch.from_numpy(_boundary_values(rng, scale))
+    s = torch.tensor(scale, dtype=torch.float32)
+    want = tref.bp_levels(x, s)
+    assert torch.equal(_compare_levels(x, s), want)
+    jq = j_quantize_bp(jnp.asarray(x.numpy()))
+    assert float(np.asarray(jq.scale).reshape(())) == np.float32(scale)
+    normal = (x.abs() == 0) | (x.abs() >= TINY)
+    assert int(normal.sum()) >= (2 if scale == TINY else len(x))
+    assert np.array_equal(np.asarray(jq.levels).astype(np.float32)[normal],
+                          want.numpy()[normal])
+
+
+@pytest.mark.parametrize("which", ["right", "left"])
+@pytest.mark.parametrize("scale", [5.128217, TINY, 3e38])
+def test_plane_boundaries_give_the_planes(which, scale, rng):
+    """Plane p set iff |x| >= plane_boundaries[p], as level >= threshold."""
+    x = torch.from_numpy(_boundary_values(rng, scale))
+    s = torch.tensor(scale, dtype=torch.float32)
+    got = x.abs()[:, None] >= tref.plane_boundaries(s, which)
+    t = torch.tensor(plane_thresholds(which), dtype=torch.float32)
+    assert torch.equal(got, tref.bp_levels(x, s)[:, None] >= t)
+
+
+def test_random_scales_boundaries_are_least(rng):
+    """Each boundary reaches its level and the f32 below it does not."""
+    for scale in np.exp(rng.uniform(-80, 80, 40)).astype(np.float32):
+        s = torch.tensor(float(scale))
+        b = tref.level_boundaries(s)
+        lv = torch.arange(1, 10, dtype=torch.float32)
+        assert torch.equal(tref.bp_levels(b, s) >= lv, torch.ones(9).bool())
+        below = torch.nextafter(b, torch.zeros(9))
+        assert not bool((tref.bp_levels(below, s) >= lv).any())
+
+
+# ---------------------------------------------------------------------------
+# decode attention: the split schedule
+# ---------------------------------------------------------------------------
+
+def _attn(rng, b=3, s=100, kh=2, g=4, d=16):
+    q = (rng.normal(size=(b, kh, g, d)) / np.sqrt(d)).astype(np.float32)
+    kc, ks = jattn.quantize_kv(jnp.asarray(
+        rng.normal(size=(b, s, kh, d)).astype(np.float32)))
+    vc, vs = jattn.quantize_kv(jnp.asarray(
+        rng.normal(size=(b, s, kh, d)).astype(np.float32)))
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    qp = np.full((b,), s - 1, np.int32)
+    return [q, np.array(kc), np.array(ks), np.array(vc), np.array(vs), pos,
+            qp]
+
+
+def _check(arrs, window, softcap, split, chunk=None):
+    t = list(map(torch.from_numpy, arrs))
+    got = tattn.bp8_decode_attention_split_ref(*t, window, softcap=softcap,
+                                               split=split).numpy()
+    plain = tattn.bp8_decode_attention_ref(*t, window,
+                                           softcap=softcap).numpy()
+    s = arrs[1].shape[1]
+    want = np.array(jattn.bp8_decode_attention(
+        *map(jnp.asarray, arrs), window, softcap=softcap,
+        chunk=chunk or s, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("case", ["ragged", "masked_split", "dead_row",
+                                  "window_cuts_splits", "softcap",
+                                  "g8_d128"])
+def test_split_schedule_matches_reference(case, rng):
+    window, softcap, split = None, None, 32
+    if case == "ragged":                     # 100 = 3 x 32 + 4
+        arrs = _attn(rng, s=100)
+    elif case == "masked_split":             # tokens 32..63 empty
+        arrs = _attn(rng, s=128)
+        arrs[5][:, 32:64] = -1
+    elif case == "dead_row":                 # every split fully masked
+        arrs = _attn(rng, s=100)
+        arrs[5][-1] = -1
+    elif case == "window_cuts_splits":       # only the last split is live
+        arrs = _attn(rng, s=160)
+        window = 20
+    elif case == "softcap":
+        arrs = _attn(rng, s=96)
+        softcap = 30.0
+        split = 64
+    else:
+        arrs = _attn(rng, b=2, s=70, g=8, d=128)
+    got = _check(arrs, window, softcap, split)
+    if case == "dead_row":
+        v = tattn.dequantize_kv(torch.from_numpy(arrs[3]),
+                                torch.from_numpy(arrs[4])).numpy()
+        np.testing.assert_allclose(got[-1], np.repeat(
+            v[-1].mean(0)[:, None], 4, 1), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,rows,g,d", [(1024, 32, 4, 80), (1, 4, 4, 80),
+                                        (33, 64, 8, 128), (4096, 32, 8, 128),
+                                        (100000, 2, 4, 256), (70, 1, 16, 64)])
+def test_split_tokens_gives_live_splits_that_fit(s, rows, g, d):
+    split = tattn.split_tokens(s, rows, g, d)
+    assert split in (32, 64, 128) and split <= tattn.SPLIT_MAX
+    n = math.ceil(s / split)
+    assert (n - 1) * split < s                       # no empty split
+    assert split == 32 or tattn._split_smem(g, d, split) <= tattn.SPLIT_SMEM
+    if (s, rows) == (1024, 32):
+        assert (split, n * rows) == (64, 512)        # fills 132 SMs ~4x
