@@ -8,22 +8,28 @@ prints its wall time):
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` with nvcc for sm_90a and print the build seconds; check in the
-   library's SASS (``cuobjdump``) that the fused matmul's kernels
-   multiply with IMMA (int8 tensor cores), and print where any POPC
-   sits.
+   csrc`` with nvcc for sm_90a (one nvcc a source, all at once) and print
+   the build seconds; check in the library's SASS (``cuobjdump``) that
+   the kernels of the fused matmul and the fused MLP multiply with IMMA
+   (int8 tensor cores), and print where any POPC sits.
 2. Hold every kernel against its plain PyTorch version on the card, at the
    shapes h2o-danube-1.8b's decode step and prefill chunks give it
    (absmax, matmul, codes matmul and BP quantise bitwise, popcount exact,
-   MLP within 1e-5 relative, decode attention within 1e-5), and time
-   kernel, plain version and, where one exists, the PyTorch library call
-   computing the same function (CUDA events, L2 flushed before every
-   call).  The fused matmul is also checked bitwise at M 1-256, with
-   coded y, on its encode's plane boundaries, and for at most two
-   kernels a call (profiler); decode attention at S 1-4096, dead rows
-   and qwen2-72b's heads (D 128, G 8).  The redesigned kernels' times
-   print beside the earlier designs' (PR12_MS), and the build's ptxas
-   registers and spills beside their dynamic shared memory.
+   MLP within 1e-5 relative and relu bitwise, decode attention within
+   1e-5), and time kernel, plain version and, where one exists, the
+   PyTorch library call computing the same function (CUDA events, L2
+   flushed before every call).  Weights are bf16, as the model holds them
+   and the served path passes them; absmax, the matmul and the MLP are
+   also timed on the f32 cast and checked bitwise against it.  absmax is
+   checked with and without its floor, on ragged sizes and an unaligned
+   view, and for one kernel a call; the fused matmul bitwise at M 1-256,
+   with coded y, on its encode's plane boundaries, and for at most two
+   kernels a call (profiler); the MLP at M 1-256 and ragged shapes with
+   bf16, f32 and coded weights, and for at most two kernels a call;
+   decode attention at S 1-4096, dead rows and qwen2-72b's heads (D 128,
+   G 8).  The redesigned kernels' times print beside the earlier designs'
+   (EARLIER_MS), and the build's ptxas registers and spills beside their
+   dynamic shared memory.
 3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
    weights on both devices, 3 prompts, 8 greedy tokens each through the
    paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
@@ -35,7 +41,9 @@ prints its wall time):
    ``PagedServeEngine`` (4 slots, block 16, prefill chunk 64).  Launch
    counts are zeroed just before and read just after; every kernel of the
    path must have launched.  A short run under ``torch.profiler`` then
-   gives device time by kernel and the idle share.
+   gives device time by kernel (the copy kernels of dtype casts apart)
+   and the idle share, and decode steps of 2 and of 3 layers the
+   device launches and device time a decode layer adds, by kernel.
 5. The unfused path: ``oisma_matmul(impl="unfused")`` at every projection
    shape of one h2o-danube-1.8b layer (4 and 256 rows) and at
    qwen2-72b's 256x8192x29568, with its accumulation periphery (the
@@ -82,14 +90,18 @@ PATHS = {"absmax": "serve_bp8_fused", "fused_matmul": "serve_bp8_fused",
          "fused_mlp": "serve_bp8_fused", "decode_attention": "serve_bp8_fused",
          "bp_matmul": "unfused", "bp_quantize": "unfused",
          "popcount": "unfused"}
-#: the earlier designs' times (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6:
-#: PR 12's chip call 4, the 64-row prefill from PR 11's)
-PR12_MS = {"fused_matmul": 0.1935, "decode_attention": 0.4224,
-           "fused_matmul_prefill_64x2560x2560_ms": 0.123,
-           "fused_layer_256_rows_ms": 4.8000, "qwen2_72b_fused_ms": 14.3541}
+#: the earlier designs' times (NVIDIA H100 80GB HBM3, 700 W; the
+#: "Earlier ms" of PERF.md §6: f32 weights, absmax on f32 only, the MLP
+#: on the popcount core)
+EARLIER_MS = {"absmax": 0.2246, "fused_matmul": 0.1959, "fused_mlp": 0.1695,
+              "decode_attention": 0.0320,
+              "fused_matmul_prefill_64x2560x2560_ms": 0.0641,
+              "fused_layer_256_rows_ms": 1.6818, "qwen2_72b_fused_ms": 4.0602}
+EARLIER = "earlier design"
 #: kernels whose registers and shared memory the build report prints
-PTXAS_SHOWN = ("bp_mma_kernel", "decode_partial_kernel",
+PTXAS_SHOWN = ("bp_mma_kernel", "absmax_kernel", "decode_partial_kernel",
                "decode_combine_kernel")
+TINY = 1.1754943508222875e-38     # f32 tiny: the scales' floor
 # h2o-danube-1.8b: d_model, q/o width, k/v width, d_ff
 D, HD, KVD, FF = 2560, 2560, 640, 6912
 #: (K, N) of one layer's projections: wq, wk, wv, wo, up, gate, down
@@ -115,13 +127,18 @@ class Timer:
     """Mean ms per iteration of a list of calls (the sum over the list),
     the L2 cache flushed before each call.  A device-side sleep ahead of
     each timed call lets the host enqueue the call before the card reaches
-    it, so host-side launch overhead is not counted."""
+    it, so host-side launch overhead is not counted.
+
+    The flush writes 64 MB, which leaves up to the L2's 50 MB dirty: a
+    call that reads tens of MB then also pays for writing those lines
+    back.  ``clean=True`` flushes by reading the 64 MB instead, so the
+    call finds the L2 clean, as a served step finds it."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, calls, iters: int = 10) -> float:
+    def __call__(self, calls, iters: int = 10, clean: bool = False) -> float:
         torch = self.torch
         for f in calls:
             f()
@@ -129,7 +146,10 @@ class Timer:
         events = []
         for _ in range(iters):
             for f in calls:
-                self.flush.zero_()
+                if clean:
+                    self.flush.max()
+                else:
+                    self.flush.zero_()
                 torch.cuda._sleep(2_000_000)
                 s = torch.cuda.Event(enable_timing=True)
                 e = torch.cuda.Event(enable_timing=True)
@@ -141,18 +161,24 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def kernels_enqueued(torch, fn) -> int:
+def kernels_enqueued(torch, fn) -> dict:
     """Device activities (kernels and memsets) one call of ``fn`` enqueues,
-    from the profiler."""
+    by name, from the profiler: each name's count is the larger of two
+    profiled calls (a profiling session can miss the first activities it
+    should record)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    seen = {}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                seen[e.key] = max(seen.get(e.key, 0), e.count)
+    return seen
 
 
 def ptxas_report(log: str) -> list:
@@ -170,7 +196,8 @@ def ptxas_report(log: str) -> list:
 
 
 def sass_counts(build, lib_path) -> dict:
-    """Per kernel of the fused matmul's core (``bp_mma_kernel``), the IMMA
+    """Per kernel of the fused matmul's and the MLP's core
+    (``bp_mma_kernel``), the IMMA
     (int8 tensor-core) and POPC instructions in the built library's SASS
     (``cuobjdump -sass``), and each POPC with the two instructions either
     side of it."""
@@ -218,8 +245,11 @@ def phase_kernels(torch, timer, dev="cuda"):
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device=dev) * std
 
-    def weight(k, n):   # bf16 weights as the model holds them, cast to f32
-        return (randn(k, n, std=k ** -0.5)).to(torch.bfloat16).float()
+    def weight(k, n):   # bf16, as the model holds its weights
+        return (randn(k, n, std=k ** -0.5)).to(torch.bfloat16)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
 
     d, hd, kvd, ff = 2560, 2560, 640, 6912
     rows = {}
@@ -232,30 +262,59 @@ def phase_kernels(torch, timer, dev="cuda"):
     ws = [weight(k, n) for (_, k, n) in mm_shapes]
     up, gate = weight(d, ff), weight(d, ff)
 
-    # absmax: 13 per layer (x and w of 5 dense calls, x/up/gate of the MLP)
+    # absmax: 13 per layer (x and w of 5 dense calls, x/up/gate of the
+    # MLP), floored at f32 tiny in the same launch; x f32, weights bf16
     am_in = ([xs[k] for (_, k, _) in mm_shapes] + ws + [xs[d], up, gate])
-    err = 0.0
-    for t in am_in:
-        a, b = kf.absmax(t), ref.absmax_ref(t)
-        if not torch.equal(a, b):
-            fail(f"absmax differs at {tuple(t.shape)}: {a.item()} vs "
-                 f"{b.item()}")
-    b_ms = [bound(4 * t.numel() + 4, t.numel(), H100_F32_FLOPS_PER_S)
-            for t in am_in]
+    am_f32 = [t.float() for t in am_in]
+    ragged = randn(4103)
+    am_checked = am_in + [randn(1), randn(7), randn(4097), ragged[1:4100],
+                          ragged.to(torch.bfloat16)[1:4100]]
+    for t in am_checked:
+        for lo in (0.0, TINY):
+            a = kf.absmax(t, lo)
+            if not torch.equal(a, ref.absmax_ref(t, lo)):
+                fail(f"absmax differs at {tuple(t.shape)} {t.dtype} floor "
+                     f"{lo}: {a.item()} vs {ref.absmax_ref(t, lo).item()}")
+            if not torch.equal(kf.absmax(t, lo), a):
+                fail(f"absmax differs between two calls at {tuple(t.shape)}")
+            if t.dtype == torch.bfloat16 and not torch.equal(
+                    a, kf.absmax(t.float(), lo)):
+                fail(f"absmax of bf16 differs from its f32 cast at "
+                     f"{tuple(t.shape)}")
+    if not torch.equal(kf.absmax(torch.zeros_like(up), TINY),
+                       torch.full((1, 1), TINY, device=dev)):
+        fail("absmax of zeros is not the floor")
+    seen = {f"{tuple(t.shape)} {t.dtype}": kernels_enqueued(
+        torch, lambda t=t: kf.absmax(t, TINY)) for t in (xs[d], up)}
+    if any(sum(n.values()) != 1 for n in seen.values()):
+        fail(f"absmax enqueued {seen} (one kernel a call)")
+    detail["absmax_kernels_per_call"] = {k: sum(n.values())
+                                         for k, n in seen.items()}
     rows["absmax"] = dict(
-        max_abs_err=err,
-        ms=timer([lambda t=t: kf.absmax(t) for t in am_in]),
-        plain_ms=timer([lambda t=t: ref.absmax_ref(t) for t in am_in]),
+        max_abs_err=0.0,
+        ms=timer([lambda t=t: kf.absmax(t, TINY) for t in am_in]),
+        plain_ms=timer([lambda t=t: ref.absmax_ref(t, TINY) for t in am_in]),
         library_ms=timer([lambda t=t: torch.amax(t.abs()) for t in am_in]),
-        b=b_ms)
+        b=[bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)
+           for t in am_in])
+    detail["absmax_f32_weights_ms"] = timer(
+        [lambda t=t: kf.absmax(t, TINY) for t in am_f32])
+    detail["absmax_f32_weights_bound_ms"] = sum(
+        bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)[0]
+        for t in am_f32)
+    # what the timer costs a call by itself (one one-element kernel), and
+    # the 13 scans with the L2 left clean, as a served step leaves it
+    one = torch.empty(1, device=dev)
+    detail["timer_one_element_kernel_ms"] = timer([lambda: one.zero_()])
+    detail["absmax_clean_l2_ms"] = timer(
+        [lambda t=t: kf.absmax(t, TINY) for t in am_in], clean=True)
 
     # fused matmul: 5 per layer; bitwise, plus prefill rows, coded y, and
-    # a ragged shape
+    # a ragged shape; a bf16 weight equals its f32 cast bitwise
     def scales(x, y):
-        return (torch.clamp_min(kf.absmax(x), ref._TINY),
-                torch.clamp_min(kf.absmax(y), ref._TINY))
+        return kf.absmax(x, TINY), kf.absmax(y, TINY)
 
-    mm_calls, mm_plain, mm_bounds = [], [], []
+    mm_calls, mm_f32, mm_plain, mm_bounds = [], [], [], []
     for (m, k, n), w in zip(mm_shapes, ws):
         x = xs[k]
         sx, sy = scales(x, w)
@@ -264,20 +323,28 @@ def phase_kernels(torch, timer, dev="cuda"):
         if not torch.equal(a, b):
             fail(f"fused matmul differs at {(m, k, n)}: max "
                  f"{(a - b).abs().max().item()}")
+        wf = w.float()
+        if not torch.equal(a, kf.fused_bp_matmul(x, wf, sx, sy)):
+            fail(f"fused matmul: bf16 y differs from its f32 cast at "
+                 f"{(m, k, n)}")
         mm_calls.append(lambda x=x, w=w, sx=sx, sy=sy:
                         kf.fused_bp_matmul(x, w, sx, sy))
+        mm_f32.append(lambda x=x, w=wf, sx=sx, sy=sy:
+                      kf.fused_bp_matmul(x, w, sx, sy))
         mm_plain.append(lambda x=x, w=w, sx=sx, sy=sy:
                         ref.fused_matmul_ref(x, w, sx, sy))
-        mm_bounds.append(bound(4 * m * k + 4 * k * n + 8 + 4 * m * n,
+        mm_bounds.append(bound(4 * m * k + nbytes(w) + 8 + 4 * m * n,
                                2 * m * n * 8 * k, H100_INT8_OPS_PER_S))
     extra = []
     for (m, k, n) in ([(m, d, hd) for m in (1, 4, 8, 16, 64, 65, 256)]
-                      + [(64, ff, d), (130, 100, 96), (1, 7, 5)]):
+                      + [(64, ff, d), (130, 100, 96), (1, 7, 5), (3, 33, 50)]):
         x, w = randn(m, k), weight(k, n)
         sx, sy = scales(x, w)
         a = kf.fused_bp_matmul(x, w, sx, sy)
         if not torch.equal(a, ref.fused_matmul_ref(x, w, sx, sy)):
             fail(f"fused matmul differs at {(m, k, n)}")
+        if not torch.equal(a, kf.fused_bp_matmul(x, w.float(), sx, sy)):
+            fail(f"fused matmul: bf16 y differs from f32 at {(m, k, n)}")
         codes, cs = ops.prepare_bp_weight(w)
         if not torch.equal(kf.fused_bp_matmul(x, codes, sx, cs),
                            ref.fused_matmul_ref(x, codes, sx, cs)):
@@ -300,7 +367,7 @@ def phase_kernels(torch, timer, dev="cuda"):
         return vals[i] * sign, s_
 
     wb, sw = on_edges(1.0, d, kvd)
-    for sc in (0.37, 5.128217, ref._TINY, 3e38):
+    for sc in (0.37, 5.128217, TINY, 3e38):
         for m in (8, 72):
             xb, s_ = on_edges(sc, m, d)
             if not torch.equal(kf.fused_bp_matmul(xb, wb, s_, sw),
@@ -314,10 +381,10 @@ def phase_kernels(torch, timer, dev="cuda"):
         sx, sy = scales(x, w)
         seen = kernels_enqueued(torch, lambda: kf.fused_bp_matmul(
             x, w, sx, sy))
-        if not 1 <= seen <= 2:
-            fail(f"fused matmul at {(m, k, n)}: {seen} kernels enqueued "
-                 f"(at most 2)")
-        launches["x".join(map(str, (m, k, n)))] = seen
+        if not 1 <= sum(seen.values()) <= 2:
+            fail(f"fused matmul at {(m, k, n)}: {seen} enqueued (at most "
+                 f"2 kernels)")
+        launches["x".join(map(str, (m, k, n)))] = sum(seen.values())
     detail["fused_matmul_kernels_per_call"] = launches
     x64 = randn(64, d)
     p64 = (x64, ws[0], *scales(x64, ws[0]))
@@ -326,30 +393,86 @@ def phase_kernels(torch, timer, dev="cuda"):
     rows["fused_matmul"] = dict(max_abs_err=0.0, ms=timer(mm_calls),
                                 plain_ms=timer(mm_plain, iters=3),
                                 library_ms=None, b=mm_bounds)
+    detail["fused_matmul_f32_weights_ms"] = timer(mm_f32)
+    detail["fused_matmul_f32_weights_bound_ms"] = sum(
+        bound(4 * m * k + 4 * k * n + 8 + 4 * m * n, 2 * m * n * 8 * k,
+              H100_INT8_OPS_PER_S)[0] for (m, k, n) in mm_shapes)
     detail["fused_matmul_checked_extra_shapes"] = extra
 
-    # fused MLP: 1 per layer; 1e-5 relative to the output's magnitude
+    # fused MLP: 1 per layer; 1e-5 relative to the output's magnitude for
+    # silu and gelu, bitwise for relu; bf16, f32 and coded weights
+    def mlp_err(a, b, act, what):
+        e = ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+        if act == "relu" and not torch.equal(a, b):
+            fail(f"fused MLP (relu, {what}) not bitwise: {e:.3g}")
+        if not math.isfinite(e) or e > 1e-5:
+            fail(f"fused MLP ({act}, {what}) off by {e:.3g}")
+        return (a - b).abs().max().item()
+
+    def mlp_weights(k, f, kind):
+        u, g = weight(k, f), weight(k, f)
+        if kind == "coded":
+            (u, su_), (g, sg_) = ops.prepare_bp_weight(u), \
+                ops.prepare_bp_weight(g)
+            return u, g, su_, sg_
+        if kind == "f32":
+            u, g = u.float(), g.float()
+        return u, g, kf.absmax(u, TINY), kf.absmax(g, TINY)
+
     err = 0.0
     x = xs[d]
-    sx, su, sg = (torch.clamp_min(kf.absmax(t), ref._TINY)
-                  for t in (x, up, gate))
-    for act in ("silu", "gelu", "relu"):
-        for xx in (x, randn(64, d)):
-            s0 = torch.clamp_min(kf.absmax(xx), ref._TINY)
-            a = kf.fused_mlp(xx, up, gate, s0, su, sg, act)
-            b = ref.fused_mlp_ref(xx, up, gate, act, s0, su, sg)
-            e = ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
-            if not math.isfinite(e) or e > 1e-5:
-                fail(f"fused MLP ({act}, M={xx.shape[0]}) off by {e:.3g}")
-            err = max(err, (a - b).abs().max().item())
+    sx, su, sg = (kf.absmax(t, TINY) for t in (x, up, gate))
+    mlp_checked = []
+    for (m, k, f) in ([(m, d, ff) for m in (1, 4, 8, 16, 64, 65, 256)]
+                      + [(130, 100, 96), (1, 7, 5)]):
+        xx = randn(m, k)
+        s0 = kf.absmax(xx, TINY)
+        for kind in ("bf16", "f32", "coded"):
+            if k == d and kind != "bf16" and m not in (4, 64):
+                continue          # the wide f32 and coded cases: 4, 64 rows
+            u, g, su_, sg_ = mlp_weights(k, f, kind)
+            for act in ("silu", "gelu", "relu"):
+                a = kf.fused_mlp(xx, u, g, s0, su_, sg_, act)
+                b = ref.fused_mlp_ref(xx, u, g, act, s0, su_, sg_)
+                err = max(err, mlp_err(a, b, act, f"{kind}, {(m, k, f)}"))
+                if kind == "bf16" and not torch.equal(a, kf.fused_mlp(
+                        xx, u.float(), g.float(), s0, su_, sg_, act)):
+                    fail(f"fused MLP: bf16 weights differ from their f32 "
+                         f"cast at {(m, k, f)} ({act})")
+            mlp_checked.append((m, k, f, kind))
+    detail["fused_mlp_checked"] = mlp_checked
+    mlp_launches = {}
+    for m in (4, 64):
+        xx = randn(m, d)
+        args = (xx, up, gate, kf.absmax(xx, TINY), su, sg, "silu")
+        seen = kernels_enqueued(torch, lambda: kf.fused_mlp(*args))
+        if not 1 <= sum(seen.values()) <= 2:
+            fail(f"fused MLP at M {m}: {seen} enqueued (at most 2 kernels)")
+        mlp_launches[f"{m}x{d}x{ff}"] = sum(seen.values())
+    detail["fused_mlp_kernels_per_call"] = mlp_launches
+    upf, gatef = up.float(), gate.float()
     rows["fused_mlp"] = dict(
         max_abs_err=err,
         ms=timer([lambda: kf.fused_mlp(x, up, gate, sx, su, sg, "silu")]),
         plain_ms=timer([lambda: ref.fused_mlp_ref(x, up, gate, "silu", sx,
                                                   su, sg)], iters=3),
         library_ms=None,
-        b=[bound(4 * M * d + 2 * 4 * d * ff + 12 + 4 * M * ff,
+        b=[bound(4 * M * d + nbytes(up) + nbytes(gate) + 12 + 4 * M * ff,
                  2 * 2 * M * ff * 8 * d, H100_INT8_OPS_PER_S)])
+    detail["fused_mlp_f32_weights_ms"] = timer(
+        [lambda: kf.fused_mlp(x, upf, gatef, sx, su, sg, "silu")])
+    detail["fused_mlp_f32_weights_bound_ms"] = bound(
+        4 * M * d + 8 * d * ff + 12 + 4 * M * ff, 2 * 2 * M * ff * 8 * d,
+        H100_INT8_OPS_PER_S)[0]
+    x64 = randn(64, d)
+    p64 = (x64, up, gate, kf.absmax(x64, TINY), su, sg, "silu")
+    detail["fused_mlp_clean_l2_ms"] = timer(
+        [lambda: kf.fused_mlp(x, up, gate, sx, su, sg, "silu")], clean=True)
+    detail["fused_mlp_prefill_64x2560x6912_ms"] = timer(
+        [lambda: kf.fused_mlp(*p64)])
+    detail["fused_mlp_prefill_64x2560x6912_bound_ms"] = bound(
+        4 * 64 * d + nbytes(up) + nbytes(gate) + 12 + 4 * 64 * ff,
+        2 * 2 * 64 * ff * 8 * d, H100_INT8_OPS_PER_S)[0]
 
     # decode attention: B=4 rows, 8 kv heads x 4 queries, D=80, S=1024
     def cache(b, s, kh, dd, empty_tail=0, dead_row=False):
@@ -402,7 +525,8 @@ def phase_kernels(torch, timer, dev="cuda"):
         b=[bound(4 * B * KH * G * D * 2 + 2 * B * S * KH * D
                  + 2 * 4 * B * S * KH + 4 * B * S + 4 * B,
                  4 * B * KH * G * S * D, H100_F32_FLOPS_PER_S)])
-    unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev)
+    unfused_kernel_rows(torch, timer, randn,
+                        lambda k, n: weight(k, n).float(), rows, detail, dev)
     return rows, detail
 
 
@@ -542,13 +666,60 @@ def profile_serving(torch, cfg, params, prompts, prompt_len=64, new=8):
            "idle_share": 1.0 - busy_s / wall_s,
            "top": [{"name": k[:120], "ms": us / 1e3, "calls": n,
                     "share_of_busy": us / 1e6 / busy_s}
-                   for us, k, n in rows[:15]]}
+                   for us, k, n in rows[:15]],
+           # dtype casts and other copies (direct_copy_kernel)
+           "copies": [{"name": k[:120], "ms": us / 1e3, "calls": n}
+                      for us, k, n in rows if "copy" in k.lower()]}
     print(f"profile: wall {wall_s:.3f}s, device busy {busy_s:.3f}s, idle "
           f"share {out['idle_share']:.3f}")
     for r in out["top"][:8]:
         print(f"  {r['share_of_busy']:.3f} {r['ms']:.1f} ms x{r['calls']} "
               f"{r['name']}")
+    for r in out["copies"]:
+        print(f"  copies: {r['ms']:.2f} ms x{r['calls']} {r['name'][:80]}")
     return out
+
+
+def decode_layer_launches(torch, cfg, params):
+    """Device activities (kernels, memsets, copies) that one decode layer
+    adds to a decode step of 4 rows, by kernel name, and their device
+    time: the profile of a 3-layer step less that of a 2-layer step (same
+    weights; ``params`` must hold 3 layers or more).  Each step is
+    profiled twice and the second kept, so that the profiler's start-up
+    loses nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import build as build_model
+    steps = []
+    for layers in (2, 3):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        model = build_model(c)
+        cache = model.init_cache(4, 256, "cuda")
+        tokens = torch.ones((4, 1), dtype=torch.long, device="cuda")
+        pos = torch.full((4,), 100, dtype=torch.int32, device="cuda")
+        for _ in range(2):
+            model.decode_step(params, tokens, cache, pos)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model.decode_step(params, tokens, cache, pos)
+                torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        steps.append(({e.key: e.count for e in evs},
+                      sum(getattr(e, "self_device_time_total", 0) for e in evs)))
+    (two, us2), (three, us3) = steps
+    per = {k: three.get(k, 0) - two.get(k, 0) for k in set(two) | set(three)}
+    per = {k: v for k, v in sorted(per.items(), key=lambda kv: -kv[1]) if v}
+    total = sum(per.values())
+    copies = sum(v for k, v in per.items() if "copy" in k.lower())
+    print(f"decode layer launches: {total} device activities a layer "
+          f"({copies} copy kernels), {(us3 - us2) / 1e3:.4f} ms of device "
+          f"time; by kernel: "
+          + ", ".join(f"{v} {k[:60]}" for k, v in per.items()))
+    return {"total": total, "copies": copies, "by_kernel": per,
+            "device_ms": (us3 - us2) / 1e3,
+            "step_2_layers": sum(two.values()),
+            "step_3_layers": sum(three.values())}
 
 
 def phase_unfused(torch, timer, build, dev="cuda"):
@@ -597,6 +768,10 @@ def phase_unfused(torch, timer, build, dev="cuda"):
         if not torch.equal(a, b):
             fail(f"unfused != fused at {tuple(x.shape)} @ {tuple(w.shape)}: "
                  f"max {(a - b).abs().max().item()}")
+        # the served form: the same weight held as bf16 (it is exact there)
+        if not torch.equal(a, ops.oisma_matmul(x, w.to(torch.bfloat16))):
+            fail(f"unfused != fused with a bf16 weight at {tuple(x.shape)} "
+                 f"@ {tuple(w.shape)}")
     if not torch.equal(periphery.to(torch.float32), product):
         fail("periphery popcounts differ from the codes matmul")
     layer = {}
@@ -616,12 +791,13 @@ def phase_unfused(torch, timer, build, dev="cuda"):
           f"qwen2-72b {qs}) + periphery in {wall:.3f}s, all equal to the "
           f"fused path bitwise; launches {launches}")
     for m, r in layer.items():
-        was = (f" (PR 12: {PR12_MS['fused_layer_256_rows_ms']})"
+        was = (f" ({EARLIER}: {EARLIER_MS['fused_layer_256_rows_ms']})"
                if m == 256 else "")
         print(f"  one layer, M {m}: unfused {r['unfused_ms']:.4f} ms, fused "
               f"{r['fused_ms']:.4f} ms{was}")
     print(f"  qwen2-72b {qs}: unfused {qwen['unfused_ms']:.4f} ms, fused "
-          f"{qwen['fused_ms']:.4f} ms (PR 12: {PR12_MS['qwen2_72b_fused_ms']})")
+          f"{qwen['fused_ms']:.4f} ms ({EARLIER}: "
+          f"{EARLIER_MS['qwen2_72b_fused_ms']})")
     return launches, {"wall_s": wall, "launches": launches,
                       "layer_ms": layer, f"qwen2_72b_{qs}_ms": qwen}
 
@@ -699,8 +875,8 @@ def main() -> None:
             fail("the fused matmul's kernels must multiply with IMMA")
         lib = build.library()
         from repro_torch.kernels.attention import _split_smem
-        print("dynamic shared memory: fused matmul tiles "
-              + ", ".join(f"M {m}: {lib.oisma_fused_matmul_smem(m, 0)} B"
+        print("dynamic shared memory: fused matmul tiles (bf16 weight) "
+              + ", ".join(f"M {m}: {lib.oisma_fused_matmul_smem(m, 1)} B"
                           for m in (4, 64, 256))
               + f"; decode attention split block (G 4, D 80, 64 tokens) "
               f"{_split_smem(4, 80, 64)} B")
@@ -712,15 +888,17 @@ def main() -> None:
         rows, detail = phase_kernels(torch, timer)
     report["kernel_detail"] = detail
     for name, r in rows.items():
-        was = f" (PR 12: {PR12_MS[name]})" if name in PR12_MS else ""
+        was = (f" ({EARLIER}: {EARLIER_MS[name]})" if name in EARLIER_MS
+               else "")
         print(f"kernel {name}: ms {r['ms']:.4f}{was} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} max_abs_err "
               f"{r['max_abs_err']}")
     for k, v in detail.items():
         if k.endswith("_ms"):
-            was = f" (PR 11/12: {PR12_MS[k]})" if k in PR12_MS else ""
+            was = (f" ({EARLIER}: {EARLIER_MS[k]})" if k in EARLIER_MS
+                   else "")
             print(f"  {k}: {v:.4f}{was}")
-        elif k == "fused_matmul_kernels_per_call":
+        elif k.endswith("_kernels_per_call"):
             print(f"  {k}: {v}")
 
     # ---- phase 3: card vs CPU at full width, 2 layers ----
@@ -768,6 +946,8 @@ def main() -> None:
             fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
                  f"{bool(torch.isfinite(logits).all())}")
         report["profile"] = profile_serving(torch, full, params, prompts[:4])
+        report["decode_layer_launches"] = decode_layer_launches(
+            torch, full, params)
         report["main_path"] = {
             "model": full.name, "layers": full.num_layers,
             "requests": len(out), "prompt_lens": lens, "new_tokens": n_tok,

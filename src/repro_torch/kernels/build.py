@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels under ``csrc/``.
 
-All ``.cu`` sources compile in one ``nvcc`` call into a shared library
-with a plain C interface, loaded with ``ctypes``.  The library is built
-at first use (never at import: machines without ``nvcc`` import this
-package too) into ``build/repro_torch_kernels/<hash>/`` at the root of
-the checkout, keyed by a hash of the sources and the flags, so an edit
-rebuilds and an unchanged tree reuses the last build.  The compiler's
+Each ``.cu`` source compiles in an ``nvcc`` of its own, all started
+together, into an object with a plain C interface; one more ``nvcc`` links
+the objects into a shared library, loaded with ``ctypes``.  The library is
+built at first use (never at import: machines without ``nvcc`` import this
+package too) into ``build/repro_torch_kernels/<hash>/`` at the root of the
+checkout, keyed by a hash of the sources and the flags, so an edit
+rebuilds and an unchanged tree reuses the last build.  The compilers'
 output (``-Xptxas -v``: registers, spills, static shared memory of every
 kernel) is kept beside the library as ``nvcc.log``.
 
@@ -33,9 +34,9 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "--threads", "0")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 LOG_NAME = "nvcc.log"       # the build's output: ptxas registers, smem
 
@@ -45,20 +46,24 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 _P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_uint)
 _SIGNATURES = {
-    "oisma_absmax": (_P, _LL, _P, _P),
+    "oisma_absmax": (_P, _I, _LL, _F, _P, _P),
     "oisma_fused_matmul": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                            _P),
     "oisma_fused_matmul_workspace": (_I, _I, _I, _I),
     "oisma_fused_matmul_smem": (_I, _I),
     "oisma_fused_mlp": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _U, _U, _P),
+    "oisma_fused_mlp_workspace": (_I, _I, _I, _I),
     "oisma_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _F, _I, _P),
     "oisma_bp_matmul": (_P, _P, _P, _P, _I, _I, _I, _U, _U, _P),
     "oisma_bp_quantize": (_P, _P, _P, _LL, _P),
     "oisma_popcount": (_P, _I, _P, _I, _I, _P),
 }
-_RESTYPES = {"oisma_fused_matmul_workspace": _LL}
+_RESTYPES = {"oisma_fused_matmul_workspace": _LL,
+             "oisma_fused_mlp_workspace": _LL}
+#: the C entry points' number for a weight's dtype (``Kind`` in bp_mma.cuh)
+KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -89,6 +94,38 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def compile_library(sources, lib: pathlib.Path) -> str:
+    """Compile each ``.cu`` of ``sources`` in an nvcc of its own, all at
+    once, link them into ``lib``; return the compilers' output."""
+    objs, procs = [], []
+    for src in sources:
+        obj = lib.with_name(f"{pathlib.Path(src).stem}.{os.getpid()}.o")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+        objs.append(obj)
+    log, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [_nvcc(), *ARCH, "-shared", "-o", str(lib), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
+        if res.returncode:
+            failed.append(f"link failed ({res.returncode}):\n{' '.join(cmd)}"
+                          f"\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(log)
+
+
 def build() -> pathlib.Path:
     """Compile the library if this tree's sources have no build yet."""
     out_dir = BUILD_ROOT / source_hash()
@@ -97,13 +134,8 @@ def build() -> pathlib.Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    (out_dir / LOG_NAME).write_text(res.stdout + res.stderr)
+    log = compile_library([p for p in _sources() if p.suffix == ".cu"], tmp)
+    (out_dir / LOG_NAME).write_text(log)
     os.replace(tmp, lib)        # atomic: concurrent builders never see half
     return lib
 

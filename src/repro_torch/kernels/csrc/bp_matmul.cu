@@ -9,7 +9,7 @@
 // tensor-core operations), bytes at decode (4 rows: y's codes are read
 // once, one byte each).
 //
-// Design (bp_tile.cuh, XC): the TPU kernel expands both code tiles into
+// Design (bp_tile.cuh): the TPU kernel expands both code tiles into
 // 8 signed f32 or bf16 bitplanes in VMEM and runs one MXU dot.  Here each
 // code expands, through the plane thresholds, into its BP8 mask; four k
 // pack into one word per sign and one product of four k is two popcounts
@@ -23,8 +23,5 @@
 extern "C" int oisma_bp_matmul(const int8_t* x, const int8_t* y, float* out,
                                int* ws, int M, int K, int N, unsigned thr_r,
                                unsigned thr_l, cudaStream_t stream) {
-  using namespace oisma;
-  return launch_bp<1, true, true>(x, y, nullptr, nullptr, nullptr, nullptr,
-                                  out, ws, M, K, N, kNone, thr_r, thr_l,
-                                  stream);
+  return oisma::launch_bp(x, y, out, ws, M, K, N, thr_r, thr_l, stream);
 }

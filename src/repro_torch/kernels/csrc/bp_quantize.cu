@@ -18,14 +18,22 @@
 // Design: a grid-stride loop, float4 in and char4 out where both pointers
 // allow it, the scalar tail after.  The scale is read on the card from its
 // pointer, so the host never waits for the absmax that produced it.
-#include "bp_tile.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
+// clip(rint(|v| / s * 10), 0, 9): a true f32 division (the build uses no
+// fast math), a multiply, round half to even.
+__device__ __forceinline__ int bp_level(float v, float s) {
+  const float l = rintf(fabsf(v) / s * 10.0f);
+  return (int)fminf(fmaxf(l, 0.0f), 9.0f);
+}
+
 __device__ __forceinline__ signed char bp_code(float v, float s) {
-  const int l = oisma::bp_level(v, s);
+  const int l = bp_level(v, s);
   return (signed char)(v > 0.0f ? l : (v < 0.0f ? -l : 0));
 }
 

@@ -4,8 +4,12 @@
 
 ``oisma_matmul`` is what ``dense`` dispatches to under
 ``matmul_mode="bp8_fused"``: two absmax scans (x and, for a real weight,
-y), each floored at f32 ``tiny``, then one fused kernel that encodes
-both tiles on the fly, multiplies and rescales.  ``impl="unfused"`` runs
+y), each floored at f32 ``tiny`` in the same launch, then one fused
+kernel that encodes both tiles on the fly, multiplies and rescales.  A
+real weight reaches both kernels as it is stored, f32 or bf16 (the
+model's), and is never cast: the kernels widen bf16 in registers, which
+is exact, so the result is bitwise that of the f32 cast.  x is cast to
+f32 once.  ``impl="unfused"`` runs
 the reference pipeline instead: the same two scales, a BP quantise
 kernel per operand (int8 codes through device memory), the codes matmul
 kernel, then the rescale ``acc * ((sx * sy) * 0.1)`` in torch.  Every
@@ -33,7 +37,15 @@ _TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def _scale(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(_f.absmax(x), _TINY)
+    return _f.absmax(x, _TINY)
+
+
+def _weight(w: torch.Tensor) -> torch.Tensor:
+    """A real weight as the kernels read it: f32 and bf16 as they are,
+    any other float type cast to f32."""
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        w = w.to(torch.float32)
+    return w.contiguous()
 
 
 def prepare_bp_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,8 +77,9 @@ def oisma_matmul_unfused(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
                  y_scale: Optional[torch.Tensor] = None,
                  impl: str = "fused") -> torch.Tensor:
-    """OISMA-simulated ``x @ y`` for 2-D operands; ``y`` real (K, N) or
-    int8 codes from ``prepare_bp_weight`` (then ``y_scale`` is needed).
+    """OISMA-simulated ``x @ y`` for 2-D operands; ``y`` real (K, N), read
+    as stored if f32 or bf16, or int8 codes from ``prepare_bp_weight``
+    (then ``y_scale`` is needed).
     ``impl``: "fused" (one kernel) or "unfused" (the reference pipeline,
     real ``y`` only)."""
     if x.shape[-1] != y.shape[0]:
@@ -85,7 +98,7 @@ def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
         y = y.contiguous()
         sy = y_scale.to(torch.float32).reshape(1, 1).contiguous()
     elif torch.is_floating_point(y):
-        y = y.to(torch.float32).contiguous()
+        y = _weight(y)
         sy = _scale(y)
     else:
         raise TypeError(f"y must be real or int8 codes, not {y.dtype}")
@@ -94,14 +107,14 @@ def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
 
 def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
               act: str = "silu") -> torch.Tensor:
-    """``act(x @ w_gate) * (x @ w_up)``, both BP-fused in one kernel."""
+    """``act(x @ w_gate) * (x @ w_up)``, both BP-fused in one kernel; real
+    weights read as stored if f32 or bf16."""
     m, k = x.shape
     if k != w_up.shape[0] or w_gate.shape != w_up.shape:
         raise ValueError(f"mlp shapes: {tuple(x.shape)}, "
                          f"{tuple(w_up.shape)}, {tuple(w_gate.shape)}")
     x = x.to(torch.float32).contiguous()
-    up = w_up.to(torch.float32).contiguous()
-    gate = w_gate.to(torch.float32).contiguous()
+    up, gate = _weight(w_up), _weight(w_gate)
     return _f.fused_mlp(x, up, gate, _scale(x), _scale(up), _scale(gate),
                         act=act)
 

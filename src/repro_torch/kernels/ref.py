@@ -26,14 +26,14 @@ _TINY = float(torch.finfo(torch.float32).tiny)
 _K_CHUNK = 512          # K rows expanded at a time (bounds the 8x planes)
 
 
-def absmax_ref(x: torch.Tensor) -> torch.Tensor:
-    """max|x| as a (1, 1) f32, with no floor."""
-    return x.float().abs().amax().reshape(1, 1)
+def absmax_ref(x: torch.Tensor, floor: float = 0.0) -> torch.Tensor:
+    """``max(max|x|, floor)`` as a (1, 1) f32 (``floor=0.0``: none)."""
+    return torch.clamp_min(x.float().abs().amax().reshape(1, 1), floor)
 
 
 def tensor_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-tensor max-|x| scale floored at f32 tiny, as (1, 1)."""
-    return torch.clamp_min(absmax_ref(x), _TINY)
+    return absmax_ref(x, _TINY)
 
 
 def bp_levels(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -69,6 +69,18 @@ def plane_boundaries(scale: torch.Tensor, which: str) -> torch.Tensor:
     b = torch.cat([level_boundaries(scale),
                    torch.full((1,), torch.nan, device=scale.device)])
     return b[(t - 1).clamp(0, NUM_LEVELS - 1).to(scale.device)]
+
+
+def bf16_plane_boundaries(scale: torch.Tensor, which: str) -> torch.Tensor:
+    """(8,) int32: ``plane_boundaries`` as bf16 bit patterns, rounded up,
+    so that for a bf16 value v, plane p is set iff ``bits(|v|) >=
+    result[p]`` (0x8000, above every |v|, where no value reaches the
+    plane).  The plain version of the kernels' two-values-a-compare bf16
+    encode (``bf16_boundary2`` in ``csrc/bp_mma.cuh``)."""
+    b = plane_boundaries(scale, which)
+    u = b.view(torch.int32)
+    h = (u >> 16) + ((u & 0xFFFF) != 0).to(torch.int32)
+    return torch.where(torch.isnan(b), 0x8000, h)
 
 
 def bp_quantize_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -164,7 +176,7 @@ from repro_torch.kernels.attention import (  # noqa: E402  (re-export)
     quantize_kv)
 
 __all__ = ["absmax_ref", "tensor_scale", "bp_levels", "level_boundaries",
-           "plane_boundaries", "bp_quantize_ref",
+           "plane_boundaries", "bf16_plane_boundaries", "bp_quantize_ref",
            "to_codes", "popcount_accumulate_ref", "bp_matmul_ref",
            "fused_matmul_ref", "fused_mlp_ref", "kernel_activation",
            "bp8_decode_attention_ref", "bp8_decode_attention_split_ref",

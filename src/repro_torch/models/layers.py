@@ -28,8 +28,8 @@ def dense(x: torch.Tensor, w: torch.Tensor, mode: str = "bf16",
     elif mode in ("bp8", "bp8_lowrank", "bp8_fused"):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        if mode == "bp8_fused":
-            y = _ops.oisma_matmul(x2, w.to(torch.float32))
+        if mode == "bp8_fused":         # w as held: the kernels read bf16
+            y = _ops.oisma_matmul(x2, w)
         else:
             y = _bpm.bp_matmul_ste(
                 x2, w.to(torch.float32),
@@ -123,12 +123,12 @@ def mlp_defs(d_model: int, d_ff: int, gated: bool, dtype=torch.bfloat16):
 def mlp_apply(p, x: torch.Tensor, act: str, gated: bool,
               mode: str) -> torch.Tensor:
     if mode == "bp8_fused" and gated and act in ("silu", "gelu", "relu"):
-        # one kernel: up and gate share one BP encode of x, and the two
-        # (tokens, d_ff) projections never reach device memory
+        # one kernel: up and gate share one BP encode of x, the weights
+        # are read as held, and the two (tokens, d_ff) projections never
+        # reach device memory
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        up = _ops.oisma_mlp(x2, p["up"].to(torch.float32),
-                            p["gate"].to(torch.float32), act=act)
+        up = _ops.oisma_mlp(x2, p["up"], p["gate"], act=act)
         up = up.reshape(*lead, p["up"].shape[-1]).to(x.dtype)
     else:
         up = dense(x, p["up"], mode)

@@ -6,12 +6,14 @@ and nvcc:
 
     python -m pytest -m gpu tests/test_torch_cuda.py -q
 
-Tolerances: absmax and the fused matmul (real and int8-coded y) bitwise;
-the fused MLP and decode attention 1e-5 (the card's expf/tanhf and the
-softmax reassociated over chunks or splits differ from the host's in the
-last bits); the unfused
-pipeline's kernels (codes matmul, BP quantise, popcount) bitwise, and
-``impl="unfused"`` bitwise equal to ``impl="fused"``.
+Tolerances: absmax (f32 and bf16, with and without its floor) and the
+fused matmul (f32, bf16 and int8-coded y) bitwise; the fused MLP 1e-5 for
+silu and gelu (expf/tanhf and their contraction into FMAs may differ in
+the last bits) and bitwise for relu; decode attention 1e-5 (the softmax
+reassociated over chunks or splits); the unfused pipeline's kernels
+(codes matmul, BP quantise, popcount) bitwise, and ``impl="unfused"``
+bitwise equal to ``impl="fused"``.  A bf16 weight gives bitwise what its
+f32 cast gives.
 """
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 
 SHAPES = [(130, 100, 96), (16, 128, 128), (1, 7, 5), (129, 257, 130),
           (4, 2560, 640), (64, 640, 260)]
+TINY = float(np.finfo(np.float32).tiny)
 
 
 @pytest.fixture
@@ -38,6 +41,27 @@ def cuda():
 def _randn(rng, shape, dev, scale=2.0):
     return torch.from_numpy((rng.normal(size=shape) * scale)
                             .astype(np.float32)).to(dev)
+
+
+def _kernels_enqueued(fn) -> dict:
+    """Device activities (kernels and memsets) one call of ``fn``
+    enqueues, by name, from the profiler (after one call to warm up).
+    Each name's count is the larger of two profiled calls: a profiling
+    session can miss the first activities it should record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = {}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                seen[e.key] = max(seen.get(e.key, 0), e.count)
+    return seen
 
 
 @pytest.mark.gpu
@@ -176,19 +200,115 @@ def test_fused_matmul_on_plane_boundaries(scale, cuda, rng):
 @pytest.mark.parametrize("m,k,n", [(4, 2560, 2560), (64, 2560, 2560),
                                    (256, 2560, 6912), (1, 7, 5)])
 def test_fused_matmul_at_most_two_launches(m, k, n, cuda, rng):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
     sx, sy = tref.tensor_scale(x), tref.tensor_scale(y)
-    tfused.fused_bp_matmul(x, y, sx, sy)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tfused.fused_bp_matmul(x, y, sx, sy)
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    assert 1 <= kernels <= 2
+    for w in (y, y.to(torch.bfloat16)):
+        seen = _kernels_enqueued(lambda: tfused.fused_bp_matmul(x, w, sx, sy))
+        assert 1 <= sum(seen.values()) <= 2, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 2560), (64, 2560, 640),
+                                   (256, 640, 384), (130, 100, 96),
+                                   (1, 7, 5), (3, 33, 50)])
+def test_fused_matmul_bf16_weight_bitwise(m, k, n, cuda, rng):
+    """A bf16 y, read as stored, gives bitwise what its f32 cast gives
+    (N 50 takes the element-by-element loader)."""
+    x = _randn(rng, (m, k), cuda, 1.0)
+    y = _randn(rng, (k, n), cuda, k ** -0.5).to(torch.bfloat16)
+    sx, sy = tref.tensor_scale(x), tref.tensor_scale(y)
+    got = tfused.fused_bp_matmul(x, y, sx, sy)
+    assert torch.equal(got, tfused.fused_bp_matmul(x, y.float(), sx, sy))
+    assert torch.equal(got, tref.fused_matmul_ref(x, y, sx, sy))
+    assert torch.equal(tops.oisma_matmul(x, y), tops.oisma_matmul(x, y.float()))
+
+
+def _absmax_input(size, dtype, dev, rng):
+    if size == "view":      # contiguous, but 1 element past an aligned start
+        return _randn(rng, (4103,), dev).to(dtype)[1:4100]
+    return _randn(rng, size, dev).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("floor", [0.0, TINY], ids=["no_floor", "tiny"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", [(1,), (7,), (4097,), (2560, 6912), "view"],
+                         ids=str)
+def test_absmax_bitwise(size, dtype, floor, cuda, rng):
+    """Against the plain version, with the largest |x| at random, at the
+    first element (the unaligned head) and at the last (the tail); two
+    calls in a row agree (the library's block counter is reset)."""
+    x = _absmax_input(size, getattr(torch, dtype), cuda, rng)
+    flat = x.view(-1)
+    for at, v in ((None, 0.0), (0, -1e3), (-1, 2e3)):
+        if at is not None:
+            flat[at] = v
+        got = tfused.absmax(x, floor)
+        assert torch.equal(got, tref.absmax_ref(x, floor))
+        assert torch.equal(tfused.absmax(x, floor), got)
+    zeros = torch.zeros_like(x)
+    assert torch.equal(tfused.absmax(zeros, floor),
+                       torch.full((1, 1), floor, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 2560), (2560, 6912), (7,)], ids=str)
+def test_absmax_one_launch(shape, dtype, cuda, rng):
+    x = _randn(rng, shape, cuda).to(getattr(torch, dtype))
+    seen = _kernels_enqueued(lambda: tfused.absmax(x, TINY))
+    assert sum(seen.values()) == 1, seen
+
+
+def _mlp_weights(rng, k, f, kind, dev):
+    """(up, gate, up scale, gate scale) of one kind: bf16, f32 or int8
+    codes, from model-like values (std k**-0.5)."""
+    out = []
+    for _ in range(2):
+        w = _randn(rng, (k, f), dev, k ** -0.5)
+        if kind == "coded":
+            out.append(tops.prepare_bp_weight(w))
+        else:
+            w = w.to(torch.bfloat16) if kind == "bf16" else w
+            out.append((w, tref.tensor_scale(w)))
+    (up, su), (gate, sg) = out
+    return up, gate, su, sg
+
+
+MLP_SHAPES = ([(m, 640, 384) for m in (1, 4, 8, 16, 64, 65, 256)]
+              + [(130, 100, 96), (1, 7, 5)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "f32", "coded"])
+@pytest.mark.parametrize("m,k,f", MLP_SHAPES)
+def test_fused_mlp_matches_plain(m, k, f, kind, cuda, rng):
+    x = _randn(rng, (m, k), cuda, 1.0)
+    up, gate, su, sg = _mlp_weights(rng, k, f, kind, cuda)
+    sx = tref.tensor_scale(x)
+    for act in ("silu", "gelu", "relu"):
+        got = tfused.fused_mlp(x, up, gate, sx, su, sg, act)
+        want = tref.fused_mlp_ref(x, up, gate, act, sx, su, sg)
+        if act == "relu":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        if kind == "bf16":
+            assert torch.equal(got, tfused.fused_mlp(
+                x, up.float(), gate.float(), sx, su, sg, act))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "f32", "coded"])
+@pytest.mark.parametrize("m,k,f", [(4, 2560, 6912), (64, 2560, 6912),
+                                   (256, 640, 384), (1, 7, 5)])
+def test_fused_mlp_at_most_two_launches(m, k, f, kind, cuda, rng):
+    x = _randn(rng, (m, k), cuda, 1.0)
+    up, gate, su, sg = _mlp_weights(rng, k, f, kind, cuda)
+    sx = tref.tensor_scale(x)
+    seen = _kernels_enqueued(
+        lambda: tfused.fused_mlp(x, up, gate, sx, su, sg, "silu"))
+    assert 1 <= sum(seen.values()) <= 2, seen
 
 
 @pytest.mark.gpu

@@ -5,7 +5,9 @@
   version of the kernel's bisection) gives bitwise the levels of the
   division form (``ref.bp_levels``) and of the JAX reference's
   ``quantize_bp``, on the boundaries, one ulp either side, and at random,
-  tiny and huge scales.  (At scale f32 ``tiny`` every nonzero |x| below
+  tiny and huge scales.  A bf16 weight is compared as bits with the
+  boundaries rounded up to bf16 (``ref.bf16_plane_boundaries``): the same
+  planes for every bf16 value.  (At scale f32 ``tiny`` every nonzero |x| below
   the scale is subnormal, and XLA's CPU backend flushes subnormals to
   zero; there the JAX side is compared on the normal values only.)
 * Decode attention splits the cache (``split_tokens``) and merges the
@@ -85,6 +87,22 @@ def test_random_scales_boundaries_are_least(rng):
         assert torch.equal(tref.bp_levels(b, s) >= lv, torch.ones(9).bool())
         below = torch.nextafter(b, torch.zeros(9))
         assert not bool((tref.bp_levels(below, s) >= lv).any())
+
+
+@pytest.mark.parametrize("which", ["right", "left"])
+@pytest.mark.parametrize("scale", SCALES)
+def test_bf16_boundaries_give_the_planes(which, scale):
+    """Every bf16 bit pattern but the NaNs: the integer compare of
+    bits(|v|) with the rounded-up bf16 boundary sets plane p iff the
+    f32-widened value's level reaches the plane's threshold."""
+    v = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    v = v.view(torch.bfloat16)
+    v = v[~torch.isnan(v)]
+    s = torch.tensor(scale, dtype=torch.float32)
+    bits = v.view(torch.int16).to(torch.int32) & 0x7FFF
+    got = bits[:, None] >= tref.bf16_plane_boundaries(s, which)
+    t = torch.tensor(plane_thresholds(which), dtype=torch.float32)
+    assert torch.equal(got, tref.bp_levels(v.float(), s)[:, None] >= t)
 
 
 # ---------------------------------------------------------------------------
