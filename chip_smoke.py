@@ -10,11 +10,13 @@ prints its wall time):
    CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc for sm_90a (one nvcc a source, all at once) and print
    the build seconds; check in the library's SASS (``cuobjdump``) that
-   the kernels of the fused matmul and the fused MLP multiply with IMMA
-   (int8 tensor cores), and print where any POPC sits.
+   the kernels of the fused matmul, the fused MLP and the codes matmul
+   multiply on the int8 tensor cores (IMMA from mma.sync; IGMMA from the
+   codes matmul's 128-row wgmma instance), and print where any POPC sits.
 2. Hold every kernel against its plain PyTorch version on the card, at the
    shapes h2o-danube-1.8b's decode step and prefill chunks give it
    (absmax, matmul, codes matmul and BP quantise bitwise, popcount exact,
+   the quantise also on bf16 inputs, every finite bf16 pattern included,
    MLP within 1e-5 relative and relu bitwise, decode attention within
    1e-5), and time kernel, plain version and, where one exists, the
    PyTorch library call computing the same function (CUDA events, L2
@@ -27,9 +29,11 @@ prints its wall time):
    kernels a call (profiler); the MLP at M 1-256 and ragged shapes with
    bf16, f32 and coded weights, and for at most two kernels a call;
    decode attention at S 1-4096, dead rows and qwen2-72b's heads (D 128,
-   G 8).  The redesigned kernels' times print beside the earlier designs'
-   (EARLIER_MS), and the build's ptxas registers and spills beside their
-   dynamic shared memory.
+   G 8); the codes matmul at M 1-256, ragged shapes and K 0, and for at
+   most two kernels a call; the quantise timed on f32 and on bf16 weights,
+   also by the profiler's kernel time.  The redesigned kernels' times
+   print beside the earlier designs' (EARLIER_MS), and the build's ptxas
+   registers and spills beside their dynamic shared memory.
 3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
    weights on both devices, 3 prompts, 8 greedy tokens each through the
    paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
@@ -48,8 +52,9 @@ prints its wall time):
    shape of one h2o-danube-1.8b layer (4 and 256 rows) and at
    qwen2-72b's 256x8192x29568, with its accumulation periphery (the
    signed AND bits of every output as a row, summed by the popcount
-   kernel, equal the codes matmul).  Launch counts are zeroed just before
-   and read just after; each result must equal ``impl="fused"`` bitwise.
+   kernel, equal the codes matmul), each matmul also with its weight held
+   as bf16 and read as stored.  Launch counts are zeroed just before and
+   read just after; each result must equal ``impl="fused"`` bitwise.
 6. Full depth in ``bp8``: the 24-layer h2o-danube-1.8b with
    ``matmul_mode="bp8"`` serves 2 requests x 8 new tokens after a short
    warm-up; tokens/s, peak device memory, and a profile of one short
@@ -92,15 +97,17 @@ PATHS = {"absmax": "serve_bp8_fused", "fused_matmul": "serve_bp8_fused",
          "popcount": "unfused"}
 #: the earlier designs' times (NVIDIA H100 80GB HBM3, 700 W; the
 #: "Earlier ms" of PERF.md §6: f32 weights, absmax on f32 only, the MLP
-#: on the popcount core)
+#: on the popcount core; the codes matmul on the popcount core and the
+#: quantise with a division per element)
 EARLIER_MS = {"absmax": 0.2246, "fused_matmul": 0.1959, "fused_mlp": 0.1695,
-              "decode_attention": 0.0320,
+              "decode_attention": 0.0320, "bp_matmul": 4.2553,
+              "bp_quantize": 0.2353,
               "fused_matmul_prefill_64x2560x2560_ms": 0.0641,
               "fused_layer_256_rows_ms": 1.6818, "qwen2_72b_fused_ms": 4.0602}
 EARLIER = "earlier design"
 #: kernels whose registers and shared memory the build report prints
 PTXAS_SHOWN = ("bp_mma_kernel", "absmax_kernel", "decode_partial_kernel",
-               "decode_combine_kernel")
+               "decode_combine_kernel", "bp_quantize_kernel")
 TINY = 1.1754943508222875e-38     # f32 tiny: the scales' floor
 # h2o-danube-1.8b: d_model, q/o width, k/v width, d_ff
 D, HD, KVD, FF = 2560, 2560, 640, 6912
@@ -196,9 +203,9 @@ def ptxas_report(log: str) -> list:
 
 
 def sass_counts(build, lib_path) -> dict:
-    """Per kernel of the fused matmul's and the MLP's core
-    (``bp_mma_kernel``), the IMMA
-    (int8 tensor-core) and POPC instructions in the built library's SASS
+    """Per kernel of the integer core (``bp_mma_kernel``: the fused matmul,
+    the MLP and the codes matmul), the IMMA and IGMMA (int8 tensor-core:
+    mma.sync and wgmma) and POPC instructions in the built library's SASS
     (``cuobjdump -sass``), and each POPC with the two instructions either
     side of it."""
     tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
@@ -214,7 +221,8 @@ def sass_counts(build, lib_path) -> dict:
                    if "*/" in ln]
             popc = [i for i, op in enumerate(ops) if "POPC" in op]
             counts[name] = {
-                "IMMA": sum("IMMA" in op for op in ops), "POPC": len(popc),
+                "IMMA": sum("IMMA" in op for op in ops),
+                "IGMMA": sum("IGMMA" in op for op in ops), "POPC": len(popc),
                 "POPC_context": [ops[max(0, i - 2):i + 3] for i in popc]}
 
     for line in out.stdout.splitlines():
@@ -530,10 +538,33 @@ def phase_kernels(torch, timer, dev="cuda"):
     return rows, detail
 
 
+def kernel_device_ms(torch, timer, calls, part: str) -> float:
+    """Device time per run of ``calls`` of the kernels whose name holds
+    ``part``, from the profiler (each call after the timer's L2 flush, as
+    the event times are taken; the flush's own kernel is not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    runs = 5
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            for f in calls:
+                timer.flush.zero_()
+                f()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and part in e.key)
+    return us / 1e3 / runs
+
+
 def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
     """The unfused pipeline's kernels against their plain versions: the
-    codes matmul and the BP quantise bitwise, popcount exact; timed over
-    one layer at 256 rows (the unfused path's prefill half)."""
+    codes matmul and the BP quantise bitwise (the quantise on f32 and bf16
+    inputs), popcount exact; timed over one layer at 256 rows (the unfused
+    path's prefill half)."""
     from repro_torch.kernels import bp_matmul as kb
     from repro_torch.kernels import ref
     from repro_torch.core.quantize import quantize_bp
@@ -545,20 +576,34 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
         return (randn(*shape) * (hi - lo) / 4).round().clamp(lo, hi).to(
             torch.int8)
 
-    # codes matmul: codes of real data at the layer's shapes, plus ragged
+    # codes matmul: codes of real data at the layer's shapes and at every
+    # row-block instance (M 1-256), plus ragged shapes and K 0
     checked = []
-    for (m, k, n) in [(4, D, HD), (4, D, KVD), (4, FF, D), (256, D, HD),
-                      (256, D, FF)]:
+    for (m, k, n) in ([(4, D, HD), (4, D, KVD), (4, FF, D), (256, D, HD),
+                       (256, D, FF), (256, FF, D)]
+                      + [(m, D, KVD) for m in (1, 16, 64, 65, 128)]):
         xc, yc = codes_of(randn(m, k)), codes_of(weight(k, n))
         if not torch.equal(kb.bp_matmul(xc, yc), ref.bp_matmul_ref(xc, yc)):
             fail(f"codes matmul differs at {(m, k, n)}")
         checked.append((m, k, n))
-    for (m, k, n) in [(130, 100, 96), (1, 7, 5), (100, 300, 130)]:
+    for (m, k, n) in [(130, 100, 96), (1, 7, 5), (100, 300, 130),
+                      (129, 257, 130), (256, 6912, 40), (3, 0, 4),
+                      (200, 0, 130)]:
         xc, yc = ints(m, k, lo=-9, hi=9), ints(k, n, lo=-9, hi=9)
         if not torch.equal(kb.bp_matmul(xc, yc), ref.bp_matmul_ref(xc, yc)):
             fail(f"codes matmul differs at {(m, k, n)}")
         checked.append((m, k, n))
     detail["bp_matmul_checked_shapes"] = checked
+    launches = {}
+    for (m, k, n) in [(4, D, HD), (64, D, KVD), (256, D, FF), (1, 7, 5),
+                      (3, 0, 4)]:
+        xc, yc = ints(m, k, lo=-9, hi=9), ints(k, n, lo=-9, hi=9)
+        seen = kernels_enqueued(torch, lambda: kb.bp_matmul(xc, yc))
+        if not 1 <= sum(seen.values()) <= 2:
+            fail(f"codes matmul at {(m, k, n)}: {seen} enqueued (at most 2 "
+                 f"kernels)")
+        launches["x".join(map(str, (m, k, n)))] = sum(seen.values())
+    detail["bp_matmul_kernels_per_call"] = launches
     M = 256
     xcs = {k: codes_of(randn(M, k)) for k in (D, FF)}
     ycs = [codes_of(weight(k, n)) for (k, n) in LAYER]
@@ -573,17 +618,35 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
                  H100_INT8_OPS_PER_S) for (k, n) in LAYER])
     detail["bp_matmul_256x2560x6912_ms"] = timer(
         [lambda: kb.bp_matmul(xcs[D], ycs[4])])
+    x4 = xcs[D][:4].contiguous()
     detail["bp_matmul_4x2560x2560_ms"] = timer(
-        [lambda: kb.bp_matmul(xcs[D][:4].contiguous(), ycs[0])])
+        [lambda: kb.bp_matmul(x4, ycs[0])])
+    detail["bp_matmul_4x2560x2560_bound_ms"] = bound(
+        4 * D + D * HD + 4 * 4 * HD, 2 * 4 * HD * 8 * D,
+        H100_INT8_OPS_PER_S)[0]
 
     # BP quantise: the 14 operands of one layer at 256 rows (7 x, 7 w),
-    # bitwise, plus half-level boundaries and quantize_bp's codes
+    # bitwise on f32 and on the weights held as bf16, plus half-level
+    # boundaries, quantize_bp's codes and every finite bf16 pattern
     ins = [randn(M, k) for (k, _) in LAYER] + [weight(k, n)
                                                 for (k, n) in LAYER]
     scales = [ref.tensor_scale(t) for t in ins]
-    for t, sc in zip(ins, scales):
-        if not torch.equal(kb.bp_quantize(t, sc), ref.bp_quantize_ref(t, sc)):
-            fail(f"BP quantise differs at {tuple(t.shape)}")
+    ins16 = ins[:7] + [t.to(torch.bfloat16) for t in ins[7:]]
+    for t, sc in zip(ins + ins16[7:], scales + scales[7:]):
+        if not torch.equal(kb.bp_quantize(t, sc),
+                           ref.bp_quantize_ref(t.float(), sc)):
+            fail(f"BP quantise differs at {tuple(t.shape)} {t.dtype}")
+    v = torch.arange(-32768, 32768, dtype=torch.int32, device=dev)
+    v = v.to(torch.int16).view(torch.bfloat16)
+    every = v[torch.isfinite(v)]
+    for sc in (5.128217, 0.37, TINY, 3e38, None):
+        s_ = (ref.tensor_scale(every.float()) if sc is None
+              else torch.full((1, 1), sc, device=dev))
+        for t in (every, every[1:]):
+            if not torch.equal(kb.bp_quantize(t, s_),
+                               ref.bp_quantize_ref(t.float(), s_)):
+                fail(f"BP quantise differs on the finite bf16 patterns "
+                     f"(scale {s_.item()}, {t.numel()} values)")
     q = quantize_bp(ins[-1])
     if not torch.equal(kb.bp_quantize(ins[-1], scales[-1]), ref.to_codes(q)):
         fail("BP quantise differs from quantize_bp's codes")
@@ -594,15 +657,24 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
     edge = torch.cat([edge, -edge])
     if not torch.equal(kb.bp_quantize(edge, sc), ref.bp_quantize_ref(edge, sc)):
         fail("BP quantise differs at half-level boundaries")
+    q32 = [lambda t=t, c=c: kb.bp_quantize(t, c) for t, c in zip(ins, scales)]
+    q16 = [lambda t=t, c=c: kb.bp_quantize(t, c)
+           for t, c in zip(ins16, scales)]
     rows["bp_quantize"] = dict(
-        max_abs_err=0.0,
-        ms=timer([lambda t=t, c=c: kb.bp_quantize(t, c)
-                  for t, c in zip(ins, scales)]),
+        max_abs_err=0.0, ms=timer(q32),
         plain_ms=timer([lambda t=t, c=c: ref.bp_quantize_ref(t, c)
                         for t, c in zip(ins, scales)]),
         library_ms=None,
         b=[bound(5 * t.numel() + 4, 3 * t.numel(), H100_F32_FLOPS_PER_S)
            for t in ins])
+    detail["bp_quantize_kernel_time_ms"] = kernel_device_ms(
+        torch, timer, q32, "bp_quantize")
+    detail["bp_quantize_bf16_weights_ms"] = timer(q16)
+    detail["bp_quantize_bf16_weights_kernel_time_ms"] = kernel_device_ms(
+        torch, timer, q16, "bp_quantize")
+    detail["bp_quantize_bf16_weights_bound_ms"] = sum(
+        bound((t.element_size() + 1) * t.numel() + 4, 3 * t.numel(),
+              H100_F32_FLOPS_PER_S)[0] for t in ins16)
 
     # popcount: 0/1 tiles, then int8, uint8 and bool tiles of any value
     tiles = [ints(*shape, lo=0, hi=1) for shape in ((4096, 2048), (300, 100))]
@@ -746,11 +818,16 @@ def phase_unfused(torch, timer, build, dev="cuda"):
     px, pw = randn(32, 256), weight(256, 64)
     tab_r, tab_l = (torch.as_tensor(bitstreams_bp8(w), dtype=torch.int8,
                                     device=dev) for w in ("right", "left"))
+    # the same weights held as bf16, as the model holds them (exact: they
+    # were rounded to bf16), read as stored by the unfused path too
+    w16 = {id(w): w.to(torch.bfloat16) for _, w in cases}
     torch.cuda.synchronize()
 
     build.reset_launches()
     t0 = time.perf_counter()
     outs = [ops.oisma_matmul(x, w, impl="unfused") for x, w in cases]
+    outs16 = [ops.oisma_matmul(x, w16[id(w)], impl="unfused")
+              for x, w in cases]
     xc = kb.bp_quantize(px, ref.tensor_scale(px))
     wc = kb.bp_quantize(pw, ref.tensor_scale(pw))
     bits = (tab_r[xc.abs().long()][:, :, None, :]
@@ -763,15 +840,18 @@ def phase_unfused(torch, timer, build, dev="cuda"):
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
 
-    for (x, w), a in zip(cases, outs):
+    for (x, w), a, a16 in zip(cases, outs, outs16):
         b = ops.oisma_matmul(x, w)
         if not torch.equal(a, b):
             fail(f"unfused != fused at {tuple(x.shape)} @ {tuple(w.shape)}: "
                  f"max {(a - b).abs().max().item()}")
         # the served form: the same weight held as bf16 (it is exact there)
-        if not torch.equal(a, ops.oisma_matmul(x, w.to(torch.bfloat16))):
+        if not torch.equal(a, ops.oisma_matmul(x, w16[id(w)])):
             fail(f"unfused != fused with a bf16 weight at {tuple(x.shape)} "
                  f"@ {tuple(w.shape)}")
+        if not torch.equal(a16, b):
+            fail(f"unfused with a bf16 weight != fused at {tuple(x.shape)} "
+                 f"@ {tuple(w.shape)}: max {(a16 - b).abs().max().item()}")
     if not torch.equal(periphery.to(torch.float32), product):
         fail("periphery popcounts differ from the codes matmul")
     layer = {}
@@ -780,6 +860,10 @@ def phase_unfused(torch, timer, build, dev="cuda"):
         layer[m] = dict(
             unfused_ms=timer([lambda x=x, w=w: ops.oisma_matmul(
                 x, w, impl="unfused") for x, w in pairs]),
+            unfused_bf16_weights_ms=timer([lambda x=x, w=w16[id(w)]:
+                                           ops.oisma_matmul(
+                                               x, w, impl="unfused")
+                                           for x, w in pairs]),
             fused_ms=timer([lambda x=x, w=w: ops.oisma_matmul(x, w)
                             for x, w in pairs]))
     x, w = cases[-1]
@@ -788,12 +872,14 @@ def phase_unfused(torch, timer, build, dev="cuda"):
         fused_ms=timer([lambda: ops.oisma_matmul(x, w)], iters=3))
     qs = "x".join(map(str, QWEN_UP))
     print(f"unfused path: {len(cases)} matmuls (7 per layer at M 4 and 256, "
-          f"qwen2-72b {qs}) + periphery in {wall:.3f}s, all equal to the "
-          f"fused path bitwise; launches {launches}")
+          f"qwen2-72b {qs}), each with an f32 and a bf16 weight, + "
+          f"periphery in {wall:.3f}s, all equal to the fused path bitwise; "
+          f"launches {launches}")
     for m, r in layer.items():
         was = (f" ({EARLIER}: {EARLIER_MS['fused_layer_256_rows_ms']})"
                if m == 256 else "")
-        print(f"  one layer, M {m}: unfused {r['unfused_ms']:.4f} ms, fused "
+        print(f"  one layer, M {m}: unfused {r['unfused_ms']:.4f} ms (bf16 "
+              f"weights {r['unfused_bf16_weights_ms']:.4f}), fused "
               f"{r['fused_ms']:.4f} ms{was}")
     print(f"  qwen2-72b {qs}: unfused {qwen['unfused_ms']:.4f} ms, fused "
           f"{qwen['fused_ms']:.4f} ms ({EARLIER}: "
@@ -868,11 +954,16 @@ def main() -> None:
         sass = sass_counts(build, lib_path)
         report["bp_mma_sass"] = sass
         for fn, c in sass.items():
-            print(f"SASS {fn}: {c['IMMA']} IMMA, {c['POPC']} POPC")
+            print(f"SASS {fn}: {c['IMMA']} IMMA, {c['IGMMA']} IGMMA, "
+                  f"{c['POPC']} POPC")
         for ctx in next(iter(sass.values()), {}).get("POPC_context", []):
             print(f"  POPC in context: {' | '.join(ctx)}")
-        if not sass or any(c["IMMA"] == 0 for c in sass.values()):
-            fail("the fused matmul's kernels must multiply with IMMA")
+        if not sass or any(c["IMMA"] + c["IGMMA"] == 0 for c in sass.values()):
+            fail("the integer core's kernels must multiply on the int8 "
+                 "tensor cores (IMMA or IGMMA)")
+        # the codes matmul: coded x and one coded weight (x's type last)
+        if not any("Li1EaEE" in fn for fn in sass):
+            fail("no kernel of the codes matmul in the SASS")
         lib = build.library()
         from repro_torch.kernels.attention import _split_smem
         print("dynamic shared memory: fused matmul tiles (bf16 weight) "

@@ -4,17 +4,18 @@ codes matmul and the accumulation periphery (row popcount).
 Each replaces a Pallas program of ``repro/kernels/bp_matmul.py`` (the
 CUDA sources say how).  For tensors on the CPU the wrapper runs the plain
 version from ``ref.py``; for CUDA tensors it checks device, dtype, shape
-and contiguity, allocates its output (and the codes matmul's int32
-workspace) with ``torch.empty``, launches on the current stream and
-counts the launch.  Nothing falls back.  The kernels mask their ragged
-edges, so no operand is padded and no block size is taken.
+and contiguity, allocates its output with ``torch.empty`` (the codes
+matmul needs no workspace: its K splits add into the output), launches
+on the current stream and counts the launch.  Nothing falls back.  The
+kernels mask their ragged edges, so no operand is padded and no block
+size is taken.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.bp import packed_thresholds
-from repro_torch.kernels.build import launch, on_cuda, require, stream
+from repro_torch.kernels.build import KINDS, launch, on_cuda, require, stream
 from repro_torch.kernels.fused import _require_scale
 from repro_torch.kernels.ref import (bp_matmul_ref, bp_quantize_ref,
                                      popcount_accumulate_ref)
@@ -40,25 +41,27 @@ def bp_matmul(x_codes: torch.Tensor, y_codes: torch.Tensor) -> torch.Tensor:
                          f"{tuple(y_codes.shape)}")
     n = y_codes.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
-    ws = torch.empty((m, n), dtype=torch.int32, device=x_codes.device)
     if m and n:
         launch("bp_matmul", x_codes.data_ptr(), y_codes.data_ptr(),
-               out.data_ptr(), ws.data_ptr(), m, k, n,
+               out.data_ptr(), m, k, n,
                packed_thresholds("right"), packed_thresholds("left"), stream())
     return out
 
 
 def bp_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """f32 values and one f32 scale -> int8 codes
-    ``sign(x) * clip(round(|x| / scale * 10), 0, 9)``, x's shape."""
+    """f32 or bf16 values and one f32 scale -> int8 codes
+    ``sign(x) * clip(round(|x| / scale * 10), 0, 9)`` of each element's
+    f32 value, x's shape."""
     if not on_cuda(x, scale):
         return bp_quantize_ref(x, scale)
-    require(x, "x", torch.float32, x.dim())
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: expected float32 or bfloat16, got {x.dtype}")
+    require(x, "x", x.dtype, x.dim())
     _require_scale(scale, "scale")
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if x.numel():
-        launch("bp_quantize", x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-               x.numel(), stream())
+        launch("bp_quantize", x.data_ptr(), KINDS[x.dtype], scale.data_ptr(),
+               out.data_ptr(), x.numel(), stream())
     return out
 
 

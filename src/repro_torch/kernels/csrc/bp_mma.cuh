@@ -26,17 +26,18 @@
 // is l or more; a value's level reaches l iff |v| >= b_l.  Each block
 // finds the 8 plane boundaries of x (right thresholds) and of each real
 // weight (left thresholds, under its own scale) by bisection on the f32
-// bit pattern of |v|, running the reference's own division, once, while
-// its first loads are in flight.  The scales stay on the card.  A boundary
-// no f32 reaches is NaN (no value passes).  A coded weight compares |code|
-// with the thresholds themselves.
+// bit pattern of |v| (level_boundary8, bp_levels.cuh), running the
+// reference's own division, once, while its first loads are in flight.
+// The scales stay on the card.  A boundary no f32 reaches is NaN (no
+// value passes).  A coded weight compares |code| with the thresholds
+// themselves.
 //
 // Weights in their stored dtype (YT): f32, bf16 or int8 sign*level codes
-// from prepare_bp_weight; x is f32.  A bf16 weight is encoded two values
-// to a word: its bits are compared as integers with the boundaries
-// rounded up to bf16, which gives exactly the planes of its f32 cast (the
-// TPU kernel casts its tile to f32) in about half the instructions of the
-// f32 compares.
+// from prepare_bp_weight; x is f32 (or codes, below).  A bf16 weight is
+// encoded two values to a word: its bits are compared as integers with the
+// boundaries rounded up to bf16, which gives exactly the planes of its f32
+// cast (the TPU kernel casts its tile to f32) in about half the
+// instructions of the f32 compares.
 //
 // Streaming: raw tiles go through a ring of STAGES shared-memory buffers
 // with cp.async (16-byte copies: 4 f32, 8 bf16 or 16 codes; zero-filled
@@ -50,8 +51,22 @@
 // (K not a multiple of 4, or N not a multiple of the values per copy)
 // load element by element instead.
 //
-// Users: fused_matmul.cu (one weight) and fused_mlp.cu (two).  The codes
-// matmul of the unfused pipeline keeps the popcount core, bp_tile.cuh.
+// Coded x (XT = int8_t, the codes matmul of the unfused pipeline): x is
+// int8 sign*level codes, streamed through the same ring (16 codes a
+// copy).  The level is the code itself, so there is no boundary search
+// and no scale: each block builds a table of the plane words of the 19
+// codes -9..9 of each operand (encode_val, |code| against the plane
+// thresholds), and a code's encode is one 8-byte load.  The epilogue
+// then writes the exact sums unscaled, (float)acc, as the TPU kernel's f32
+// result of integers.  At 128 rows (kCodesWgmma) the products run on
+// wgmma m64n128k32 .s32.s8.s8 instead of mma.sync: each of the two
+// warpgroups takes 64 rows x 128 columns from shared memory, whose plane
+// rows (16 k x 8 planes = 128 bytes) take the 128-byte swizzle in place of
+// the padded rows, in two plane buffers, so that one step's encode
+// overlaps the previous step's products.
+//
+// Users: fused_matmul.cu (one weight), fused_mlp.cu (two) and
+// bp_matmul.cu (coded x and one coded weight).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,64 +74,24 @@
 
 #include <type_traits>
 
+#include "bp_levels.cuh"
+
 namespace oisma_mma {
+
+using oisma_levels::bp_level;
+using oisma_levels::level_boundary8;
 
 constexpr int kBK = 16;           // k per stage
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kPad = 16;          // bytes after each plane row (banks)
 constexpr int kRow = kBK * 8 + kPad;   // plane row bytes
+// The codes matmul's 128-row instance multiplies with wgmma (else
+// mma.sync, as every other instance).
+constexpr bool kCodesWgmma = true;
 
 // Weight dtypes, as the C entry points number them.
 enum Kind { kF32 = 0, kBF16 = 1, kCodes = 2 };
 enum Act { kSilu = 0, kGelu = 1, kRelu = 2 };
-
-__device__ __forceinline__ float bp_level(float a, float s) {
-  return fminf(fmaxf(rintf(a / s * 10.0f), 0.0f), 9.0f);
-}
-
-// Least f32 a >= 0 whose level under scale s is t or more (NaN if no f32
-// reaches t), found by eight lanes together: one round of eight patterns
-// next to the estimate (t - 0.5) / 10 * s, or else rounds in which they
-// test eight evenly spaced bit patterns of [lo, hi] and keep the eighth
-// before the first that passes (~11 rounds over all 2^31 patterns).  All
-// 32 lanes of the warp call it (four searches a warp, lanes 8g..8g+7 for
-// one).
-static __device__ float level_boundary8(float s, int t) {
-  const int lane = threadIdx.x & 31, j = lane & 7, sh = lane & 24;
-  uint32_t lo = 0, hi = 0x7f800000u;           // pred(hi) assumed
-  // First the eight patterns e-3 .. e+4 around e = (t - 0.5) / 10 * s,
-  // within a few ulps of the boundary unless s or the boundary is
-  // subnormal or out of range: if the first fails and one passes, the
-  // first that passes is the boundary.  Otherwise the search spans every
-  // pattern.
-  const float e = ((float)t - 0.5f) * 0.1f * s;
-  const uint32_t eb = __float_as_uint(e);
-  const bool fits = e > 0.0f && eb > 3u && eb < 0x7f800000u - 4u;
-  const uint32_t q0 = eb - 3u + (uint32_t)j;
-  const bool ok0 = fits && bp_level(__uint_as_float(q0), s) >= (float)t;
-  const uint32_t m0 = (__ballot_sync(0xffffffffu, ok0) >> sh) & 0xFFu;
-  if (fits && (m0 & 1u) == 0u && m0 != 0u) lo = hi = eb - 3u + (__ffs(m0) - 1);
-  while (__any_sync(0xffffffffu, lo < hi)) {
-    const uint32_t q =
-        lo + (uint32_t)(((unsigned long long)(hi - lo) * j) >> 3);
-    const bool ok = lo < hi && bp_level(__uint_as_float(q), s) >= (float)t;
-    const uint32_t m = (__ballot_sync(0xffffffffu, ok) >> sh) & 0xFFu;
-    if (lo < hi) {
-      // first passing point f (8: none, q_8 = hi): the answer lies in
-      // (q_{f-1}, q_f], or is lo itself when f = 0
-      const int f = m ? __ffs(m) - 1 : 8;
-      const unsigned long long span = hi - lo;
-      if (f == 0) {
-        hi = lo;
-      } else {
-        hi = f == 8 ? hi : lo + (uint32_t)((span * f) >> 3);
-        lo = lo + (uint32_t)((span * (f - 1)) >> 3) + 1;
-      }
-    }
-  }
-  const float b = __uint_as_float(hi);
-  return bp_level(b, s) >= (float)t ? b : __uint_as_float(0x7fc00000u);
-}
 
 // 0xFF in byte p of the result where a >= b[p], p = 0..3.
 __device__ __forceinline__ uint32_t ge4(float a, float b0, float b1, float b2,
@@ -246,6 +221,18 @@ __device__ __forceinline__ void load8(T (&b)[8], const T* s) {
   for (int i = 0; i < 8; ++i) b[i] = *reinterpret_cast<const T*>(&w[i]);
 }
 
+// The codes matmul's encode: the plane words of code c from a table of
+// the 19 codes -9..9 (built once a block with encode_val from the plane
+// thresholds `thr`, which the comparison form of the encode would read
+// instead), one 8-byte shared-memory load.
+__device__ __forceinline__ void encode_code(int c, const uint2* tab,
+                                            const float* thr, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint2 e = tab[c + 9];
+  lo = e.x;
+  hi = e.y;
+}
+
 __device__ __forceinline__ float activate(float g, int act) {
   if (act == kSilu) return g * (1.0f / (1.0f + expf(-g)));
   if (act == kGelu)
@@ -255,42 +242,121 @@ __device__ __forceinline__ float activate(float g, int act) {
 }
 
 // The output of one (m, n): NW = 1, acc * scale; NW = 2,
-// act(gate) * up with up = a0 * scale[0], gate = a1 * scale[1].
-template <int NW>
+// act(gate) * up with up = a0 * scale[0], gate = a1 * scale[1];
+// UNSCALED (coded x), the exact sum itself.
+template <int NW, bool UNSCALED>
 __device__ __forceinline__ float finish(int a0, int a1, const float* scale,
                                         int act) {
+  if (UNSCALED) return (float)a0;
   const float u = (float)a0 * scale[0];
   if (NW == 1) return u;
   return activate((float)a1 * scale[NW - 1], act) * u;
 }
 
-// Per row count BM, weight dtype YT and weight count NW: how the 8 warps
-// tile the (BM x BN) output, how many stages the copy ring holds, and how
-// many blocks an SM should hold (the register cap that follows).  A warp
-// takes WM x WN outputs of each weight.
-template <int BM, typename YT, int NW>
+// One value's 8 plane bytes (lo: planes 0-3, hi: 4-7) of 4 k, k-major
+// (32 bytes: 16-byte chunks 2kq and 2kq + 1), into plane row r of a plane
+// tile: padded rows of `row` bytes, or (SW) 128-byte rows under the
+// 128-byte swizzle (chunk c of row r at chunk c ^ (r % 8)).
+template <bool SW>
+__device__ __forceinline__ void put_planes(int8_t* tile, int row, int r,
+                                           int kq, const uint4& w0,
+                                           const uint4& w1) {
+  if (SW) {
+    uint4* line = reinterpret_cast<uint4*>(tile + r * 128);
+    line[(2 * kq) ^ (r & 7)] = w0;
+    line[(2 * kq + 1) ^ (r & 7)] = w1;
+  } else {
+    uint4* dst = reinterpret_cast<uint4*>(tile + r * row + 32 * kq);
+    dst[0] = w0;
+    dst[1] = w1;
+  }
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major tile of 128-byte
+// swizzled rows (8-row groups 1024 bytes apart), at a 1024-byte aligned
+// address; adding 2 moves it 32 bytes (one k32 slice) along K.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFFu) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x 128 int32, this warp's 16 rows as mma.sync's C fragments of
+// 16 column blocks) += A (64 x 32 bytes) * B (32 bytes x 128), both from
+// shared memory.
+__device__ __forceinline__ void wgmma_s8(int (&d)[16][4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Ties the sums to this point, so that no read of them moves above the
+// wgmma wait that precedes it.
+__device__ __forceinline__ void hold(int (&d)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
+}
+
+// Per row count BM, weight dtype YT, weight count NW and x dtype XT: how
+// the 8 warps tile the (BM x BN) output, how many stages the copy ring
+// holds, and how many blocks an SM should hold (the register cap that
+// follows).  A warp takes WM x WN outputs of each weight; on wgmma (kWG)
+// a warpgroup takes 64 rows and each warp holds 16 of them.
+template <int BM, typename YT, int NW, typename XT = float>
 struct Cfg {
   static constexpr bool kCoded = std::is_same<YT, int8_t>::value;
+  static constexpr bool kXCoded = std::is_same<XT, int8_t>::value;
+  static constexpr bool kWG = kXCoded && BM == 128 && NW == 1 && kCodesWgmma;
   static constexpr int kBN = NW == 2 && BM > 16 ? 64 : 128;
-  static constexpr int kWarpsM = BM == 16 ? 1 : 2;
+  static constexpr int kWarpsM = kWG ? 8 : BM == 16 ? 1 : 2;
   static constexpr int kWarpsN = 8 / kWarpsM;
   static constexpr int kWM = BM / kWarpsM;              // 16, 32 or 64
-  static constexpr int kWN = kBN / kWarpsN;             // 16 or 32
+  static constexpr int kWN = kBN / kWarpsN;             // 16, 32 or 128
   static constexpr int kStages = BM == 16 && NW == 1 ? 4 : 3;
   static constexpr int kMinBlocks = BM == 16 ? 3 : 2;
-  static constexpr int kXRaw = BM * kBK * 4;            // f32 x stage
+  static constexpr int kRow = kWG ? 128 : oisma_mma::kRow;   // plane row
+  static constexpr int kPlanes = kWG ? 2 : 1;           // plane buffers
+  static constexpr int kXRaw = BM * kBK * (int)sizeof(XT);   // x stage
   static constexpr int kYRaw = kBK * kBN * (int)sizeof(YT);  // a weight's
   static constexpr int kStage = kXRaw + NW * kYRaw;
   // plane boundaries: 8 f32 for x and for each weight, then each
-  // weight's 8 as bf16 pairs (bf16_boundary2)
-  static constexpr int kSmem = (BM + NW * kBN) * kRow + kStages * kStage +
-                               8 * (1 + 2 * NW) * (int)sizeof(float);
+  // weight's 8 as bf16 pairs (bf16_boundary2); with coded x, the code
+  // tables of x and of the weight; on wgmma, room to align the plane
+  // tiles to 1024 bytes
+  static constexpr int kSmem = kPlanes * (BM + NW * kBN) * kRow +
+                               kStages * kStage +
+                               8 * (1 + 2 * NW) * (int)sizeof(float) +
+                               (kXCoded ? 2 * 19 * 8 : 0) + (kWG ? 1024 : 0);
 };
 
-// What a launch is given.  y, sy: the NW weights and their scales (up
-// first, then gate); act: the MLP's activation.
+// What a launch is given.  x: f32 or int8 codes; y, sy: the NW weights
+// and their scales (up first, then gate); act: the MLP's activation.
 struct Params {
-  const float* x;
+  const void* x;
   const void* y[2];
   const float* sx;
   const float* sy[2];
@@ -305,28 +371,35 @@ struct Params {
 // split z = blockIdx.z.  splits == 1: out is written from the sums in
 // registers.  Otherwise each split adds its sums into ws (NW planes of
 // M x N int32, zeroed), and the last split to finish a tile (counted in
-// ws[NW*M*N + tile]) writes the tile's out from ws.
-template <int BM, typename YT, int NW>
-__global__ void __launch_bounds__(kThreads, (Cfg<BM, YT, NW>::kMinBlocks))
+// ws[NW*M*N + tile]) writes the tile's out from ws; with coded x the
+// splits add into out itself.
+template <int BM, typename YT, int NW, typename XT = float>
+__global__ void __launch_bounds__(kThreads, (Cfg<BM, YT, NW, XT>::kMinBlocks))
 bp_mma_kernel(const Params p) {
-  using C = Cfg<BM, YT, NW>;
+  using C = Cfg<BM, YT, NW, XT>;
+  static_assert(!C::kXCoded || C::kCoded, "coded x takes a coded weight");
   constexpr int BK = kBK, BN = C::kBN, ST = C::kStages, T = kThreads;
-  constexpr int ROW = kRow, MT = C::kWM / 16, NT = C::kWN / 8;
-  constexpr bool CODED = C::kCoded;
+  constexpr int ROW = C::kRow, MT = C::kWM / 16, NT = C::kWN / 8;
+  constexpr bool CODED = C::kCoded, XC = C::kXCoded, WG = C::kWG;
   // the raw bits of a weight value (loads that are not 16-byte copies)
   using YS = typename std::conditional<
       sizeof(YT) == 1, int8_t,
       typename std::conditional<sizeof(YT) == 2, uint16_t,
                                 uint32_t>::type>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem);                 // BM x ROW
-  int8_t* Bs = As + BM * ROW;                              // NW x BN x ROW
-  unsigned char* raw = reinterpret_cast<unsigned char*>(Bs + NW * BN * ROW);
+  unsigned char* base = smem;
+  if constexpr (WG) base += (1024u - (smem_addr(smem) & 1023u)) & 1023u;
+  // kPlanes x (BM x ROW), then kPlanes x (NW x BN x ROW)
+  int8_t* As = reinterpret_cast<int8_t*>(base);
+  int8_t* Bs = As + C::kPlanes * BM * ROW;
+  unsigned char* raw =
+      reinterpret_cast<unsigned char*>(Bs + C::kPlanes * NW * BN * ROW);
   float* bnd = reinterpret_cast<float*>(raw + ST * C::kStage);  // 8 (1+NW)
   uint32_t* bnd16 = reinterpret_cast<uint32_t*>(bnd + 8 * (1 + NW));  // 8 NW
+  uint2* ctab = reinterpret_cast<uint2*>(bnd16 + 8 * NW);   // XC: 2 x 19
 
   const int M = p.M, K = p.K, N = p.N;
-  const float* __restrict__ x = p.x;
+  const XT* __restrict__ x = static_cast<const XT*>(p.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int total = (K + BK - 1) / BK;
@@ -354,19 +427,20 @@ bp_mma_kernel(const Params p) {
 
   auto issue = [&](int step) {
     unsigned char* st = raw + (step % ST) * C::kStage;
-    float* xr = reinterpret_cast<float*>(st);
+    XT* xr = reinterpret_cast<XT*>(st);
     const int k0 = step * BK;
+    constexpr int XV = 16 / (int)sizeof(XT);    // x values per copy
     if (p.x_vec) {
-      for (int c = tid; c < rows * BK / 4; c += T) {
-        const int r = c / (BK / 4), kq = c % (BK / 4), k = k0 + 4 * kq;
+      for (int c = tid; c < rows * BK / XV; c += T) {
+        const int r = c / (BK / XV), kq = c % (BK / XV), k = k0 + XV * kq;
         const bool in = k < K;
-        cp_async16(xr + r * BK + 4 * kq,
+        cp_async16(xr + r * BK + XV * kq,
                    in ? x + (size_t)(m0 + r) * K + k : x, in ? 16 : 0);
       }
     } else {
       for (int e = tid; e < rows * BK; e += T) {
         const int k = k0 + e % BK;
-        xr[e] = k < K ? x[(size_t)(m0 + e / BK) * K + k] : 0.0f;
+        xr[e] = k < K ? x[(size_t)(m0 + e / BK) * K + k] : (XT)0;
       }
     }
 #pragma unroll
@@ -400,12 +474,19 @@ bp_mma_kernel(const Params p) {
     const int i = tid >> 3, q = i & 7;
     const int t = ((i < 8 ? p.thr_r : p.thr_l) >> (4 * q)) & 0xF;
     const float* s = i < 8 ? p.sx : i < 16 ? p.sy[0] : p.sy[NW - 1];
-    float b = (float)t;    // a coded weight compares |code| with t itself
-    if (i < 8 || !CODED) b = level_boundary8(*s, t);
+    float b = (float)t;    // a coded operand compares |code| with t itself
+    if (!XC && (i < 8 || !CODED)) b = level_boundary8(*s, t);
     if ((tid & 7) == 0) {
       bnd[i] = b;
       if (i >= 8) bnd16[i - 8] = bf16_boundary2(b);
     }
+  }
+  if (XC && tid < 2 * 19) {    // code tables: x (right), then the weight
+    const uint32_t thr = tid < 19 ? p.thr_r : p.thr_l;
+    float t[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t[q] = (float)((thr >> (4 * q)) & 0xF);
+    encode_val((int8_t)(tid % 19 - 9), t, ctab[tid].x, ctab[tid].y);
   }
   __syncthreads();
   const int wm0 = (warp / C::kWarpsN) * C::kWM;
@@ -427,25 +508,35 @@ bp_mma_kernel(const Params p) {
     __syncthreads();     // this stage's bytes are in; the last MMAs done
 
     const unsigned char* st = raw + (step % ST) * C::kStage;
-    const float* xr = reinterpret_cast<const float*>(st);
+    // this step's plane tiles (on wgmma, two buffers in turn)
+    int8_t* Ap = As + (WG ? (step & 1) * BM * ROW : 0);
+    int8_t* Bp = Bs + (WG ? (step & 1) * NW * BN * ROW : 0);
     for (int u = tid; u < rows * BK / 4; u += T) {
       const int r = u / (BK / 4), kq = u % (BK / 4);
-      const float4 v = *reinterpret_cast<const float4*>(xr + r * BK + 4 * kq);
-      float bx[8];
-      load8(bx, bnd);
       uint4 w0, w1;
-      encode_val(v.x, bx, w0.x, w0.y);
-      encode_val(v.y, bx, w0.z, w0.w);
-      encode_val(v.z, bx, w1.x, w1.y);
-      encode_val(v.w, bx, w1.z, w1.w);
-      uint4* dst = reinterpret_cast<uint4*>(As + r * ROW + 32 * kq);
-      dst[0] = w0;
-      dst[1] = w1;
+      if constexpr (XC) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(st + r * BK +
+                                                               4 * kq);
+        encode_code((int8_t)v, ctab, bnd, w0.x, w0.y);
+        encode_code((int8_t)(v >> 8), ctab, bnd, w0.z, w0.w);
+        encode_code((int8_t)(v >> 16), ctab, bnd, w1.x, w1.y);
+        encode_code((int8_t)(v >> 24), ctab, bnd, w1.z, w1.w);
+      } else {
+        const float4 v = *reinterpret_cast<const float4*>(
+            reinterpret_cast<const float*>(st) + r * BK + 4 * kq);
+        float bx[8];
+        load8(bx, bnd);
+        encode_val(v.x, bx, w0.x, w0.y);
+        encode_val(v.y, bx, w0.z, w0.w);
+        encode_val(v.z, bx, w1.x, w1.y);
+        encode_val(v.w, bx, w1.z, w1.w);
+      }
+      put_planes<WG>(Ap, ROW, r, kq, w0, w1);
     }
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       const YT* yr = reinterpret_cast<const YT*>(st + C::kXRaw + w * C::kYRaw);
-      int8_t* Bw = Bs + w * BN * ROW;
+      int8_t* Bw = Bp + w * BN * ROW;
       if constexpr (std::is_same<YT, __nv_bfloat16>::value) {
         // bf16: a unit is 4 k x 2 columns, two values per compare
         for (int u = tid; u < BN / 2 * (BK / 4); u += T) {
@@ -459,12 +550,22 @@ bp_mma_kernel(const Params p) {
           encode_bf16x2(col[BN / 2], bq, a0.z, a0.w, c0.z, c0.w);
           encode_bf16x2(col[BN], bq, a1.x, a1.y, c1.x, c1.y);
           encode_bf16x2(col[3 * BN / 2], bq, a1.z, a1.w, c1.z, c1.w);
-          uint4* d0 = reinterpret_cast<uint4*>(Bw + n * ROW + 32 * kq);
-          uint4* d1 = reinterpret_cast<uint4*>(Bw + (n + 1) * ROW + 32 * kq);
-          d0[0] = a0;
-          d0[1] = a1;
-          d1[0] = c0;
-          d1[1] = c1;
+          put_planes<WG>(Bw, ROW, n, kq, a0, a1);
+          put_planes<WG>(Bw, ROW, n + 1, kq, c0, c1);
+        }
+      } else if constexpr (XC) {
+        // coded x and weight (the codes matmul): table lookups
+        for (int u = tid; u < BN * BK / 4; u += T) {
+          const int n = u % BN, kq = u / BN;
+          const YT* col = yr + 4 * kq * BN + n;
+          const uint2* tab = ctab + 19;
+          const float* thr = bnd + 8;
+          uint4 w0, w1;
+          encode_code(col[0], tab, thr, w0.x, w0.y);
+          encode_code(col[BN], tab, thr, w0.z, w0.w);
+          encode_code(col[2 * BN], tab, thr, w1.x, w1.y);
+          encode_code(col[3 * BN], tab, thr, w1.z, w1.w);
+          put_planes<WG>(Bw, ROW, n, kq, w0, w1);
         }
       } else {
         for (int u = tid; u < BN * BK / 4; u += T) {
@@ -477,11 +578,25 @@ bp_mma_kernel(const Params p) {
           encode_val(col[BN], by, w0.z, w0.w);
           encode_val(col[2 * BN], by, w1.x, w1.y);
           encode_val(col[3 * BN], by, w1.z, w1.w);
-          uint4* dst = reinterpret_cast<uint4*>(Bw + n * ROW + 32 * kq);
-          dst[0] = w0;
-          dst[1] = w1;
+          put_planes<WG>(Bw, ROW, n, kq, w0, w1);
         }
       }
+    }
+    if constexpr (WG) {
+      // the planes, written by this thread, become visible to wgmma; the
+      // previous step's products may still run (on the other buffer)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint64_t da = sw128_desc(Ap + (warp >> 2) * 64 * ROW);
+      const uint64_t db = sw128_desc(Bp);
+#pragma unroll
+      for (int kk = 0; kk < BK * 8 / 32; ++kk)
+        wgmma_s8(acc[0][0], da + 2 * kk, db + 2 * kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the products of the step before are done: its buffer is free
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      continue;
     }
     __syncthreads();
 
@@ -514,13 +629,48 @@ bp_mma_kernel(const Params p) {
     }
   }
   cp_async_wait<0>();
+  if constexpr (WG) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hold(acc[0][0]);
+  }
 
   float scale[NW];
 #pragma unroll
-  for (int w = 0; w < NW; ++w) scale[w] = (*p.sx * *p.sy[w]) * 0.1f;
+  for (int w = 0; w < NW; ++w) scale[w] = XC ? 0.0f : (*p.sx * *p.sy[w]) * 0.1f;
   const bool split = gridDim.z > 1;
   const size_t MN = (size_t)M * N;
   const int g = lane >> 2, tig = lane & 3;
+  if constexpr (XC) {
+    if (split) {
+      // The splits add their sums straight into out (zeroed), as f32, two
+      // columns an atomic where N and out allow: every partial sum and
+      // every total is an integer below 2^24, so the f32 additions are
+      // exact in any order.  No workspace and no last split.
+      const bool pairs =
+          ((N & 1) | (reinterpret_cast<uintptr_t>(p.out) & 7)) == 0;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm0 + 16 * i + g + 8 * h;
+            const int n = n0 + wn0 + 8 * j + 2 * tig;
+            if (m >= M || n >= N) continue;
+            const int a = acc[0][i][j][2 * h], b = acc[0][i][j][2 * h + 1];
+            float* o = p.out + (size_t)m * N + n;
+            if (pairs) {
+              if (a | b)
+                atomicAdd(reinterpret_cast<float2*>(o),
+                          make_float2((float)a, (float)b));
+            } else {
+              if (a) atomicAdd(o, (float)a);
+              if (b && n + 1 < N) atomicAdd(o + 1, (float)b);
+            }
+          }
+      return;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -532,8 +682,8 @@ bp_mma_kernel(const Params p) {
         if (m >= M || n >= N) continue;
         const size_t o = (size_t)m * N + n;
         if (!split) {
-          p.out[o] = finish<NW>(acc[0][i][j][e], acc[NW - 1][i][j][e], scale,
-                                p.act);
+          p.out[o] = finish<NW, XC>(acc[0][i][j][e], acc[NW - 1][i][j][e],
+                                    scale, p.act);
         } else {
 #pragma unroll
           for (int w = 0; w < NW; ++w)
@@ -557,8 +707,9 @@ bp_mma_kernel(const Params p) {
     const int m = m0 + e / BN, n = n0 + e % BN;
     if (m >= M || n >= N) continue;
     const size_t o = (size_t)m * N + n;
-    p.out[o] = finish<NW>(__ldcg(p.ws + o),
-                          NW == 2 ? __ldcg(p.ws + MN + o) : 0, scale, p.act);
+    p.out[o] = finish<NW, XC>(__ldcg(p.ws + o),
+                              NW == 2 ? __ldcg(p.ws + MN + o) : 0, scale,
+                              p.act);
   }
 }
 
@@ -575,18 +726,18 @@ inline int sm_count() {
 
 // Blocks of one kernel instance an SM holds at once (its shared memory
 // allowance is raised on first use).
-template <int BM, typename YT, int NW>
+template <int BM, typename YT, int NW, typename XT>
 inline int resident() {
   static int n = 0;
   if (!n) {
-    using C = Cfg<BM, YT, NW>;
-    cudaFuncSetAttribute(bp_mma_kernel<BM, YT, NW>,
+    using C = Cfg<BM, YT, NW, XT>;
+    cudaFuncSetAttribute(bp_mma_kernel<BM, YT, NW, XT>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     // all of L1 as shared memory, so that several blocks fit on an SM
-    cudaFuncSetAttribute(bp_mma_kernel<BM, YT, NW>,
+    cudaFuncSetAttribute(bp_mma_kernel<BM, YT, NW, XT>,
                          cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bp_mma_kernel<BM, YT, NW>, kThreads, C::kSmem);
+        &n, bp_mma_kernel<BM, YT, NW, XT>, kThreads, C::kSmem);
     if (n < 1) n = 1;
   }
   return n;
@@ -602,20 +753,20 @@ inline int rows_per_block(int M) { return M <= 16 ? 16 : M <= 64 ? 64 : 128; }
 // hold blocks (decode), K is split so that one wave of blocks fills every
 // SM, with at least two k steps per split so that the copy ring has work
 // to overlap.
-template <typename YT, int NW>
+template <typename YT, int NW, typename XT = float>
 inline Plan plan(int M, int K, int N) {
   Plan p;
   p.bm = rows_per_block(M);
   int fit, bn;
   if (p.bm == 16) {
-    fit = resident<16, YT, NW>();
-    bn = Cfg<16, YT, NW>::kBN;
+    fit = resident<16, YT, NW, XT>();
+    bn = Cfg<16, YT, NW, XT>::kBN;
   } else if (p.bm == 64) {
-    fit = resident<64, YT, NW>();
-    bn = Cfg<64, YT, NW>::kBN;
+    fit = resident<64, YT, NW, XT>();
+    bn = Cfg<64, YT, NW, XT>::kBN;
   } else {
-    fit = resident<128, YT, NW>();
-    bn = Cfg<128, YT, NW>::kBN;
+    fit = resident<128, YT, NW, XT>();
+    bn = Cfg<128, YT, NW, XT>::kBN;
   }
   p.tiles_m = (M + p.bm - 1) / p.bm;
   p.tiles_n = (N + bn - 1) / bn;
@@ -631,43 +782,50 @@ inline Plan plan(int M, int K, int N) {
 }
 
 // Words of int32 workspace a call needs: the NW planes of M x N sums and
-// one counter per output tile (none when K is not split).
-template <typename YT, int NW>
+// one counter per output tile (none when K is not split, nor with coded x,
+// whose splits add into out).
+template <typename YT, int NW, typename XT = float>
 inline size_t workspace_words(int M, int K, int N) {
-  const Plan p = plan<YT, NW>(M, K, N);
-  return p.splits > 1
+  const Plan p = plan<YT, NW, XT>(M, K, N);
+  return p.splits > 1 && !std::is_same<XT, int8_t>::value
              ? NW * (size_t)M * N + (size_t)p.tiles_m * p.tiles_n : 0;
 }
 
-template <int BM, typename YT, int NW>
+template <int BM, typename YT, int NW, typename XT>
 inline int launch_tiles(const Plan& pl, const Params& p,
                         cudaStream_t stream) {
   const dim3 grid(pl.tiles_n, pl.tiles_m, pl.splits);
-  bp_mma_kernel<BM, YT, NW><<<grid, kThreads, Cfg<BM, YT, NW>::kSmem,
-                              stream>>>(p);
+  bp_mma_kernel<BM, YT, NW, XT><<<grid, kThreads,
+                                  Cfg<BM, YT, NW, XT>::kSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// At most two launches: one memset of the workspace (every weight's sums
-// and the tile counters) when K is split, and the tiles, which apply the
-// epilogue themselves.
-template <typename YT, int NW>
+// At most two launches: one memset when K is split, of the workspace
+// (every weight's sums and the tile counters), or with coded x of out
+// itself, and the tiles, which apply the epilogue themselves.
+template <typename YT, int NW, typename XT = float>
 inline int launch_bp_mma(Params p, cudaStream_t stream) {
-  const Plan pl = plan<YT, NW>(p.M, p.K, p.N);
+  const Plan pl = plan<YT, NW, XT>(p.M, p.K, p.N);
   if (pl.splits > 1) {
-    cudaError_t err = cudaMemsetAsync(
-        p.ws, 0, workspace_words<YT, NW>(p.M, p.K, p.N) * sizeof(int),
-        stream);
+    cudaError_t err =
+        std::is_same<XT, int8_t>::value
+            ? cudaMemsetAsync(p.out, 0, (size_t)p.M * p.N * sizeof(float),
+                              stream)
+            : cudaMemsetAsync(
+                  p.ws, 0,
+                  workspace_words<YT, NW, XT>(p.M, p.K, p.N) * sizeof(int),
+                  stream);
     if (err != cudaSuccess) return (int)err;
   }
   p.steps = pl.steps;
-  p.x_vec = p.K % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+  p.x_vec = p.K % (16 / (int)sizeof(XT)) == 0 &&
+            (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
   p.y_vec = p.N % (16 / (int)sizeof(YT)) == 0;
   for (int w = 0; w < NW; ++w)
     p.y_vec = p.y_vec && (reinterpret_cast<uintptr_t>(p.y[w]) & 15) == 0;
-  if (pl.bm == 16) return launch_tiles<16, YT, NW>(pl, p, stream);
-  if (pl.bm == 64) return launch_tiles<64, YT, NW>(pl, p, stream);
-  return launch_tiles<128, YT, NW>(pl, p, stream);
+  if (pl.bm == 16) return launch_tiles<16, YT, NW, XT>(pl, p, stream);
+  if (pl.bm == 64) return launch_tiles<64, YT, NW, XT>(pl, p, stream);
+  return launch_tiles<128, YT, NW, XT>(pl, p, stream);
 }
 
 // The entry points' dispatch on the weight dtype (Kind): f(YT{}).
@@ -678,12 +836,12 @@ inline auto with_kind(int kind, F f) {
   return f(float{});
 }
 
-template <typename YT, int NW>
+template <typename YT, int NW, typename XT = float>
 inline int smem_bytes(int M) {
   const int bm = rows_per_block(M);
-  return bm == 16   ? Cfg<16, YT, NW>::kSmem
-         : bm == 64 ? Cfg<64, YT, NW>::kSmem
-                    : Cfg<128, YT, NW>::kSmem;
+  return bm == 16   ? Cfg<16, YT, NW, XT>::kSmem
+         : bm == 64 ? Cfg<64, YT, NW, XT>::kSmem
+                    : Cfg<128, YT, NW, XT>::kSmem;
 }
 
 }  // namespace oisma_mma

@@ -6,14 +6,14 @@
 ``matmul_mode="bp8_fused"``: two absmax scans (x and, for a real weight,
 y), each floored at f32 ``tiny`` in the same launch, then one fused
 kernel that encodes both tiles on the fly, multiplies and rescales.  A
-real weight reaches both kernels as it is stored, f32 or bf16 (the
+real weight reaches the kernels as it is stored, f32 or bf16 (the
 model's), and is never cast: the kernels widen bf16 in registers, which
 is exact, so the result is bitwise that of the f32 cast.  x is cast to
-f32 once.  ``impl="unfused"`` runs
-the reference pipeline instead: the same two scales, a BP quantise
-kernel per operand (int8 codes through device memory), the codes matmul
-kernel, then the rescale ``acc * ((sx * sy) * 0.1)`` in torch.  Every
-float expression matches, so the two are bitwise equal.
+f32 once.  ``impl="unfused"`` runs the reference pipeline instead, on
+the weight as stored too: the same two scales, a BP quantise kernel per
+operand (int8 codes through device memory), the codes matmul kernel,
+then the rescale ``acc * ((sx * sy) * 0.1)`` in torch.  Every float
+expression matches, so the two are bitwise equal.
 
 The kernels mask their ragged edges, so no operand is padded and the
 reference's block-size arguments are not carried; zero padding would add
@@ -68,7 +68,7 @@ def oisma_matmul_unfused(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The reference pipeline: quantise -> codes matmul -> rescale, in the
     fused epilogue's association ``acc * ((sx * sy) * 0.1)``."""
     x = x.to(torch.float32).contiguous()
-    y = y.to(torch.float32).contiguous()
+    y = _weight(y)
     sx, sy = _scale(x), _scale(y)
     acc = _k.bp_matmul(_k.bp_quantize(x, sx), _k.bp_quantize(y, sy))
     return acc * ((sx * sy) * 0.1)

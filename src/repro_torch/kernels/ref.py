@@ -84,7 +84,10 @@ def bf16_plane_boundaries(scale: torch.Tensor, which: str) -> torch.Tensor:
 
 
 def bp_quantize_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """int8 codes ``sign(x) * clip(round(|x| / scale * 10), 0, 9)``."""
+    """int8 codes ``sign(x) * clip(round(|x| / scale * 10), 0, 9)`` of the
+    f32 value of each element (a bf16 x is widened first, as the TPU
+    kernel casts its tile)."""
+    x = x.to(torch.float32)
     s = scale.to(torch.float32).reshape(())
     return (torch.sign(x) * bp_levels(x, s)).to(torch.int8)
 

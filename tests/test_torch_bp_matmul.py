@@ -11,9 +11,12 @@ bitwise throughout:
   * the BP quantise against ``ref.bp_quantize_ref`` (also at half-level
     boundaries), against ``quantize_bp``'s codes, and against
     ``bp_quantize_pallas`` where its ``|x| * (10 / s)`` agrees with
-    ``|x| / s * 10``;
+    ``|x| / s * 10``; a bf16 input is quantised by its f32 value, as the
+    Pallas kernel casts its tile;
   * ``oisma_matmul(impl="unfused")`` against the reference's unfused
-    pipeline and against the port's fused path.
+    pipeline and against the port's fused path, with f32 weights and with
+    bf16 weights read as stored (the reference jitted with
+    ``xla_allow_excess_precision`` off, as the other parity tests run it).
 
 The CUDA kernels are held against the same plain versions on the card by
 ``tests/test_torch_cuda.py`` (marked ``gpu``) and ``chip_smoke.py``.
@@ -23,6 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core.quantize import quantize_bp as j_quantize_bp  # noqa: E402
@@ -198,9 +202,57 @@ def test_bp_quantize_half_level_expression(rng):
         np.testing.assert_array_equal(got.numpy(), div[i].astype(np.int8))
 
 
+def _bf16_half_level_inputs(x, s):
+    """bf16 x with its first values replaced by the bf16 values next to the
+    half-level boundaries (l + 0.5) * s / 10 of scale s: the nearest bf16
+    and the bf16 patterns one above and one below it, both signs."""
+    mid = torch.from_numpy((np.arange(9, dtype=np.float32) + np.float32(0.5))
+                           * s / np.float32(10)).to(torch.bfloat16)
+    bits = mid.view(torch.int16)
+    vals = torch.cat([bits, bits + 1, bits - 1]).view(torch.bfloat16)
+    vals = torch.cat([vals, -vals])
+    flat = x.reshape(-1).clone()
+    flat[:vals.numel()] = vals
+    return flat.reshape(x.shape)
+
+
+@pytest.mark.parametrize("boundary", [False, True], ids=["random", "halves"])
+@pytest.mark.parametrize("shape", [(256, 256), (33, 70), (61,)])
+def test_bp_quantize_bf16_input_is_its_f32_value(shape, boundary, rng):
+    """A bf16 x is quantised by the f32 value of each element: the codes
+    equal those of its f32 cast bitwise (the plain version once divided
+    in bf16: 261 of 65536 codes apart at 256 x 256, seed 0)."""
+    x = torch.from_numpy(_real(rng, shape, 1.0)).to(torch.bfloat16)
+    s = tref.tensor_scale(x.float())
+    if boundary:
+        x = _bf16_half_level_inputs(x, np.float32(s.item()))
+    got = tk.bp_quantize(x, s)
+    assert got.dtype == torch.int8 and got.shape == shape
+    want = tref.bp_quantize_ref(x.float(), s)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(), tk.bp_quantize(x.float(),
+                                                              s).numpy())
+
+
+@pytest.mark.parametrize("m,c", [(256, 256), (512, 512), (256, 768)])
+def test_bp_quantize_bf16_matches_pallas_kernel(m, c, rng):
+    """bf16 inputs drawn as the reference's own kernel test draws its f32
+    ones; the Pallas kernel casts its bf16 tile to f32."""
+    xj = jnp.asarray(rng.standard_normal((m, c)) * 3, jnp.float32).astype(
+        jnp.bfloat16)
+    s = jnp.abs(xj).max()
+    want = jk.bp_quantize_pallas(xj, s, interpret=True)
+    x = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = tk.bp_quantize(x, torch.tensor([[float(s)]]))
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+
+
 # ---------------------------------------------------------------------------
 # oisma_matmul(impl="unfused")
 # ---------------------------------------------------------------------------
+
+EXACT = {"xla_allow_excess_precision": False}
 
 @pytest.mark.parametrize("m,k,n", ODD_SHAPES + PATH_SHAPES)
 def test_unfused_matmul_bitwise(m, k, n, rng):
@@ -213,6 +265,27 @@ def test_unfused_matmul_bitwise(m, k, n, rng):
     np.testing.assert_array_equal(got.numpy(), np.array(want))
     np.testing.assert_array_equal(got.numpy(),
                                   tops.oisma_matmul(tx, ty).numpy())
+
+
+@pytest.mark.parametrize("m,k,n", ODD_SHAPES + PATH_SHAPES)
+def test_unfused_matmul_bf16_weight_bitwise(m, k, n, rng):
+    """A bf16 weight reaches the quantise as stored: bitwise the reference
+    given the same bf16 weight, the port's fused path, and the unfused
+    path on the f32 cast."""
+    x = _real(rng, (m, k))
+    w = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
+    wt, wj = torch.from_numpy(w).to(torch.bfloat16), \
+        jnp.asarray(w).astype(jnp.bfloat16)
+    ref_unfused = jax.jit(lambda a, b: jops.oisma_matmul(
+        a, b, impl="unfused", interpret=True), compiler_options=EXACT)
+    tx = torch.from_numpy(x)
+    got = tops.oisma_matmul(tx, wt, impl="unfused")
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref_unfused(jnp.asarray(x), wj)))
+    np.testing.assert_array_equal(got.numpy(), tops.oisma_matmul(tx,
+                                                                 wt).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), tops.oisma_matmul(tx, wt.float(), impl="unfused").numpy())
 
 
 def test_unfused_matmul_errors(rng):

@@ -11,9 +11,9 @@ fused matmul (f32, bf16 and int8-coded y) bitwise; the fused MLP 1e-5 for
 silu and gelu (expf/tanhf and their contraction into FMAs may differ in
 the last bits) and bitwise for relu; decode attention 1e-5 (the softmax
 reassociated over chunks or splits); the unfused pipeline's kernels
-(codes matmul, BP quantise, popcount) bitwise, and ``impl="unfused"``
-bitwise equal to ``impl="fused"``.  A bf16 weight gives bitwise what its
-f32 cast gives.
+(codes matmul, BP quantise on f32 and bf16, popcount) bitwise, and
+``impl="unfused"`` bitwise equal to ``impl="fused"``.  A bf16 weight or
+input gives bitwise what its f32 cast gives.
 """
 import numpy as np
 import pytest
@@ -126,6 +126,86 @@ def test_bp_quantize_half_level_boundaries(cuda):
                    torch.nextafter(mid, mid - 1)])
     x = torch.cat([x, -x, torch.tensor([4.358984, 0.0], device=cuda)])
     assert torch.equal(tbpm.bp_quantize(x, s), tref.bp_quantize_ref(x, s))
+
+
+def _codes(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-9, 10, shape, dtype=np.int8)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(m, 2560, 640) for m in (1, 4, 16, 64,
+                                                             256)]
+                         + [(130, 100, 96), (1, 7, 5), (100, 300, 130),
+                            (129, 257, 130), (256, 6912, 40), (3, 0, 4),
+                            (200, 0, 130)])
+def test_codes_matmul_rows_bitwise(m, k, n, cuda, rng):
+    """Every row-block instance (16, 64 and the 128-row wgmma one), ragged
+    rows, columns and K (the element-by-element loaders), a K split, and
+    K = 0 (the sums are zero)."""
+    xc, yc = _codes(rng, (m, k), cuda), _codes(rng, (k, n), cuda)
+    got = tbpm.bp_matmul(xc, yc)
+    assert torch.equal(got, tref.bp_matmul_ref(xc, yc))
+    assert torch.equal(got, tbpm.bp_matmul(xc, yc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 2560), (64, 2560, 640),
+                                   (256, 2560, 6912), (1, 7, 5), (3, 0, 4)])
+def test_codes_matmul_at_most_two_launches(m, k, n, cuda, rng):
+    xc, yc = _codes(rng, (m, k), cuda), _codes(rng, (k, n), cuda)
+    seen = _kernels_enqueued(lambda: tbpm.bp_matmul(xc, yc))
+    assert 1 <= sum(seen.values()) <= 2, seen
+
+
+def _all_bf16(dev):
+    """Every finite bf16 bit pattern."""
+    v = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    v = v.view(torch.bfloat16)
+    return v[torch.isfinite(v)].to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [5.128217, 0.37, 1.1754944e-38, 3e38,
+                                   "max"])
+def test_bp_quantize_bf16_every_pattern(scale, cuda):
+    """A bf16 x is quantised by its f32 value: every finite pattern,
+    aligned and one element off (element by element), equals the plain
+    version of the f32 cast."""
+    x = _all_bf16(cuda)
+    if scale == "max":
+        s = tref.tensor_scale(x.float())
+    else:
+        s = torch.full((1, 1), scale, device=cuda)
+    for t in (x, x[1:]):
+        want = tref.bp_quantize_ref(t.float(), s)
+        assert torch.equal(tbpm.bp_quantize(t, s), want)
+        assert torch.equal(tbpm.bp_quantize(t.float(), s), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 2560), (2560, 6912), (7,), (33, 70)],
+                         ids=str)
+def test_bp_quantize_bf16_matches_plain(shape, cuda, rng):
+    x = _randn(rng, shape, cuda).to(torch.bfloat16)
+    s = tref.tensor_scale(x.float())
+    got = tbpm.bp_quantize(x, s)
+    assert torch.equal(got, tref.bp_quantize_ref(x.float(), s))
+    assert torch.equal(got, tbpm.bp_quantize(x.float(), s))
+    seen = _kernels_enqueued(lambda: tbpm.bp_quantize(x, s))
+    assert sum(seen.values()) == 1, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 640), (256, 2560, 2560),
+                                   (130, 100, 96), (3, 33, 50)])
+def test_unfused_bf16_weight_bitwise(m, k, n, cuda, rng):
+    """impl="unfused" reads a bf16 weight as stored: bitwise the fused
+    path's result and that of the f32 cast."""
+    x = _randn(rng, (m, k), cuda, 1.0)
+    y = _randn(rng, (k, n), cuda, k ** -0.5).to(torch.bfloat16)
+    got = tops.oisma_matmul(x, y, impl="unfused")
+    assert torch.equal(got, tops.oisma_matmul(x, y))
+    assert torch.equal(got, tops.oisma_matmul(x, y.float(), impl="unfused"))
 
 
 @pytest.mark.gpu

@@ -10,6 +10,13 @@
   planes for every bf16 value.  (At scale f32 ``tiny`` every nonzero |x| below
   the scale is subnormal, and XLA's CPU backend flushes subnormals to
   zero; there the JAX side is compared on the normal values only.)
+* The BP quantise finds a value's level as the count of the 9 level
+  boundaries it reaches (no division): over every finite bf16 pattern and
+  at random f32 values that count gives the codes of the division form.
+* The codes matmul encodes a code by a table of the plane bytes of the 19
+  codes -9..9, and its K splits add their exact sums into the output in
+  f32, in any order: the plain emulation of both equals
+  ``bp_matmul_ref``.
 * Decode attention splits the cache (``split_tokens``) and merges the
   splits' softmax partials; ``bp8_decode_attention_split_ref`` is that
   schedule as tensor code, held within 1e-5 of the JAX kernel (interpret
@@ -27,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.quantize import quantize_bp as j_quantize_bp  # noqa: E402
 from repro.kernels import attention as jattn  # noqa: E402
 from repro_torch.core.bp import plane_thresholds  # noqa: E402
+from repro_torch.kernels import bp_matmul as tbpm  # noqa: E402
 from repro_torch.kernels import attention as tattn  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -103,6 +111,77 @@ def test_bf16_boundaries_give_the_planes(which, scale):
     got = bits[:, None] >= tref.bf16_plane_boundaries(s, which)
     t = torch.tensor(plane_thresholds(which), dtype=torch.float32)
     assert torch.equal(got, tref.bp_levels(v.float(), s)[:, None] >= t)
+
+
+# ---------------------------------------------------------------------------
+# BP quantise: levels by counting boundaries
+# ---------------------------------------------------------------------------
+
+def _every_bf16():
+    v = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    v = v.view(torch.bfloat16)
+    return v[torch.isfinite(v)]
+
+
+def _counted_codes(x, scale):
+    """The quantise kernel's codes: sign times the count of the level
+    boundaries that |x| reaches (NaN boundaries none)."""
+    x = x.float()
+    b = tref.level_boundaries(scale)
+    level = (x.abs()[..., None] >= b).sum(-1)
+    return (torch.sign(x) * level).to(torch.int8)
+
+
+@pytest.mark.parametrize("scale", SCALES + ["max"])
+def test_boundary_count_quantises_every_bf16_pattern(scale):
+    x = _every_bf16()
+    s = (tref.tensor_scale(x.float()) if scale == "max"
+         else torch.tensor(scale, dtype=torch.float32))
+    want = tref.bp_quantize_ref(x.float(), s)
+    assert torch.equal(_counted_codes(x, s), want)
+    assert torch.equal(tbpm.bp_quantize(x, s.reshape(1, 1)), want)
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_boundary_count_quantises_f32(scale, rng):
+    x = torch.from_numpy(_boundary_values(rng, scale))
+    s = torch.tensor(scale, dtype=torch.float32)
+    assert torch.equal(_counted_codes(x, s), tref.bp_quantize_ref(x, s))
+
+
+# ---------------------------------------------------------------------------
+# codes matmul: the table encode and the f32 split-K sums
+# ---------------------------------------------------------------------------
+
+def _code_table(which):
+    """(19, 8) plane bytes of the codes -9..9: sign(c) * (|c| >= t_p)."""
+    c = torch.arange(-9, 10)
+    t = torch.tensor(plane_thresholds(which))
+    return (c.abs()[:, None] >= t).to(torch.int64) * c.sign()[:, None]
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(5, 300, 7, 6), (16, 2560, 9, 26),
+                                          (3, 1, 4, 1), (4, 0, 3, 1),
+                                          (2, 6912, 3, 6)])
+def test_table_encode_and_f32_splits_equal_codes_matmul(m, k, n, splits, rng):
+    xc = torch.from_numpy(rng.integers(-9, 10, (m, k), dtype=np.int8))
+    yc = torch.from_numpy(rng.integers(-9, 10, (k, n), dtype=np.int8))
+    if k:
+        xc[0] = 9                    # the largest sums: 8 a k
+        yc[:, 0] = 9
+    xp = _code_table("right")[xc.long() + 9]          # (M, K, 8)
+    yp = _code_table("left")[yc.long() + 9]           # (K, N, 8)
+    step = -(-k // splits) if k else 1
+    parts = [torch.einsum("mkp,knp->mn", xp[:, k0:k0 + step],
+                          yp[k0:k0 + step]) for k0 in range(0, k, step)]
+    assert all(int(p.abs().max()) < 2 ** 24 for p in parts)
+    out = torch.zeros((m, n), dtype=torch.float32)
+    for i in rng.permutation(len(parts)):          # atomics: any order
+        out += parts[i].to(torch.float32)
+    want = tref.bp_matmul_ref(xc, yc)
+    assert torch.equal(out, want)
+    if k:
+        assert float(want[0, 0]) == 8.0 * k
 
 
 # ---------------------------------------------------------------------------
