@@ -31,23 +31,41 @@ prints its wall time):
    decode attention at S 1-4096, dead rows and qwen2-72b's heads (D 128,
    G 8); the codes matmul at M 1-256, ragged shapes and K 0, and for at
    most two kernels a call; the quantise timed on f32 and on bf16 weights,
-   also by the profiler's kernel time.  The redesigned kernels' times
-   print beside the earlier designs' (EARLIER_MS), and the build's ptxas
-   registers and spills beside their dynamic shared memory.
+   also by the profiler's kernel time; popcount on 8 MB tiles of 16, 64,
+   256 and 2048 columns (event time, profiler kernel time with the L2
+   flushed dirty and clean, bound, ``bits.sum``), exact there and on
+   ragged rows starting at every misalignment, one kernel a call.  NaN
+   and Inf: absmax, the fused matmul and MLP (a NaN or an Inf in x or a
+   weight; relu with a NaN in w_gate) and decode attention (a NaN in q)
+   give NaN where the plain version does and its values elsewhere.  The
+   redesigned kernels' times print beside the earlier designs'
+   (EARLIER_MS), and the build's ptxas registers and spills beside their
+   dynamic shared memory.
 3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
    weights on both devices, 3 prompts, 8 greedy tokens each through the
    paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
-   cache); the card's path and the CPU's plain path must emit the same
-   tokens.
+   cache); the card's path captured (the engine's default), the card's
+   path eager (``capture=False``) and the CPU's plain path must emit the
+   same tokens.
 4. The served path: the full h2o-danube-1.8b (24 layers, full width,
    seeded random weights) in ``bp8_fused`` + ``bp8`` serves 8 requests
    (prompts of 32-256 tokens, 16 new tokens each) through
-   ``PagedServeEngine`` (4 slots, block 16, prefill chunk 64).  Launch
-   counts are zeroed just before and read just after; every kernel of the
-   path must have launched.  A short run under ``torch.profiler`` then
-   gives device time by kernel (the copy kernels of dtype casts apart)
-   and the idle share, and decode steps of 2 and of 3 layers the
-   device launches and device time a decode layer adds, by kernel.
+   ``PagedServeEngine`` (4 slots, block 16, prefill chunk 64), twice on
+   one capturing engine (the first run captures each shape's CUDA graph;
+   the second, timed, replays them) and once, after a short warm-up, on
+   an eager engine: tokens/s of both, the capture seconds, peak device
+   memory, and graphs per entry point, which must stay within
+   ``compile_shape_bounds()``.  All three runs must emit the same tokens.
+   Launch counts (a replay adds its graph's kernels) are zeroed just
+   before the timed run and read just after; every kernel of the path
+   must have launched, and must show by name in the profile of a captured
+   run.  A prefill chunk and a decode step replayed from graphs must give
+   the eager calls' caches and logits bitwise.  Short runs under
+   ``torch.profiler``, captured and eager, give device time by kernel
+   (the copy kernels of dtype casts apart), the idle share and the host
+   time of the engine's ``paged.*`` ranges; decode steps of 2 and of 3
+   layers the device launches and device time a decode layer adds, by
+   kernel.
 5. The unfused path: ``oisma_matmul(impl="unfused")`` at every projection
    shape of one h2o-danube-1.8b layer (4 and 256 rows) and at
    qwen2-72b's 256x8192x29568, with its accumulation periphery (the
@@ -56,9 +74,9 @@ prints its wall time):
    as bf16 and read as stored.  Launch counts are zeroed just before and
    read just after; each result must equal ``impl="fused"`` bitwise.
 6. Full depth in ``bp8``: the 24-layer h2o-danube-1.8b with
-   ``matmul_mode="bp8"`` serves 2 requests x 8 new tokens after a short
-   warm-up; tokens/s, peak device memory, and a profile of one short
-   request.
+   ``matmul_mode="bp8"`` serves 2 requests x 8 new tokens twice on one
+   capturing engine; tokens/s of the second run, peak device memory, and
+   a profile of one short request.
 
 The last lines are the kernels JSON (each kernel with the path its
 launches come from), the card line, and ``{"ok": true, "device":
@@ -97,11 +115,11 @@ PATHS = {"absmax": "serve_bp8_fused", "fused_matmul": "serve_bp8_fused",
          "popcount": "unfused"}
 #: the earlier designs' times (NVIDIA H100 80GB HBM3, 700 W; the
 #: "Earlier ms" of PERF.md §6: f32 weights, absmax on f32 only, the MLP
-#: on the popcount core; the codes matmul on the popcount core and the
-#: quantise with a division per element)
+#: on the popcount core; the codes matmul on the popcount core, the
+#: quantise with a division per element, popcount one warp a row)
 EARLIER_MS = {"absmax": 0.2246, "fused_matmul": 0.1959, "fused_mlp": 0.1695,
               "decode_attention": 0.0320, "bp_matmul": 4.2553,
-              "bp_quantize": 0.2353,
+              "bp_quantize": 0.2353, "popcount": 0.0098,
               "fused_matmul_prefill_64x2560x2560_ms": 0.0641,
               "fused_layer_256_rows_ms": 1.6818, "qwen2_72b_fused_ms": 4.0602}
 EARLIER = "earlier design"
@@ -114,6 +132,8 @@ D, HD, KVD, FF = 2560, 2560, 640, 6912
 #: (K, N) of one layer's projections: wq, wk, wv, wo, up, gate, down
 LAYER = [(D, HD), (D, KVD), (D, KVD), (HD, D), (D, FF), (D, FF), (FF, D)]
 QWEN_UP = (256, 8192, 29568)     # qwen2-72b's up projection at 256 tokens
+#: 8 MB 0/1 tiles at the periphery's widths (16, 64, 256 columns) and 2048
+POPCOUNT_WIDTHS = [(524288, 16), (131072, 64), (32768, 256), (4096, 2048)]
 
 
 def fail(msg: str) -> None:
@@ -168,12 +188,19 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+#: CUDA API calls that enqueue device work (a kernel, a memset, a copy)
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
 def kernels_enqueued(torch, fn) -> dict:
-    """Device activities (kernels and memsets) one call of ``fn`` enqueues,
-    by name, from the profiler: each name's count is the larger of two
-    profiled calls (a profiling session can miss the first activities it
-    should record)."""
-    from torch.autograd import DeviceType
+    """Device work (kernels and memsets) one call of ``fn`` enqueues, by
+    the CUDA API call that enqueued it, from the profiler; each count is
+    the larger of two profiled calls.  The launches are counted where the
+    host makes them: the profiler's record of the kernel itself is lost
+    now and then (a session in which CUPTI requests a new activity buffer
+    keeps the launch and drops the kernel), the record of the launch
+    never."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -183,7 +210,7 @@ def kernels_enqueued(torch, fn) -> dict:
             fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if e.key in ENQUEUE_CALLS:
                 seen[e.key] = max(seen.get(e.key, 0), e.count)
     return seen
 
@@ -533,30 +560,127 @@ def phase_kernels(torch, timer, dev="cuda"):
         b=[bound(4 * B * KH * G * D * 2 + 2 * B * S * KH * D
                  + 2 * 4 * B * S * KH + 4 * B * S + 4 * B,
                  4 * B * KH * G * S * D, H100_F32_FLOPS_PER_S)])
+    detail["nan_and_inf_checked"] = nan_and_inf_checks(torch, randn, dev)
     unfused_kernel_rows(torch, timer, randn,
                         lambda k, n: weight(k, n).float(), rows, detail, dev)
     return rows, detail
 
 
-def kernel_device_ms(torch, timer, calls, part: str) -> float:
+def nan_and_inf_checks(torch, randn, dev):
+    """NaN where the plain version has NaN, its bits everywhere else: absmax
+    (f32 and bf16, aligned and not, the special value first, in the middle
+    and last), the fused matmul and MLP with a NaN or an Inf in x (and in
+    the weight), the relu MLP with a NaN in w_gate, decode attention with
+    a NaN in q (within 1e-5 elsewhere).  The reference propagates NaN
+    through every max and the relu, and so do the plain versions."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import fused as kf
+    from repro_torch.kernels import ops, ref
+
+    def put(x, vals, at):
+        x = x.clone()
+        for j, v in enumerate(vals):
+            x.view(-1)[(at + 3 * j) % x.numel()] = v
+        return x
+
+    def same(a, b, what, atol=0.0):
+        nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(nan_a, nan_b):
+            fail(f"{what}: NaN at {int(nan_a.sum())} places, plain "
+                 f"{int(nan_b.sum())}")
+        ok = ~nan_b
+        if atol == 0.0 and not torch.equal(a[ok], b[ok]):
+            fail(f"{what}: differs from the plain version off the NaNs")
+        if atol and not bool(((a[ok] - b[ok]).abs() <= atol).all()):
+            fail(f"{what}: off by more than {atol} off the NaNs")
+        return int(nan_b.sum())
+
+    nan, inf = float("nan"), float("inf")
+    specials = {"nan": (nan,), "inf": (inf,), "-inf": (-inf,),
+                "nan+inf": (nan, inf)}
+    checked = []
+    base = randn(4097)
+    for dtype in (torch.float32, torch.bfloat16):
+        for x in (base[:4096].to(dtype), base[1:].to(dtype)):
+            for name, vals in specials.items():
+                for at in (0, 2048, x.numel() - 1):
+                    t = put(x, vals, at)
+                    for lo in (0.0, TINY):
+                        n = same(kf.absmax(t, lo), ref.absmax_ref(t, lo),
+                                 f"absmax {dtype} {name} at {at}")
+                        if n != (name.startswith("nan")):
+                            fail(f"absmax {dtype} {name}: NaN {n}")
+    checked.append("absmax: f32/bf16 x aligned/unaligned x 4 x 3 places")
+    x = randn(4, D)
+    wq = (randn(D, KVD) * D ** -0.5).to(torch.bfloat16)
+    for name, vals in specials.items():
+        for xs, ws in ((put(x, vals, 5), wq),
+                       (x, put(wq.float(), vals, 5).to(torch.bfloat16))):
+            n = same(ops.oisma_matmul(xs, ws), ref.fused_matmul_ref(xs, ws),
+                     f"fused matmul, {name}")
+            if n != 4 * KVD:
+                fail(f"fused matmul, {name}: NaN at {n} of {4 * KVD}")
+    checked.append("fused matmul 4x2560x640: 4 specials in x and in w")
+    up, gate = ((randn(D, FF) * D ** -0.5).to(torch.bfloat16)
+                for _ in range(2))
+    for act in ("silu", "gelu", "relu"):
+        for name, vals in specials.items():
+            xs = put(x, vals, 11)
+            same(ops.oisma_mlp(xs, up, gate, act=act),
+                 ref.fused_mlp_ref(xs, up, gate, act), f"MLP {act}, {name}",
+                 atol=1e-5)
+    g_nan = put(gate.float(), (nan,), 17).to(torch.bfloat16)
+    n = same(ops.oisma_mlp(x, up, g_nan, act="relu"),
+             ref.fused_mlp_ref(x, up, g_nan, "relu"), "MLP relu, NaN gate")
+    if n != 4 * FF:
+        fail(f"MLP relu, NaN in w_gate: NaN at {n} of {4 * FF}")
+    checked.append("fused MLP 4x2560x6912: 3 acts x 4 specials in x; relu "
+                   "with a NaN in w_gate")
+    b, kh, g, d, s_ = 4, 8, 4, 80, 1024
+    q = randn(b, kh, g, d) / math.sqrt(d)
+    q[1, 2, 3, 7] = nan
+    kc, ks = ka.quantize_kv(randn(b, s_, kh, d))
+    vc, vs = ka.quantize_kv(randn(b, s_, kh, d))
+    pos = torch.arange(s_, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+    qp = torch.full((b,), s_ - 1, dtype=torch.int32, device=dev)
+    args = (q, kc, ks, vc, vs, pos, qp, None)
+    n = same(ka.bp8_decode_attention(*args), ka.bp8_decode_attention_ref(
+        *args), "decode attention, NaN in q", atol=1e-5)
+    if n != d:
+        fail(f"decode attention, NaN in q: NaN at {n}, want {d}")
+    checked.append("decode attention B4 KH8 G4 D80 S1024, a NaN in q")
+    print("NaN and Inf: " + "; ".join(checked) + ": as the plain versions")
+    return checked
+
+
+def kernel_device_ms(torch, timer, calls, part: str,
+                     clean: bool = False) -> float:
     """Device time per run of ``calls`` of the kernels whose name holds
     ``part``, from the profiler (each call after the timer's L2 flush, as
-    the event times are taken; the flush's own kernel is not counted)."""
+    the event times are taken, or with ``clean`` its flush by reading; the
+    flush's own kernel is not counted).  A session that recorded none of
+    those kernels is taken again, up to 4 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     runs = 5
     for f in calls:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            for f in calls:
-                timer.flush.zero_()
-                f()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and part in e.key)
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                for f in calls:
+                    if clean:
+                        timer.flush.max()
+                    else:
+                        timer.flush.zero_()
+                    f()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and part in e.key)
+        if us > 0:
+            break
     return us / 1e3 / runs
 
 
@@ -676,15 +800,26 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
         bound((t.element_size() + 1) * t.numel() + 4, 3 * t.numel(),
               H100_F32_FLOPS_PER_S)[0] for t in ins16)
 
-    # popcount: 0/1 tiles, then int8, uint8 and bool tiles of any value
-    tiles = [ints(*shape, lo=0, hi=1) for shape in ((4096, 2048), (300, 100))]
+    # popcount: 0/1 tiles at the periphery's widths, then int8, uint8 and
+    # bool tiles of any value, ragged and starting at every misalignment
+    tiles = [ints(*shape, lo=0, hi=1)
+             for shape in POPCOUNT_WIDTHS + [(300, 100)]]
     wide = ints(513, 1000, lo=-128, hi=127)
     tiles += [wide, wide.to(torch.uint8), wide > 0]
+    flat = ints(77 * 257 + 16, lo=-128, hi=127)
+    for buf in (flat, flat.view(torch.uint8), flat > 0):
+        for c in (1, 15, 16, 33, 100, 257):
+            tiles += [buf[o:o + 77 * c].view(77, c) for o in range(16)]
     for t in tiles:
         if not torch.equal(kb.popcount_accumulate(t),
                            ref.popcount_accumulate_ref(t)):
             fail(f"popcount differs at {tuple(t.shape)} {t.dtype}")
-    big = tiles[0]
+    for t in tiles[:len(POPCOUNT_WIDTHS)]:
+        seen = kernels_enqueued(torch, lambda t=t: kb.popcount_accumulate(t))
+        if sum(seen.values()) != 1:
+            fail(f"popcount at {tuple(t.shape)}: {seen} enqueued (one "
+                 f"kernel a call)")
+    big = tiles[len(POPCOUNT_WIDTHS) - 1]          # (4096, 2048)
     r, c = big.shape
     rows["popcount"] = dict(
         max_abs_err=0.0,
@@ -692,16 +827,50 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
         plain_ms=timer([lambda: ref.popcount_accumulate_ref(big)]),
         library_ms=timer([lambda: big.sum(-1, dtype=torch.int32)]),
         b=[bound(r * c + 4 * r, r * c, H100_F32_FLOPS_PER_S)])
+    widths = {}
+    for t in tiles[:len(POPCOUNT_WIDTHS)]:
+        r, c = t.shape
+        widths[f"{r}x{c}"] = {
+            "ms": timer([lambda t=t: kb.popcount_accumulate(t)]),
+            "kernel_ms": kernel_device_ms(
+                torch, timer, [lambda t=t: kb.popcount_accumulate(t)],
+                "popcount_kernel"),
+            # the L2 flushed by reading: no dirty lines to write back
+            "kernel_clean_l2_ms": kernel_device_ms(
+                torch, timer, [lambda t=t: kb.popcount_accumulate(t)],
+                "popcount_kernel", clean=True),
+            "bound_ms": bound(r * c + 4 * r, r * c, H100_F32_FLOPS_PER_S)[0],
+            "bits_sum_ms": timer([lambda t=t: t.sum(-1, dtype=torch.int32)]),
+            "bits_sum_kernel_ms": kernel_device_ms(
+                torch, timer, [lambda t=t: t.sum(-1, dtype=torch.int32)],
+                "reduce_kernel")}
+    detail["popcount_widths"] = widths
+    print("popcount by width (event ms, profiler kernel ms, the same with "
+          "the L2 clean, bound ms; bits.sum event and kernel ms): "
+          + "; ".join(
+              f"{k}: {v['ms']:.4f}, {v['kernel_ms']:.4f}, "
+              f"{v['kernel_clean_l2_ms']:.4f}, "
+              f"{v['bound_ms']:.5f}; {v['bits_sum_ms']:.4f}, "
+              f"{v['bits_sum_kernel_ms']:.4f}" for k, v in widths.items()))
 
 
-def serve(torch, cfg, params, prompts, max_new, device):
+def make_engine(cfg, params, device, capture=None):
     from repro_torch.models import build
     from repro_torch.serve.paged_engine import (PagedEngineConfig,
-                                                PagedRequest, PagedServeEngine)
-    model = build(cfg)
+                                                PagedServeEngine)
     ecfg = PagedEngineConfig(slots=4, block_size=16, num_blocks=96,
                              max_prefill_tokens=64, eos_id=-1)
-    engine = PagedServeEngine(model, params, cfg, ecfg, device=device)
+    return PagedServeEngine(build(cfg), params, cfg, ecfg, device=device,
+                            capture=capture)
+
+
+def serve(torch, cfg, params, prompts, max_new, device, engine=None,
+          capture=None):
+    """Serve ``prompts`` on ``engine`` (a new one if None); returns
+    (tokens by request, seconds, engine)."""
+    from repro_torch.serve.paged_engine import PagedRequest
+    if engine is None:
+        engine = make_engine(cfg, params, device, capture)
     reqs = [PagedRequest(rid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     if device == "cuda":
@@ -713,18 +882,46 @@ def serve(torch, cfg, params, prompts, max_new, device):
     return out, time.perf_counter() - t0, engine
 
 
-def profile_serving(torch, cfg, params, prompts, prompt_len=64, new=8):
-    """Device time by kernel and the card's idle share over a short
-    serving run (the prompts cut to ``prompt_len`` tokens, ``new`` new
-    tokens each)."""
+#: served-path kernels by the device names they run under
+SERVED_KERNEL_NAMES = (("absmax", "absmax_kernel"),
+                       ("decode_attention", "decode_partial_kernel"))
+
+
+def served_kernel(name: str):
+    """Which served-path kernel a device activity is, by its name: the
+    integer core's instances by their template's NW (1: the fused matmul,
+    2: the MLP), with f32 x (the codes matmul's x is int8)."""
+    import re
+    for kernel, part in SERVED_KERNEL_NAMES:
+        if part in name:
+            return kernel
+    m = re.search(r"bp_mma_kernel<\s*\d+\s*,\s*[^,]+,\s*(\d+)\s*,"
+                  r"\s*float", name)
+    return None if m is None else {"1": "fused_matmul",
+                                   "2": "fused_mlp"}.get(m.group(1))
+
+
+def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
+                    new=8):
+    """Device time by kernel, the card's idle share, and the host's
+    ``paged.*`` ranges over a short serving run on ``engine`` (the prompts
+    cut to ``prompt_len`` tokens, ``new`` new tokens each).  The run is
+    served once unprofiled first, so that a capturing engine holds every
+    graph it needs before the profiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    cut = [p[:prompt_len] for p in prompts]
+    serve(torch, cfg, params, cut, new, "cuda", engine)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_s, _ = serve(torch, cfg, params,
-                             [p[:prompt_len] for p in prompts], new, "cuda")
-    rows = []
+        _, wall_s, _ = serve(torch, cfg, params, cut, new, "cuda", engine)
+    rows, host = [], {}
     for ev in prof.key_averages():
+        if ev.key.startswith("paged."):
+            if ev.device_type != DeviceType.CUDA:   # (and its annotation
+                host[ev.key] = {"ms": ev.cpu_time_total / 1e3,  # on the
+                                "calls": ev.count}  # device: not a kernel)
+            continue
         if ev.device_type != DeviceType.CUDA:
             continue        # host ops: their kernels are counted below
         us = getattr(ev, "self_device_time_total", None)
@@ -734,21 +931,29 @@ def profile_serving(torch, cfg, params, prompts, prompt_len=64, new=8):
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    out = {"wall_s": wall_s, "device_busy_s": busy_s,
-           "idle_share": 1.0 - busy_s / wall_s,
+    out = {"capture": engine.capture, "wall_s": wall_s,
+           "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s,
+           "host_ranges": {k: dict(v, share_of_wall=v["ms"] / 1e3 / wall_s)
+                           for k, v in sorted(host.items())},
+           "served_kernels": sorted({served_kernel(k) for _, k, _ in rows}
+                                    - {None}),
            "top": [{"name": k[:120], "ms": us / 1e3, "calls": n,
                     "share_of_busy": us / 1e6 / busy_s}
                    for us, k, n in rows[:15]],
            # dtype casts and other copies (direct_copy_kernel)
            "copies": [{"name": k[:120], "ms": us / 1e3, "calls": n}
                       for us, k, n in rows if "copy" in k.lower()]}
-    print(f"profile: wall {wall_s:.3f}s, device busy {busy_s:.3f}s, idle "
-          f"share {out['idle_share']:.3f}")
+    mode = "captured" if engine.capture else "eager"
+    print(f"profile ({mode}): wall {wall_s:.3f}s, device busy "
+          f"{busy_s:.3f}s, idle share {out['idle_share']:.3f}")
     for r in out["top"][:8]:
         print(f"  {r['share_of_busy']:.3f} {r['ms']:.1f} ms x{r['calls']} "
               f"{r['name']}")
     for r in out["copies"]:
         print(f"  copies: {r['ms']:.2f} ms x{r['calls']} {r['name'][:80]}")
+    print("  host ranges (ms, share of wall): " + ", ".join(
+        f"{k} {v['ms']:.1f} {v['share_of_wall']:.3f}"
+        for k, v in out["host_ranges"].items()))
     return out
 
 
@@ -904,20 +1109,99 @@ class Phase:
 
 
 def card_vs_cpu(torch, cfg, prompts):
-    """The same seeded 2-layer weights on the card and on the CPU must emit
-    the same greedy tokens."""
+    """The same seeded 2-layer weights on the card, captured and eager, and
+    on the CPU must emit the same greedy tokens."""
     from repro_torch.models import build as build_model
     from repro_torch.models.params import init_params, tree_map
     p_cpu = init_params(build_model(cfg).schema(), seed=0, device="cpu")
     p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
-    out_gpu, _, _ = serve(torch, cfg, p_gpu, prompts, 8, "cuda")
+    out_gpu, _, eng = serve(torch, cfg, p_gpu, prompts, 8, "cuda")
+    if not eng.capture:
+        fail("the engine on CUDA does not capture by default")
+    out_eager, _, _ = serve(torch, cfg, p_gpu, prompts, 8, "cuda",
+                            capture=False)
     out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, 8, "cpu")
-    print(f"card vs cpu ({cfg.matmul_mode}, 2 layers, full width): card "
-          f"{out_gpu}")
+    print(f"card vs cpu ({cfg.matmul_mode}, 2 layers, full width): card, "
+          f"captured ({eng.compile_counts()} graphs) {out_gpu}")
+    print(f"    card, eager {out_eager}")
     print(f"    cpu {out_cpu} ({cpu_s:.1f}s on the CPU)")
+    if out_gpu != out_eager:
+        fail(f"{cfg.matmul_mode}: captured and eager tokens differ")
     if out_gpu != out_cpu:
         fail(f"{cfg.matmul_mode}: card and CPU paths emit different tokens")
     return cpu_s
+
+
+def graphed_vs_eager(torch, model, params, rng):
+    """A prefill chunk (64 tokens at position 64) and a decode step (4 rows)
+    at full width, replayed from graphs, against the eager calls on the
+    same inputs: the caches bitwise equal, and the logits bitwise equal
+    (or, if the f32 logits matmul alone differs under capture, that is
+    printed with its largest difference)."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve.graphs import GraphedEntry
+    cfg = model.cfg
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    def caches_equal(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y)
+                   in zip(tree_leaves(a), tree_leaves(b)))
+
+    pool = torch.cuda.graph_pool_handle()
+    prefill = GraphedEntry(lambda t, v, p0: model.prefill_chunk(
+        params, {"tokens": t}, v, p0), capture=True, pool=pool)
+    decode = GraphedEntry(lambda t, v, p: model.decode_step(params, t, v, p),
+                          capture=True, pool=pool)
+    cache = model.init_cache(1, 256, "cuda")
+    model.prefill_chunk(params, {"tokens": torch.as_tensor(rng.integers(
+        3, cfg.vocab_size, (1, 64)), device="cuda")}, cache, 0)
+    t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 64)),
+                        device="cuda")
+    prefill.inputs("p", lambda: (t.clone(), clone(cache),
+                                 torch.full((), 64, device="cuda")))
+    want, want_cache = model.prefill_chunk(params, {"tokens": t},
+                                           clone(cache), 64)
+    got, got_cache = prefill("p")
+    # a graph's outputs live in the shared pool until another graph runs
+    result = {"prefill chunk 64": (got.clone(), want, got_cache,
+                                   want_cache)}
+    rows = 4
+    full = {"layers": {k: v.expand(-1, rows, *v.shape[2:]).contiguous()
+                       for k, v in want_cache["layers"].items()}}
+    t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (rows, 1)),
+                        device="cuda")
+    p = torch.tensor([128, 130, 200, 255], dtype=torch.int32, device="cuda")
+    decode.inputs("d", lambda: (t.clone(), clone(full), p.clone()))
+    want, want_cache = model.decode_step(params, t, clone(full), p)
+    got, got_cache = decode("d")
+    result["decode step 4 rows"] = (got.clone(), want, got_cache,
+                                    want_cache)
+    report = {}
+    for what, (g, w, gc, wc) in result.items():
+        if not caches_equal(gc, wc):
+            fail(f"graphed {what}: the cache differs from the eager call's")
+        diff = (g - w).abs().max().item()
+        report[what] = {"logits_bitwise": bool(torch.equal(g, w)),
+                        "logits_max_abs_diff": diff}
+        if not torch.equal(g, w):
+            h = torch.randn((g.shape[0], cfg.d_model),
+                            device="cuda").to(torch.bfloat16)
+            mm = GraphedEntry(lambda h: model._logits(params, h),
+                              capture=True, pool=pool)
+            mm.inputs("h", lambda: (h.clone(),))
+            alone = (mm("h") - model._logits(params, h)).abs().max().item()
+            if alone == 0.0:
+                fail(f"graphed {what}: logits differ by {diff} with the "
+                     f"caches equal and the logits matmul alone equal")
+            print(f"graphed {what}: logits differ by at most {diff:.3g}; "
+                  f"cause: the f32 logits matmul alone differs under "
+                  f"capture by {alone:.3g} (cuBLAS)")
+            report[what]["cause"] = "f32 logits matmul under capture"
+    print(f"graphed vs eager at full width: {report}")
+    return report
 
 
 def main() -> None:
@@ -1011,18 +1295,44 @@ def main() -> None:
         lens = [32, 256] + [int(n) for n in rng.integers(32, 257, 6)]
         prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
                    for n in lens]
-        serve(torch, full, params, prompts[:1], 2, "cuda")       # warm-up
+        # captured: the first run captures each shape's graph, the second
+        # (timed, launches counted) replays them
+        torch.cuda.reset_peak_memory_stats()
+        cold, cold_s, engine = serve(torch, full, params, prompts, 16, "cuda")
+        capture_s = engine.stats.snapshot()["capture_s"]
+        before = engine.stats.snapshot()
         build.reset_launches()
-        out, dt, engine = serve(torch, full, params, prompts, 16, "cuda")
+        out, dt, _ = serve(torch, full, params, prompts, 16, "cuda", engine)
         launches = dict(build.LAUNCHES)
+        run = {k: engine.stats.snapshot()[k] - before[k]
+               for k in ("steps", "prefill_chunks", "decode_ticks")}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts, bounds = engine.compile_counts(), engine.compile_shape_bounds()
+        # eager, on an engine of its own, after a short warm-up
+        torch.cuda.reset_peak_memory_stats()
+        eager_engine = make_engine(full, params, "cuda", capture=False)
+        serve(torch, full, params, prompts[:1], 2, "cuda", eager_engine)
+        eager, eager_s, _ = serve(torch, full, params, prompts, 16, "cuda",
+                                  eager_engine)
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
         n_tok = sum(len(v) for v in out.values())
         print(f"served path: {full.name} {full.num_layers} layers, "
-              f"{len(out)} requests (prompts {lens}), {n_tok} tokens in "
-              f"{dt:.3f}s = {n_tok / dt:.2f} tok/s, engine steps "
-              f"{engine.step_count}, prefill chunks "
-              f"{engine.stats.prefill_chunks}, decode ticks "
-              f"{engine.stats.decode_ticks}")
-        print(f"served path launches: {launches}")
+              f"{len(out)} requests (prompts {lens}), {n_tok} tokens; "
+              f"captured, warm: {dt:.3f}s = {n_tok / dt:.2f} tok/s; eager: "
+              f"{eager_s:.3f}s = {n_tok / eager_s:.2f} tok/s; captured, "
+              f"first run {cold_s:.3f}s of which warm-ups and captures "
+              f"{capture_s:.3f}s; engine steps a run {run['steps']}, "
+              f"prefill chunks {run['prefill_chunks']}, decode ticks "
+              f"{run['decode_ticks']}")
+        print(f"graphs per entry point {counts}, bound "
+              f"{bounds}; peak device memory captured {peak:.2f} GB, "
+              f"eager {eager_peak:.2f} GB")
+        print(f"served path launches (warm captured run, replays "
+              f"counted): {launches}")
+        if any(counts[k] > bounds[k] for k in bounds):
+            fail(f"graphs {counts} exceed the bound {bounds}")
+        if not out == cold == eager:
+            fail("captured (first and second run) and eager tokens differ")
         for name, path in PATHS.items():
             if path == "serve_bp8_fused" and launches.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the served path")
@@ -1036,17 +1346,33 @@ def main() -> None:
                 not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
                  f"{bool(torch.isfinite(logits).all())}")
-        report["profile"] = profile_serving(torch, full, params, prompts[:4])
+        report["graphed_vs_eager"] = graphed_vs_eager(torch, model, params,
+                                                      rng)
+        report["profile"] = profile_serving(torch, engine, full, params,
+                                            prompts[:4])
+        report["profile_eager"] = profile_serving(torch, eager_engine, full,
+                                                  params, prompts[:4])
+        ran = set(report["profile"]["served_kernels"])
+        for name, path in PATHS.items():
+            if path == "serve_bp8_fused" and name not in ran:
+                fail(f"kernel {name} does not run in the captured profile "
+                     f"(ran: {sorted(ran)})")
+        del eager_engine
         report["decode_layer_launches"] = decode_layer_launches(
             torch, full, params)
         report["main_path"] = {
             "model": full.name, "layers": full.num_layers,
             "requests": len(out), "prompt_lens": lens, "new_tokens": n_tok,
             "seconds": dt, "tokens_per_s": n_tok / dt,
-            "engine_steps": engine.step_count,
-            "prefill_chunks": engine.stats.prefill_chunks,
-            "decode_ticks": engine.stats.decode_ticks, "launches": launches,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "eager_seconds": eager_s, "eager_tokens_per_s": n_tok / eager_s,
+            "first_run_seconds": cold_s, "capture_s": capture_s,
+            "graphs": counts, "graph_bounds": bounds,
+            "engine_steps": run["steps"],
+            "prefill_chunks": run["prefill_chunks"],
+            "decode_ticks": run["decode_ticks"],
+            "launches": launches, "peak_mem_gb": peak,
+            "eager_peak_mem_gb": eager_peak}
+        del engine
 
     # ---- phase 5: the unfused pipeline at full width ----
     with Phase("5 unfused path", report):
@@ -1061,9 +1387,11 @@ def main() -> None:
         full8 = dataclasses.replace(full, matmul_mode="bp8")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        serve(torch, full8, params, prompts[:1], 2, "cuda")       # warm-up
-        warm_s = time.perf_counter() - t0
-        out, dt, engine = serve(torch, full8, params, prompts[:2], 8, "cuda")
+        _, _, engine = serve(torch, full8, params, prompts[:2], 8, "cuda")
+        first_s = time.perf_counter() - t0
+        capture_s = engine.stats.snapshot()["capture_s"]
+        out, dt, _ = serve(torch, full8, params, prompts[:2], 8, "cuda",
+                           engine)
         n_tok = sum(len(v) for v in out.values())
         peak = torch.cuda.max_memory_allocated() / 1e9
         for rid, toks in out.items():
@@ -1071,16 +1399,18 @@ def main() -> None:
                                          for t in toks):
                 fail(f"bp8 request {rid}: bad output {toks}")
         print(f"bp8 full depth: {full8.num_layers} layers, 2 requests "
-              f"(prompts {lens[:2]}), {n_tok} tokens in {dt:.3f}s = "
-              f"{n_tok / dt:.2f} tok/s (warm-up: 1 request x 2 tokens in "
-              f"{warm_s:.3f}s), engine steps {engine.step_count}, peak "
-              f"device memory {peak:.2f} GB")
+              f"(prompts {lens[:2]}), {n_tok} tokens, captured, warm: "
+              f"{dt:.3f}s = {n_tok / dt:.2f} tok/s (first run {first_s:.3f}s,"
+              f" of which warm-ups and captures {capture_s:.3f}s), engine "
+              f"steps {engine.step_count // 2}, graphs "
+              f"{engine.compile_counts()}, peak device memory {peak:.2f} GB")
         report["bp8_full_depth"] = {
-            "seconds": dt, "warm_up_s": warm_s, "new_tokens": n_tok,
-            "tokens_per_s": n_tok / dt, "engine_steps": engine.step_count,
-            "peak_mem_gb": peak,
-            "profile": profile_serving(torch, full8, params, prompts[:1],
-                                       16, 2)}
+            "seconds": dt, "first_run_s": first_s, "capture_s": capture_s,
+            "new_tokens": n_tok, "tokens_per_s": n_tok / dt,
+            "engine_steps": engine.step_count // 2, "peak_mem_gb": peak,
+            "profile": profile_serving(torch, engine, full8, params,
+                                       prompts[:1], 16, 2)}
+        del engine
 
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches}
     kernels = []

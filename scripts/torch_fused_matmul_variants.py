@@ -1,11 +1,11 @@
 """Where the BP kernels' time goes on the card: time variants of the
 integer core (``bp_mma.cuh``: the fused matmul, the fused MLP and the
-codes matmul) and of the BP quantise (``bp_quantize.cu``), each with one
-part cut out or done another way.
+codes matmul), of the BP quantise (``bp_quantize.cu``) and of popcount
+(``popcount.cu``), each with one part cut out or done another way.
 
 Run from the root of a checkout on a machine with an NVIDIA card and nvcc:
 
-    python scripts/torch_fused_matmul_variants.py [variant ...]
+    python scripts/torch_fused_matmul_variants.py [--only KIND] [variant ...]
 
 Each variant is a copy of ``src/repro_torch/kernels/csrc/`` in which one
 piece of a source is replaced (its results are then wrong; only the
@@ -40,7 +40,13 @@ in a process of its own:
   division per element, one float4 a thread a grid-stride step;
 * ``ldgq``: the quantise's loads without the streaming hint;
 * ``stcsq``: the quantise's stores with the streaming hint;
-* ``wideq``: the quantise with two units of 16 values a thread, not one.
+* ``wideq``: the quantise with two units of 16 values a thread, not one;
+* ``earlierp``: the popcount's earlier design whole: one warp a row,
+  each lane's 16-byte loads one after another;
+* ``popgrid``: the popcount's grid not capped at the SMs' resident
+  blocks: one row group a warp, the blocks in waves;
+* ``popldg``: the popcount's loads through the read-only path without
+  the streaming hint.
 
 The cases: the fused matmul on f32 weights at the shapes below, and on
 bf16 weights (the served path's form) at two decode shapes; the MLP on
@@ -48,7 +54,10 @@ bf16 weights at decode (4 rows) and a prefill chunk (64 rows), and on f32
 weights at decode; the codes matmul over one h2o-danube-1.8b layer at 256
 rows (its 7 projections), at 4x2560x2560 and at qwen2-72b's
 256x8192x29568; the quantise over one layer's 14 operands at 256 rows
-with f32 weights and with bf16 weights.  Times are CUDA events: ``cold``
+with f32 weights and with bf16 weights; the popcount on 8 MB 0/1 tiles
+of 16, 64, 256 and 2048 columns (also by the profiler's kernel time, and
+beside ``bits.sum(-1, dtype=torch.int32)``).  ``--only KIND`` (mm, mlp,
+codes, quant, pop) times one kind of case.  Times are CUDA events: ``cold``
 the sum over the case's calls, each after a write of 64 MB (L2 flushed,
 as ``chip_smoke.py`` times) and a device sleep that hides the host's
 launch; ``warm`` the mean of 20 runs of the case back to back.  Every
@@ -62,7 +71,67 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-MMA, QUANT = "bp_mma.cuh", "bp_quantize.cu"
+MMA, QUANT, POP = "bp_mma.cuh", "bp_quantize.cu", "popcount.cu"
+# The popcount's earlier design, whole: one warp a row, its lanes' 16-byte
+# loads in a loop (the entry point ignores the lanes argument).
+EARLIER_POPCOUNT = r"""#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRowsPerBlock = kThreads / 32;
+
+template <bool SIGNED>
+__device__ __forceinline__ int add_bytes(uint32_t w, int acc) {
+  if (SIGNED) return __dp4a((int)w, 0x01010101, acc);
+  return (int)__dp4a(w, 0x01010101u, (unsigned)acc);
+}
+
+template <bool SIGNED>
+__device__ __forceinline__ int byte_value(uint8_t b) {
+  return SIGNED ? (int)(int8_t)b : (int)b;
+}
+
+template <bool SIGNED>
+__global__ void __launch_bounds__(kThreads)
+popcount_kernel(const uint8_t* __restrict__ bits, int* __restrict__ out,
+                int R, int C) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const uint8_t* row = bits + (size_t)r * C;
+  const int misalign = (int)(reinterpret_cast<uintptr_t>(row) & 15);
+  const int head = min(C, misalign ? 16 - misalign : 0);
+  const int nvec = (C - head) / 16;
+  const uint4* mid = reinterpret_cast<const uint4*>(row + head);
+  int acc = 0;
+  for (int i = lane; i < head; i += 32) acc += byte_value<SIGNED>(row[i]);
+  for (int i = lane; i < nvec; i += 32) {
+    const uint4 w = mid[i];
+    acc = add_bytes<SIGNED>(w.x, acc);
+    acc = add_bytes<SIGNED>(w.y, acc);
+    acc = add_bytes<SIGNED>(w.z, acc);
+    acc = add_bytes<SIGNED>(w.w, acc);
+  }
+  for (int i = head + 16 * nvec + lane; i < C; i += 32)
+    acc += byte_value<SIGNED>(row[i]);
+  for (int o = 16; o; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) out[r] = acc;
+}
+
+}  // namespace
+
+extern "C" int oisma_popcount(const uint8_t* bits, int is_signed, int* out,
+                              int R, int C, int, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (is_signed)
+    popcount_kernel<true><<<blocks, kThreads, 0, stream>>>(bits, out, R, C);
+  else
+    popcount_kernel<false><<<blocks, kThreads, 0, stream>>>(bits, out, R, C);
+  return (int)cudaGetLastError();
+}
+"""
 # The quantise's earlier design, whole (f32 only: its entry point ignores
 # x_kind): a division per element, one float4 a thread a grid-stride
 # step, a char4 store, at most 8 blocks an SM.
@@ -155,12 +224,15 @@ VARIANTS = {
                "w[2], w[3]));")],
     "wideq": [(QUANT, "constexpr int kUnits = 1;",
                "constexpr int kUnits = 2;")],
+    "earlierp": [(POP, None, EARLIER_POPCOUNT)],
+    "popgrid": [(POP, "  if (blocks > most) blocks = most;\n", "")],
+    "popldg": [(POP, "__ldcs(mid + i)", "__ldg(mid + i)")],
 }
 #: variants that quantise f32 only (their bf16 case is not run)
 F32_ONLY = ("earlierq",)
 #: variants whose results must still equal the plain versions bitwise
 EXACT = ("main", "mmasync", "cmpenc", "wgserial", "f32enc16", "divq",
-         "earlierq", "ldgq", "stcsq", "wideq")
+         "earlierq", "ldgq", "stcsq", "wideq", "earlierp", "popgrid", "popldg")
 SHAPES = [(4, 128, 2560), (4, 2560, 2560), (4, 2560, 640), (4, 6912, 2560),
           (64, 2560, 2560), (256, 2560, 6912)]
 # h2o-danube-1.8b: (K, N) of one layer's wq, wk, wv, wo, up, gate, down
@@ -176,10 +248,12 @@ CASES = ([("mm", "float32", *s) for s in SHAPES]
             ("codes", "int8", 4, 2560, 2560),
             ("codes", "int8", 256, 8192, 29568),
             ("quant", "float32", 256, "layer", ""),
-            ("quant", "bfloat16", 256, "layer", "")])
+            ("quant", "bfloat16", 256, "layer", "")]
+         + [("pop", "int8", r, c, "") for r, c in
+            [(524288, 16), (131072, 64), (32768, 256), (4096, 2048)]])
 
 
-def build_all(names):
+def build_all(names, only=None):
     from repro_torch.kernels import build
     dirs = {}
     for name in names:
@@ -198,14 +272,31 @@ def build_all(names):
                   for name, d in dirs.items()}
     for name, fut in builds.items():
         fut.result()          # raises with nvcc's output if a build failed
-        r = subprocess.run([sys.executable, __file__, "--time", name],
+        r = subprocess.run([sys.executable, __file__, "--time", name]
+                           + (["--only", only] if only else []),
                            capture_output=True, text=True, timeout=900)
         if r.returncode:
             raise SystemExit(f"{name}: {r.stderr[-3000:]}")
         print(r.stdout.strip())
 
 
-def time_variant(name):
+def kernel_ms(torch, calls, flush, part, n=5):
+    """Device time of the kernels named ``part`` per run of ``calls``, from
+    the profiler, each call after the L2 flush."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            for f in calls:
+                flush.zero_()
+                f()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and part in e.key) / 1e3 / n
+
+
+def time_variant(name, only=None):
     import torch
     from repro_torch.kernels import bp_matmul as kb
     from repro_torch.kernels import build, ref
@@ -264,6 +355,8 @@ def time_variant(name):
     for (kernel, dtype, m, k, n) in CASES:
         if kernel == "quant" and dtype != "float32" and name in F32_ONLY:
             continue
+        if only and kernel != only:
+            continue
         shapes = LAYER if k == "layer" else [(k, n)]
         if kernel == "mm":
             x, w = randn(m, k), weight(k, n, dtype)
@@ -287,6 +380,11 @@ def time_variant(name):
             ok = lambda pairs=pairs: all(  # noqa: E731
                 torch.equal(kb.bp_matmul(*p), ref.bp_matmul_ref(*p))
                 for p in pairs)
+        elif kernel == "pop":
+            bits = (randn(m, k) > 1.0).to(torch.int8)
+            calls = [lambda: kb.popcount_accumulate(bits)]
+            ok = lambda: torch.equal(  # noqa: E731
+                calls[0](), ref.popcount_accumulate_ref(bits))
         else:
             ins = [randn(m, kk) for kk, _ in shapes] + [
                 weight(kk, nn, dtype) for kk, nn in shapes]
@@ -300,20 +398,31 @@ def time_variant(name):
             raise SystemExit(f"{name} differs from the plain version at "
                              f"{(kernel, dtype, m, k, n)}")
         iters = 3 if k == 8192 else 10
-        res.append(f"{kernel} {dtype} {m}x{k}x{n} cold "
-                   f"{cold(calls, iters):.4f} warm "
-                   f"{warm(calls, 2 * iters):.4f}")
+        line = (f"{kernel} {dtype} {m}x{k}x{n} cold {cold(calls, iters):.4f} "
+                f"warm {warm(calls, 2 * iters):.4f}")
+        if kernel == "pop":
+            lib = [lambda: bits.sum(-1, dtype=torch.int32)]
+            line += (f" kernel {kernel_ms(torch, calls, flush, 'popcount'):.4f}"
+                     f" bits.sum cold {cold(lib, iters):.4f} kernel "
+                     f"{kernel_ms(torch, lib, flush, 'reduce_kernel'):.4f}")
+        res.append(line)
         del calls
     print(f"{name} ({torch.cuda.get_device_name(0)}, ms): " + " | ".join(res))
 
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT / "src"))
-    if sys.argv[1:2] == ["--time"]:
-        time_variant(sys.argv[2])
+    args = sys.argv[1:]
+    only = None
+    if "--only" in args:
+        i = args.index("--only")
+        only = args[i + 1]
+        del args[i:i + 2]
+    if args[:1] == ["--time"]:
+        time_variant(args[1], only)
     else:
-        names = sys.argv[1:] or list(VARIANTS)
+        names = args or list(VARIANTS)
         unknown = set(names) - set(VARIANTS)
         if unknown:
             raise SystemExit(f"unknown variants {sorted(unknown)}")
-        build_all(names)
+        build_all(names, only)

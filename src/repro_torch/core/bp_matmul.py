@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import bp
 from repro_torch.core.quantize import quantize_bp
+from repro_torch.device import device_constant
 
 EFFECTIVE_BITS = bp.EFFECTIVE_BITS
 
@@ -66,7 +67,16 @@ def lut_rank() -> int:
     return lut_factors()[2]
 
 
-def _table(arr: np.ndarray, dtype, device) -> torch.Tensor:
+@device_constant
+def _table(name: str, dtype, device, rank: Optional[int] = None
+           ) -> torch.Tensor:
+    """One of the tables on ``device``, made once: "right" and "left" (the
+    datasets' bitplanes), "lut", or "low_left" / "low_right" (the LUT's
+    factors at ``rank``)."""
+    if name in ("low_left", "low_right"):
+        arr = lut_factors(rank=rank)[name == "low_right"]
+    else:
+        arr = _tables()[("right", "left", "lut").index(name)]
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
@@ -87,7 +97,7 @@ def _fold(xa: torch.Tensor, ya: torch.Tensor, out_dtype) -> torch.Tensor:
 def bp_matmul_lut(x_levels: torch.Tensor, y_levels: torch.Tensor,
                   dtype=torch.float32) -> torch.Tensor:
     """C[m, n] = sum_k LUT[x[m, k], y[k, n]] / 10, through one-hots."""
-    lut = _table(_tables()[2], dtype, x_levels.device)
+    lut = _table("lut", dtype, x_levels.device)
     xoh = F.one_hot(x_levels.long(), bp.NUM_LEVELS).to(dtype)
     yoh = F.one_hot(y_levels.long(), bp.NUM_LEVELS).to(dtype)
     return torch.einsum("mka,knb,ab->mn", xoh, yoh, lut) * 0.1
@@ -96,8 +106,8 @@ def bp_matmul_lut(x_levels: torch.Tensor, y_levels: torch.Tensor,
 def encode_bitplanes(levels: torch.Tensor, which: str,
                      dtype=torch.bfloat16) -> torch.Tensor:
     """(...) integer levels -> (..., 8) 0/1 bitplanes of one dataset."""
-    table = _tables()[0] if which == "right" else _tables()[1]
-    return _table(table, dtype, levels.device)[levels.long()]
+    return _table("right" if which == "right" else "left", dtype,
+                  levels.device)[levels.long()]
 
 
 def bp_matmul_bitplane(x_levels: torch.Tensor, y_levels: torch.Tensor,
@@ -116,10 +126,10 @@ def bp_matmul_lowrank(x_levels: torch.Tensor, y_levels: torch.Tensor,
                       dtype=torch.float32, out_dtype=torch.float32,
                       rank: Optional[int] = None) -> torch.Tensor:
     """C = (L[x]) @ (R[y])^T / 10 with an r = rank(LUT) inner blow-up."""
-    left, right, _ = lut_factors(rank=rank)
     dev = x_levels.device
-    return _fold(_table(left, dtype, dev)[x_levels.long()],
-                 _table(right, dtype, dev)[y_levels.long()], out_dtype) * 0.1
+    return _fold(_table("low_left", dtype, dev, rank)[x_levels.long()],
+                 _table("low_right", dtype, dev, rank)[y_levels.long()],
+                 out_dtype) * 0.1
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +148,7 @@ def bp_matmul(x: torch.Tensor, y: torch.Tensor, *, impl: str = "bitplane",
     sy = qy.sign.to(accum_dtype)[..., None]
     dev = x.device
     if impl == "lut":
-        lut = _table(_tables()[2], accum_dtype, dev)
+        lut = _table("lut", accum_dtype, dev)
         xoh = F.one_hot(qx.levels.long(), bp.NUM_LEVELS).to(accum_dtype) * sx
         yoh = F.one_hot(qy.levels.long(), bp.NUM_LEVELS).to(accum_dtype) * sy
         c = torch.einsum("mka,knb,ab->mn", xoh, yoh, lut)
@@ -147,10 +157,10 @@ def bp_matmul(x: torch.Tensor, y: torch.Tensor, *, impl: str = "bitplane",
                   encode_bitplanes(qy.levels, "left", accum_dtype) * sy,
                   accum_dtype)
     else:
-        left, right, _ = lut_factors()
-        c = _fold(_table(left, accum_dtype, dev)[qx.levels.long()] * sx,
-                  _table(right, accum_dtype, dev)[qy.levels.long()] * sy,
-                  accum_dtype)
+        c = _fold(_table("low_left", accum_dtype, dev)[qx.levels.long()]
+                  * sx,
+                  _table("low_right", accum_dtype, dev)[qy.levels.long()]
+                  * sy, accum_dtype)
     return c * ((qx.scale * qy.scale) * 0.1)
 
 

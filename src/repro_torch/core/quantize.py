@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bp import NUM_LEVELS
+from repro_torch.device import device_constant
 
 Axis = Optional[Union[int, Sequence[int]]]
 
@@ -48,12 +49,20 @@ def _e4m3_grid_and_mids(max_val: float) -> Tuple[np.ndarray, np.ndarray]:
     return grid, (grid[1:] + grid[:-1]) / 2.0
 
 
+@device_constant
+def _e4m3_tables(max_val: float, dtype, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The E4M3 grid and its midpoints on ``device``, made once."""
+    grid, mids = _e4m3_grid_and_mids(max_val)
+    return (torch.as_tensor(grid, dtype=dtype, device=device),
+            torch.as_tensor(mids, dtype=dtype, device=device))
+
+
 def quantize_e4m3(x: torch.Tensor, max_val: float = 448.0) -> torch.Tensor:
     """Round |x| to the nearest E4M3 magnitude (sign kept, ties to the
     smaller); magnitudes above ``max_val`` clip to it."""
-    grid, mids = _e4m3_grid_and_mids(max_val)
-    g = torch.as_tensor(grid, dtype=x.dtype, device=x.device)
-    m = torch.as_tensor(mids, dtype=x.dtype, device=x.device)
+    grid, _ = _e4m3_grid_and_mids(max_val)
+    g, m = _e4m3_tables(max_val, x.dtype, x.device)
     idx = torch.searchsorted(m, torch.clamp_max(x.abs(), float(grid[-1])))
     return torch.sign(x) * g[idx]
 

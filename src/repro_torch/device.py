@@ -6,6 +6,8 @@ silently on the CPU, where the kernels' plain versions would stand in.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -23,3 +25,20 @@ def resolve_device(device="cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def device_constant(make):
+    """Decorate ``make(*key)`` (a device among the hashable key) to run once
+    per key and return the same tensor after.
+
+    A CUDA tensor made from a host value is copied from the host, which
+    synchronises and which a CUDA graph capture forbids.  So the served
+    path makes each such constant on its first, eager call and reuses it
+    under capture.  It is made outside inference mode, so that it may also
+    take part in autograd."""
+    @functools.lru_cache(None)
+    @functools.wraps(make)
+    def made(*key, **kw):
+        with torch.inference_mode(False):
+            return make(*key, **kw)
+    return made

@@ -24,7 +24,8 @@ from repro_torch.kernels.ref import (bp_matmul_ref, bp_quantize_ref,
 _BYTE_TYPES = {torch.int8: True, torch.uint8: False, torch.bool: False}
 
 __all__ = ["bp_matmul", "bp_quantize", "popcount_accumulate",
-           "bp_matmul_ref", "bp_quantize_ref", "popcount_accumulate_ref"]
+           "popcount_lanes", "bp_matmul_ref", "bp_quantize_ref",
+           "popcount_accumulate_ref"]
 
 
 def bp_matmul(x_codes: torch.Tensor, y_codes: torch.Tensor) -> torch.Tensor:
@@ -65,6 +66,13 @@ def bp_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def popcount_lanes(c: int) -> int:
+    """Lanes of a warp that sum one row of ``c`` bytes in the popcount
+    kernel: ``c / 16`` (one 16-byte load a lane) as a power of two, at
+    least 1 and at most 32; a warp holds ``32 / lanes`` rows."""
+    return 1 << min(max(c // 16, 1).bit_length() - 1, 5)
+
+
 def popcount_accumulate(bits: torch.Tensor) -> torch.Tensor:
     """(R, C) bytes (int8, uint8 or bool) -> (R,) int32 row sums."""
     if not on_cuda(bits):
@@ -76,5 +84,5 @@ def popcount_accumulate(bits: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r,), dtype=torch.int32, device=bits.device)
     if r:
         launch("popcount", bits.data_ptr(), int(_BYTE_TYPES[bits.dtype]),
-               out.data_ptr(), r, c, stream())
+               out.data_ptr(), r, c, popcount_lanes(c), stream())
     return out

@@ -58,7 +58,7 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _F, _I, _P),
     "oisma_bp_matmul": (_P, _P, _P, _I, _I, _I, _U, _U, _P),
     "oisma_bp_quantize": (_P, _I, _P, _P, _LL, _P),
-    "oisma_popcount": (_P, _I, _P, _I, _I, _P),
+    "oisma_popcount": (_P, _I, _P, _I, _I, _I, _P),
 }
 _RESTYPES = {"oisma_fused_matmul_workspace": _LL,
              "oisma_fused_mlp_workspace": _LL}

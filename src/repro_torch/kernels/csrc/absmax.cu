@@ -20,6 +20,12 @@
 // resets the counter to 0.  Max is order-free, so the result is bitwise
 // the reference's in any block order.  One launch a call, no memset.
 //
+// NaN: the reference folds with jnp.max and jnp.maximum, which return NaN
+// when any element is NaN.  CUDA's fmaxf drops a NaN operand, so every
+// fold here (the per-element fold, both shuffle folds, the partials fold
+// and the floor) is max_nan: PTX max.NaN.f32, which returns NaN when
+// either operand is NaN and is fmaxf otherwise.
+//
 // The counter and the partials are device globals of this library, zeroed
 // once per device when the module loads.  A call leaves the counter at 0
 // again, and calls on one stream run one after another, which is what
@@ -38,6 +44,13 @@ constexpr int kMaxBlocks = 2048;      // partials slots
 __device__ float g_partials[kMaxBlocks];
 __device__ unsigned int g_tickets;
 
+// max(a, b), NaN if either is NaN (fmaxf would return the other one)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -50,19 +63,20 @@ __device__ __forceinline__ float vec_absmax(const uint4& u) {
   const T* e = reinterpret_cast<const T*>(&u);
   float m = fabsf(widen(e[0]));
 #pragma unroll
-  for (int i = 1; i < V; ++i) m = fmaxf(m, fabsf(widen(e[i])));
+  for (int i = 1; i < V; ++i) m = max_nan(m, fabsf(widen(e[i])));
   return m;
 }
 
 __device__ __forceinline__ float block_max(float m) {
   __shared__ float warp_max[kThreads / 32];
-  for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  for (int o = 16; o; o >>= 1)
+    m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
   m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0.0f;
   if (threadIdx.x < 32)
     for (int o = 16; o; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
   return m;         // thread 0 holds the block's maximum
 }
 
@@ -83,13 +97,13 @@ absmax_kernel(const T* __restrict__ x, long long n, long long head,
       if (i + j * stride < nvec) u[j] = __ldg(v + i + j * stride);
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j)
-      if (i + j * stride < nvec) m = fmaxf(m, vec_absmax<T>(u[j]));
+      if (i + j * stride < nvec) m = max_nan(m, vec_absmax<T>(u[j]));
   }
   constexpr int V = 16 / (int)sizeof(T);
   const long long body_end = head + nvec * V;
   const long long rest = head + (n - body_end);    // scalar elements
   for (long long i = tid; i < rest; i += stride)
-    m = fmaxf(m, fabsf(widen(x[i < head ? i : body_end + (i - head)])));
+    m = max_nan(m, fabsf(widen(x[i < head ? i : body_end + (i - head)])));
 
   m = block_max(m);
   __shared__ bool last;
@@ -103,10 +117,10 @@ absmax_kernel(const T* __restrict__ x, long long n, long long head,
   __threadfence();
   m = 0.0f;
   for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads)
-    m = fmaxf(m, __ldcg(g_partials + b));
+    m = max_nan(m, __ldcg(g_partials + b));
   m = block_max(m);
   if (threadIdx.x == 0) {
-    out[0] = fmaxf(m, lo);
+    out[0] = max_nan(m, lo);
     g_tickets = 0;                   // ready for the next call
   }
 }

@@ -233,12 +233,16 @@ __device__ __forceinline__ void encode_code(int c, const uint2* tab,
   hi = e.y;
 }
 
+// relu keeps a NaN, as the reference's jnp.maximum(x, 0.0) does (fmaxf
+// would give 0): PTX max.NaN.f32 is fmaxf but for NaN
 __device__ __forceinline__ float activate(float g, int act) {
   if (act == kSilu) return g * (1.0f / (1.0f + expf(-g)));
   if (act == kGelu)
     return 0.5f * g *
            (1.0f + tanhf(0.7978845608028654f * (g + 0.044715f * g * g * g)));
-  return fmaxf(g, 0.0f);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(g), "f"(0.0f));
+  return r;
 }
 
 // The output of one (m, n): NW = 1, acc * scale; NW = 2,

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import device_constant
 from repro_torch.kernels import attention as kq
 from repro_torch.models.layers import ParamDef, apply_rope, dense, linear_def
 
@@ -41,9 +42,26 @@ def _allowed(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
     return ok
 
 
+@device_constant
+def _neg_inf(dtype, device) -> torch.Tensor:
+    return torch.tensor(NEG_INF, dtype=dtype, device=device)
+
+
+@device_constant
+def _sdpa_scale(d: int, device) -> torch.Tensor:
+    """1 / sqrt(d), computed on the CPU and moved to ``device``."""
+    return (1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))).to(device)
+
+
+@device_constant
+def _sqrt_d(d: int, device) -> torch.Tensor:
+    """sqrt(d) on ``device``: decode divides q by it (a division, which
+    the multiply by a reciprocal would not give bit for bit)."""
+    return torch.sqrt(torch.tensor(d, dtype=torch.float32, device=device))
+
+
 def _masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, scores, torch.tensor(
-        NEG_INF, dtype=scores.dtype, device=scores.device))
+    return torch.where(mask, scores, _neg_inf(scores.dtype, scores.device))
 
 
 def _sdpa_direct(q, k, v, mask, softcap=None):
@@ -95,8 +113,7 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal=True, window=None, chunk=1024,
     qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
-    qg = qg.to(torch.float32) * scale.to(q.device)
+    qg = qg.to(torch.float32) * _sdpa_scale(d, q.device)
     if skv > chunk and skv % chunk == 0:
         out = _sdpa_chunked(qg, kt, vt, q_pos, kv_pos, causal=causal,
                             window=window, chunk=chunk, softcap=softcap)
@@ -256,8 +273,7 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             # codes stream into the kernel and dequantise on chip; the
             # cache is never expanded in device memory
             qg = q[:, 0].reshape(b, kh, h // kh, d).to(torch.float32)
-            qg = qg / torch.sqrt(torch.tensor(d, dtype=torch.float32,
-                                              device=qg.device))
+            qg = qg / _sqrt_d(d, qg.device)
             o = kq.bp8_decode_attention(
                 qg.contiguous(), cache["k_codes"], cache["k_scale"],
                 cache["v_codes"], cache["v_scale"], cache["pos"],

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core import bp_matmul as _bpm
 from repro_torch.core import quantize as _q
+from repro_torch.device import device_constant
 from repro_torch.kernels import ops as _ops
 from repro_torch.models.params import ParamDef
 
@@ -64,8 +65,10 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (y * (1.0 + gamma.to(torch.float32))).to(x.dtype)
 
 
+@device_constant
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
+    """(head_dim / 2,) f32 rotary frequencies, made once per device."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,

@@ -137,11 +137,16 @@ class DecoderModel:
     @torch.inference_mode()
     def prefill_chunk(self, params, batch, cache, pos0):
         """Append a chunk at positions [pos0, pos0+C): it attends over the
-        whole cache, which already holds every earlier chunk."""
+        whole cache, which already holds every earlier chunk.  ``pos0`` is
+        an int or a one-element int tensor on the model's device, as the
+        reference traces it: one CUDA graph then serves every chunk of a
+        shape, wherever it starts."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = embed_lookup(params["embed"], tokens)
-        positions = (int(pos0) + torch.arange(s, device=x.device))[None]
+        pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
+                else int(pos0))
+        positions = (pos0 + torch.arange(s, device=x.device))[None]
         h, cache = self._stack(params, x, positions.expand(b, s), cache,
                                "prefill_chunk")
         return self._logits(params, h[:, -1:])[:, 0], cache

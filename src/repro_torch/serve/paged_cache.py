@@ -135,20 +135,39 @@ class PagedCache:
         return round_up_pow2(-(-tokens_needed // self.block_size)) \
             * self.block_size
 
-    def gather(self, slot_ids: Sequence[int], view_tokens: int):
-        """Dense cache view for ``slot_ids`` rows, ``view_tokens`` wide."""
+    def empty_view(self, rows: int, view_tokens: int):
+        """An uninitialised view of ``rows`` x ``view_tokens``, for
+        ``gather(..., out=)``."""
+        view: dict = {}
+        for path, leaf, bi in zip(self.paths, self.pool, self._bi):
+            _set_path(view, path, torch.empty(
+                leaf.shape[:bi] + (rows, view_tokens) + leaf.shape[bi + 2:],
+                dtype=leaf.dtype, device=self.device))
+        return view
+
+    def gather(self, slot_ids: Sequence[int], view_tokens: int, out=None):
+        """Dense cache view for ``slot_ids`` rows, ``view_tokens`` wide,
+        written into every cell of ``out`` (from ``empty_view``) or of a
+        new view."""
         nb = view_tokens // self.block_size
         table = np.full((len(slot_ids), nb), NULL_BLOCK, np.int64)
         for r, s in enumerate(slot_ids):
             row = self.tables[s][:nb]
             table[r, :len(row)] = row
         flat = torch.from_numpy(table.reshape(-1)).to(self.device)
-        view: dict = {}
-        for path, leaf, bi in zip(self.paths, self.pool, self._bi):
-            g = leaf.index_select(bi, flat)
-            shape = (g.shape[:bi] + (len(slot_ids), view_tokens)
-                     + g.shape[bi + 2:])
-            _set_path(view, path, g.reshape(shape))
+        view = self.empty_view(len(slot_ids), view_tokens) if out is None \
+            else out
+        for (path, dst), leaf, bi in zip(tree_leaves(view), self.pool,
+                                         self._bi):
+            want = leaf.shape[:bi] + (len(slot_ids), view_tokens) \
+                + leaf.shape[bi + 2:]
+            if dst.shape != want:
+                raise ValueError(f"out {path}: {tuple(dst.shape)}, want "
+                                 f"{tuple(want)}")
+            # the pool's (block, offset) axes gathered as (row, token)
+            torch.index_select(leaf, bi, flat, out=dst.view(
+                leaf.shape[:bi] + (len(flat), self.block_size)
+                + leaf.shape[bi + 2:]))
         return view
 
     def _commit(self, view, rows, blocks, offs, positions) -> None:

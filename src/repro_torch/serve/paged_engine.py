@@ -17,10 +17,22 @@ Engine loop (one ``step()``):
    ``slots`` rows (padding rows gather the null block and their writes
    are never committed).
 
+The two model calls run as CUDA graphs on the card (``graphs.py``, the
+counterpart of the reference's ``jax.jit``): one per entry point and
+shape key, decode keyed by the view length, prefill by (chunk, view
+length), each over static buffers that the gather fills; graphs are
+captured on first use and their count stays within
+``compile_shape_bounds()``.  ``capture=False`` runs the same buffers
+eagerly (the counterpart of ``jax.disable_jit()``); on the CPU nothing is
+captured.
+
 Time is counted in engine steps (one ``step()`` = one unit); each request
 keeps its lifecycle record (arrival, admission, first token, finish).
-The reference's observability hooks (tracer spans, registry series,
-retrace watchdog) come with the observability slice.
+The host phases of a step run under ``torch.profiler.record_function``
+ranges named ``paged.*`` (schedule, gather, the two entry points, commit,
+sample), so a profile shows where the host spends a step.  The
+reference's observability hooks (tracer spans, registry series, retrace
+watchdog) come with the observability slice.
 """
 from __future__ import annotations
 
@@ -29,9 +41,11 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.serve.graphs import GraphedEntry
 from repro_torch.serve.paged_cache import PagedCache
 from repro_torch.serve.sampling import check_temperature, sample_tokens
 from repro_torch.serve.scheduler import PriorityScheduler
@@ -75,6 +89,7 @@ class EngineStats:
     rejected: int = 0
     deferred_steps: int = 0             # a free slot, but the head-of-line
                                         # request did not fit the blocks
+    capture_s: float = 0.0              # graph warm-ups and captures
 
     def snapshot(self) -> Dict[str, Any]:
         return {
@@ -88,6 +103,7 @@ class EngineStats:
             "decode_shapes": sorted([list(s) for s in self.decode_shapes]),
             "prefill_shape_count": len(self.prefill_shapes),
             "decode_shape_count": len(self.decode_shapes),
+            "capture_s": self.capture_s,
         }
 
 
@@ -122,11 +138,14 @@ class _Slot:
 
 
 class PagedServeEngine:
-    """model: a ``DecoderModel``; ``params`` must live on ``device``."""
+    """model: a ``DecoderModel``; ``params`` must live on ``device`` and,
+    once a graph is captured, must not be replaced.  ``capture``: run the
+    entry points as CUDA graphs (``None``: on CUDA)."""
 
     @torch.inference_mode()
     def __init__(self, model, params, cfg: ModelConfig,
-                 ecfg: PagedEngineConfig, device="cuda"):
+                 ecfg: PagedEngineConfig, device="cuda",
+                 capture: Optional[bool] = None):
         if ecfg.max_prefill_tokens & (ecfg.max_prefill_tokens - 1):
             raise ValueError("max_prefill_tokens must be a power of two")
         check_temperature(ecfg.temperature)
@@ -139,6 +158,21 @@ class PagedServeEngine:
                                 num_blocks=ecfg.num_blocks,
                                 block_size=ecfg.block_size,
                                 device=self.device)
+        on_cuda = self.device.type == "cuda"
+        capture = on_cuda if capture is None else bool(capture)
+        if capture and not on_cuda:
+            raise ValueError("capture=True needs the engine on CUDA")
+        # one memory pool for both entry points: their graphs replay one
+        # after another on the engine's stream
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        self._decode = GraphedEntry(
+            lambda tokens, view, pos: model.decode_step(
+                self.params, tokens, view, pos),
+            capture=capture, pool=pool)
+        self._prefill = GraphedEntry(
+            lambda tokens, view, pos0: model.prefill_chunk(
+                self.params, {"tokens": tokens}, view, pos0),
+            capture=capture, pool=pool)
         self.scheduler = PriorityScheduler(ecfg.num_blocks - 1,
                                            ecfg.block_size)
         self._slots: List[Optional[_Slot]] = [None] * ecfg.slots
@@ -150,6 +184,28 @@ class PagedServeEngine:
     @property
     def live(self) -> int:
         return sum(s is not None for s in self._slots)
+
+    @property
+    def capture(self) -> bool:
+        return self._decode.capture
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Shapes specialised per entry point: graphs captured (or, when
+        not capturing, sets of static buffers)."""
+        return {"prefill_chunk": self._prefill.count,
+                "decode_step": self._decode.count}
+
+    def compile_shape_bounds(self) -> Dict[str, int]:
+        """The reference's ceiling on compiled shapes per entry point: chunk
+        sizes are the powers of two up to ``max_prefill_tokens``, view
+        lengths power-of-two block counts up to the pool, the decode batch
+        constant."""
+        chunk_kinds = self.ecfg.max_prefill_tokens.bit_length()
+        usable = self.ecfg.num_blocks - 1          # pool minus null block
+        view_kinds = (1 << max(usable - 1, 1).bit_length()).bit_length()
+        encdec = 2 if self.cfg.family == "encdec" else 1
+        return {"prefill_chunk": chunk_kinds * view_kinds * encdec,
+                "decode_step": view_kinds}
 
     # -- request intake -------------------------------------------------
 
@@ -169,12 +225,15 @@ class PagedServeEngine:
     def step(self) -> None:
         """Retire, admit, prefill one chunk per prefilling slot, decode one
         token for every decoding slot."""
-        self._retire()
-        self._admit()
+        with record_function("paged.schedule"):
+            self._retire()
+            self._admit()
         self._prefill_tick()
         self._decode_tick()
         self.step_count += 1
         self.stats.steps += 1
+        self.stats.capture_s = self._prefill.capture_s + \
+            self._decode.capture_s
 
     def run(self, requests: List[PagedRequest]) -> Dict[int, List[int]]:
         """Serve ``requests`` to completion (batch mode: all arrive now)."""
@@ -222,18 +281,27 @@ class PagedServeEngine:
             chunk = min(remaining, self.ecfg.max_prefill_tokens)
             chunk = 1 << (chunk.bit_length() - 1)      # largest 2^k <= chunk
             view_tokens = self.cache.view_len(s.pos + chunk)
-            tokens = torch.from_numpy(np.ascontiguousarray(
-                s.req.prompt[s.pos:s.pos + chunk], np.int64))[None]
-            batch = {"tokens": tokens.to(self.device)}
-            view = self.cache.gather([i], view_tokens)
-            logits, view = self.model.prefill_chunk(self.params, batch, view,
-                                                    s.pos)
-            self.cache.commit_prefill(view, i, s.pos, chunk)
+            key = (chunk, view_tokens)
+            tokens, view, pos0 = self._prefill.inputs(key, lambda: (
+                torch.empty((1, chunk), dtype=torch.int64,
+                            device=self.device),
+                self.cache.empty_view(1, view_tokens),
+                torch.empty((), dtype=torch.int64, device=self.device)))
+            with record_function("paged.gather"):
+                tokens.copy_(torch.from_numpy(np.ascontiguousarray(
+                    s.req.prompt[s.pos:s.pos + chunk], np.int64))[None])
+                pos0.fill_(s.pos)
+                self.cache.gather([i], view_tokens, out=view)
+            with record_function("paged.prefill_chunk"):
+                logits, view = self._prefill(key)
+            with record_function("paged.commit"):
+                self.cache.commit_prefill(view, i, s.pos, chunk)
             self.stats.prefill_shapes.add((chunk, view_tokens, False))
             self.stats.prefill_chunks += 1
             s.pos += chunk
             if not s.prefilling:          # prompt complete: first token
-                tok = sample_tokens(logits, self.ecfg.temperature)[0]
+                with record_function("paged.sample"):
+                    tok = sample_tokens(logits, self.ecfg.temperature)[0]
                 self._accept(s, int(tok))
 
     def _decode_tick(self) -> None:
@@ -248,16 +316,24 @@ class PagedServeEngine:
         for r, (i, s) in enumerate(live):
             slot_ids[r], tokens[r], positions[r] = i, s.next_token, s.pos
         view_tokens = self.cache.view_len(int(positions.max()) + 1)
-        view = self.cache.gather(slot_ids.tolist(), view_tokens)
-        logits, view = self.model.decode_step(
-            self.params, torch.from_numpy(tokens)[:, None].to(self.device),
-            view, torch.from_numpy(positions).to(self.device))
-        self.cache.commit_decode(view, list(range(len(live))),
-                                 [i for i, _ in live],
-                                 [s.pos for _, s in live])
+        tok_in, view, pos_in = self._decode.inputs(view_tokens, lambda: (
+            torch.empty((n, 1), dtype=torch.int64, device=self.device),
+            self.cache.empty_view(n, view_tokens),
+            torch.empty((n,), dtype=torch.int32, device=self.device)))
+        with record_function("paged.gather"):
+            tok_in.copy_(torch.from_numpy(tokens)[:, None])
+            pos_in.copy_(torch.from_numpy(positions))
+            self.cache.gather(slot_ids.tolist(), view_tokens, out=view)
+        with record_function("paged.decode_step"):
+            logits, view = self._decode(view_tokens)
+        with record_function("paged.commit"):
+            self.cache.commit_decode(view, list(range(len(live))),
+                                     [i for i, _ in live],
+                                     [s.pos for _, s in live])
         self.stats.decode_shapes.add((n, view_tokens))
         self.stats.decode_ticks += 1
-        sampled = sample_tokens(logits, self.ecfg.temperature)
+        with record_function("paged.sample"):
+            sampled = sample_tokens(logits, self.ecfg.temperature)
         for r, (i, s) in enumerate(live):
             s.pos += 1                     # the input token is now cached
             self._accept(s, int(sampled[r]))

@@ -13,7 +13,12 @@ the last bits) and bitwise for relu; decode attention 1e-5 (the softmax
 reassociated over chunks or splits); the unfused pipeline's kernels
 (codes matmul, BP quantise on f32 and bf16, popcount) bitwise, and
 ``impl="unfused"`` bitwise equal to ``impl="fused"``.  A bf16 weight or
-input gives bitwise what its f32 cast gives.
+input gives bitwise what its f32 cast gives.  NaN and Inf inputs give NaN
+where the plain version does and its values elsewhere.  Popcount is exact
+at the periphery's widths (16, 64, 256) and 2048, in one launch, and on
+ragged rows at every misalignment.  The paged engine's entry points,
+replayed from CUDA graphs, give the eager calls' logits and caches
+bitwise, and the capturing engine the eager engine's tokens.
 """
 import numpy as np
 import pytest
@@ -43,12 +48,19 @@ def _randn(rng, shape, dev, scale=2.0):
                             .astype(np.float32)).to(dev)
 
 
+#: CUDA API calls that enqueue device work (a kernel, a memset, a copy)
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
 def _kernels_enqueued(fn) -> dict:
-    """Device activities (kernels and memsets) one call of ``fn``
-    enqueues, by name, from the profiler (after one call to warm up).
-    Each name's count is the larger of two profiled calls: a profiling
-    session can miss the first activities it should record."""
-    from torch.autograd import DeviceType
+    """Device work (kernels and memsets) one call of ``fn`` enqueues, by
+    the CUDA API call that enqueued it, from the profiler (after one call
+    to warm up); each count is the larger of two profiled calls.  The
+    launches are counted where the host makes them: the profiler's record
+    of the kernel itself is lost now and then (a session in which CUPTI
+    requests a new activity buffer keeps the launch and drops the
+    kernel), the record of the launch never."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -59,7 +71,7 @@ def _kernels_enqueued(fn) -> dict:
             fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if e.key in ENQUEUE_CALLS:
                 seen[e.key] = max(seen.get(e.key, 0), e.count)
     return seen
 
@@ -427,3 +439,260 @@ def test_decode_attention_wide_heads(s, cuda, rng):
     torch.testing.assert_close(tattn.bp8_decode_attention(*args),
                                tattn.bp8_decode_attention_ref(*args),
                                rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# NaN and Inf: the card gives NaN where the plain version (and the
+# reference) does, and the plain version's bits everywhere else
+# ---------------------------------------------------------------------------
+
+SPECIALS = {"nan": (float("nan"),), "inf": (float("inf"),),
+            "neg_inf": (-float("inf"),),
+            "nan_and_inf": (float("nan"), float("inf"))}
+
+
+def _with_special(x, special, at):
+    x = x.clone()
+    flat = x.view(-1)
+    for j, v in enumerate(SPECIALS[special]):
+        flat[(at + 3 * j) % flat.numel()] = v
+    return x
+
+
+def _assert_nan_and_bits_equal(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("special", list(SPECIALS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [7, 4097, 1 << 22])
+def test_absmax_nan_and_inf(size, dtype, special, cuda, rng):
+    """The special value first, in the middle and last, in an aligned
+    tensor and in an unaligned view (scalar head and tail)."""
+    base = _randn(rng, (size + 1,), cuda).to(dtype)
+    for x in (base[:size], base[1:]):
+        for at in (0, size // 2, size - 1):
+            t = _with_special(x, special, at)
+            for floor in (0.0, TINY):
+                got = tfused.absmax(t, floor)
+                want = tref.absmax_ref(t, floor)
+                _assert_nan_and_bits_equal(got, want)
+                assert bool(torch.isnan(got).all()) == special.startswith(
+                    "nan")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("special", list(SPECIALS))
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 640), (130, 100, 96)])
+def test_fused_matmul_nan_and_inf(m, k, n, special, cuda, rng):
+    x, y = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    for xs, ys in ((_with_special(x, special, 5), y),
+                   (x, _with_special(y, special, 5))):
+        for w in (ys, ys.to(torch.bfloat16)):
+            got = tops.oisma_matmul(xs, w)
+            _assert_nan_and_bits_equal(got, tref.fused_matmul_ref(xs, w))
+            assert bool(torch.isnan(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("special", list(SPECIALS))
+def test_fused_mlp_nan_and_inf_in_x(special, act, cuda, rng):
+    m, k, f = 4, 2560, 6912
+    x = _with_special(_randn(rng, (m, k), cuda), special, 11)
+    up, gate = (_randn(rng, (k, f), cuda, k ** -0.5).to(torch.bfloat16)
+                for _ in range(2))
+    got = tops.oisma_mlp(x, up, gate, act=act)
+    want = tref.fused_mlp_ref(x, up, gate, act)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,f", [(4, 2560, 6912), (130, 100, 96)])
+def test_fused_mlp_relu_keeps_a_nan_in_w_gate(m, k, f, wdtype, cuda, rng):
+    x = _randn(rng, (m, k), cuda)
+    up = _randn(rng, (k, f), cuda).to(wdtype)
+    gate = _with_special(_randn(rng, (k, f), cuda), "nan", 17).to(wdtype)
+    got = tops.oisma_mlp(x, up, gate, act="relu")
+    _assert_nan_and_bits_equal(got, tref.fused_mlp_ref(x, up, gate, "relu"))
+    assert bool(torch.isnan(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [48, 1024])
+def test_decode_attention_nan_in_q(s, cuda, rng):
+    """A NaN in one query head gives NaN in that head's output only, as
+    the plain version; every other value within 1e-5."""
+    b, kh, g, d = 3, 8, 4, 80
+    q = _randn(rng, (b, kh, g, d), cuda, 1.0) / d ** 0.5
+    q[1, 2, 3, 7] = float("nan")
+    kc, ks = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    vc, vs = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).repeat(b, 1)
+    pos[0, s // 2:] = -1
+    qp = torch.full((b,), s - 1, dtype=torch.int32, device=cuda)
+    args = (q, kc, ks, vc, vs, pos, qp, None)
+    got = tattn.bp8_decode_attention(*args)
+    want = tattn.bp8_decode_attention_ref(*args)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(want[1, 2, 3]).all())
+    ok = ~torch.isnan(want)
+    torch.testing.assert_close(got[ok], want[ok], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# popcount: the paper's periphery widths and ragged rows, in one launch
+# ---------------------------------------------------------------------------
+
+#: 8 MB tiles at the periphery's widths (16, 64, 256) and at 2048
+POPCOUNT_WIDTHS = [(524288, 16), (131072, 64), (32768, 256), (4096, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,c", POPCOUNT_WIDTHS)
+def test_popcount_widths_exact(r, c, cuda, rng):
+    bits = torch.from_numpy(rng.integers(0, 2, (r, c), dtype=np.int8)).to(
+        cuda)
+    for t in (bits, torch.from_numpy(rng.integers(
+            -128, 128, (r, c), dtype=np.int8)).to(cuda)):
+        for u in (t, t.to(torch.uint8), t > 0):
+            assert torch.equal(tbpm.popcount_accumulate(u),
+                               tref.popcount_accumulate_ref(u))
+    seen = _kernels_enqueued(lambda: tbpm.popcount_accumulate(bits))
+    assert sum(seen.values()) == 1, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 3, 15, 16, 17, 31, 33, 63, 100, 255, 257,
+                               511, 1000, 2047, 4100])
+def test_popcount_ragged_rows_every_misalignment(c, cuda, rng):
+    """Rows of every width class, the tile starting at every offset 0..15
+    from a 16-byte boundary (so rows start misaligned in every way)."""
+    r = 77
+    flat = torch.from_numpy(rng.integers(-128, 128, r * c + 16,
+                                         dtype=np.int8)).to(cuda)
+    for buf in (flat, flat.view(torch.uint8), flat > 0):
+        for off in range(16):
+            t = buf[off:off + r * c].view(r, c)
+            assert torch.equal(tbpm.popcount_accumulate(t),
+                               tref.popcount_accumulate_ref(t))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the paged engine's entry points
+# ---------------------------------------------------------------------------
+
+def _smoke(arch="h2o_danube_1p8b"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, smoke=True),
+                               matmul_mode="bp8_fused", kv_quant="bp8")
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _trees_equal(a, b):
+    from repro_torch.models.params import tree_leaves
+    return all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b"])
+def test_replayed_entry_points_bitwise_equal_eager(arch, cuda, rng):
+    """A prefill chunk and a decode step, replayed from their graphs, give
+    bitwise the eager call's logits and cache, and a second replay on new
+    inputs as well."""
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.graphs import GraphedEntry
+    cfg = _smoke(arch)
+    model = build(cfg)
+    params = init_params(model.schema(), seed=0, device=cuda)
+    pool = torch.cuda.graph_pool_handle()
+    prefill = GraphedEntry(lambda t, v, p0: model.prefill_chunk(
+        params, {"tokens": t}, v, p0), capture=True, pool=pool)
+    decode = GraphedEntry(lambda t, v, p: model.decode_step(params, t, v, p),
+                          capture=True, pool=pool)
+    cache = model.init_cache(1, 32, cuda)
+    tok, view, pos0 = prefill.inputs("p", lambda: (
+        torch.empty((1, 8), dtype=torch.int64, device=cuda), _clone(cache),
+        torch.empty((), dtype=torch.int64, device=cuda)))
+    for p0 in (0, 8):
+        t = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 8))).to(cuda)
+        eager_cache = _clone(cache)
+        want, eager_cache = model.prefill_chunk(params, {"tokens": t},
+                                                eager_cache, p0)
+        tok.copy_(t)
+        pos0.fill_(p0)
+        for leaf, src in zip(view["layers"].values(),
+                             cache["layers"].values()):
+            leaf.copy_(src)
+        got, got_cache = prefill("p")
+        assert torch.equal(got, want), (got - want).abs().max()
+        assert _trees_equal(got_cache, eager_cache)
+        cache = eager_cache
+    assert prefill.count == 1
+    rows = 4
+    full = {"layers": {k: v.expand(-1, rows, *v.shape[2:]).contiguous()
+                       for k, v in cache["layers"].items()}}
+    tok, view, pos = decode.inputs(32, lambda: (
+        torch.empty((rows, 1), dtype=torch.int64, device=cuda),
+        _clone(full), torch.empty((rows,), dtype=torch.int32, device=cuda)))
+    for step in range(2):
+        t = torch.from_numpy(rng.integers(2, cfg.vocab_size, (rows, 1))).to(
+            cuda)
+        p = torch.tensor([16 + step, 20, 16, 31], dtype=torch.int32,
+                         device=cuda)
+        want, eager_cache = model.decode_step(params, t, _clone(full), p)
+        tok.copy_(t)
+        pos.copy_(p)
+        for leaf, src in zip(view["layers"].values(),
+                             full["layers"].values()):
+            leaf.copy_(src)
+        got, got_cache = decode(32)
+        assert torch.equal(got, want), (got - want).abs().max()
+        assert _trees_equal(got_cache, eager_cache)
+    assert decode.count == 1
+
+
+@pytest.mark.gpu
+def test_captured_engine_tokens_equal_eager(cuda, rng):
+    """The engine's graphs emit the eager engine's tokens, capture each
+    shape once, and stay within the reference's bounds."""
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.paged_engine import (PagedEngineConfig,
+                                                PagedRequest,
+                                                PagedServeEngine)
+    cfg = _smoke()
+    model = build(cfg)
+    params = init_params(model.schema(), seed=0, device=cuda)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 13, 9, 30)]
+    ecfg = PagedEngineConfig(slots=2, block_size=8, num_blocks=32,
+                             max_prefill_tokens=8)
+    out = {}
+    for capture in (None, False):
+        eng = PagedServeEngine(model, params, cfg, ecfg, device=cuda,
+                               capture=capture)
+        reqs = [PagedRequest(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        out[capture] = eng.run(reqs)
+        counts, bounds = eng.compile_counts(), eng.compile_shape_bounds()
+        assert all(0 < counts[k] <= bounds[k] for k in bounds), counts
+        snap = eng.stats.snapshot()
+        assert counts == {"prefill_chunk": snap["prefill_shape_count"],
+                          "decode_step": snap["decode_shape_count"]}
+        assert (snap["capture_s"] > 0) == (capture is None)
+    assert out[None] == out[False]

@@ -42,6 +42,7 @@ ODD_SHAPES = [(130, 100, 96), (16, 128, 128), (1, 7, 5), (129, 257, 130)]
 # q heads 64, kv heads 16, d_ff 160): decode with 2 slots, prefill chunk 8
 PATH_SHAPES = [(2, 64, 64), (2, 64, 16), (2, 160, 64), (8, 64, 64),
                (8, 160, 64)]
+TINY = float(np.finfo(np.float32).tiny)
 
 
 def _real(rng, shape, scale=2.0):
@@ -112,6 +113,83 @@ def test_absmax_bitwise(shape, block, rng):
     got = tfused.absmax(torch.from_numpy(x))
     assert got.shape == (1, 1) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# NaN and Inf: the reference propagates NaN through every max (jnp.max,
+# jnp.maximum) and the relu; the plain versions must give NaN where it does
+# and its bits everywhere else
+# ---------------------------------------------------------------------------
+
+#: (name, value, flat indices it is written to)
+SPECIALS = [("nan", np.nan, [5]), ("inf", np.inf, [3]),
+            ("neg_inf", -np.inf, [7]), ("nan_and_inf", None, [5, 9])]
+
+
+def _with_special(x, special):
+    name, value, at = special
+    x = x.copy()
+    if value is None:                    # a NaN and an Inf in one input
+        x.flat[at[0]], x.flat[at[1]] = np.nan, np.inf
+    else:
+        x.flat[at] = value
+    return x
+
+
+def assert_nan_and_bits_equal(got, want):
+    """NaN exactly where the reference has NaN; every other value bitwise."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.int32),
+                                  want[ok].view(np.int32))
+
+
+@pytest.mark.parametrize("special", SPECIALS, ids=[s[0] for s in SPECIALS])
+@pytest.mark.parametrize("shape", [(256, 256), (8, 64)])
+def test_absmax_nan_and_inf_match_reference(shape, special, rng):
+    x = _with_special(_real(rng, shape), special)
+    want = jfused.absmax_pallas(jnp.asarray(x), block_m=8, block_n=64,
+                                interpret=True)
+    for floor in (0.0, TINY):
+        got = tfused.absmax(torch.from_numpy(x), floor)
+        assert_nan_and_bits_equal(
+            got.numpy(), np.maximum(_np(want), np.float32(floor)))
+    assert np.isnan(_np(want)).all() == (special[0] in ("nan", "nan_and_inf"))
+
+
+@pytest.mark.parametrize("special", SPECIALS, ids=[s[0] for s in SPECIALS])
+def test_fused_matmul_nan_and_inf_in_x_match_reference(special, rng):
+    x = _with_special(_real(rng, (16, 128)), special)
+    y = _real(rng, (128, 96))
+    want = jops.oisma_matmul(jnp.asarray(x), jnp.asarray(y), interpret=True)
+    got = tops.oisma_matmul(torch.from_numpy(x), torch.from_numpy(y))
+    assert_nan_and_bits_equal(got.numpy(), _np(want))
+    assert np.isnan(_np(want)).all()     # a non-finite scale reaches all
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("special", SPECIALS, ids=[s[0] for s in SPECIALS])
+def test_fused_mlp_nan_and_inf_in_x_match_reference(special, act, rng):
+    x = _with_special(_real(rng, (16, 128)), special)
+    up, gate = _real(rng, (128, 96)), _real(rng, (128, 96))
+    want = jops.oisma_mlp(jnp.asarray(x), jnp.asarray(up), jnp.asarray(gate),
+                          act=act, interpret=True)
+    got = tops.oisma_mlp(torch.from_numpy(x), torch.from_numpy(up),
+                         torch.from_numpy(gate), act=act)
+    assert_nan_and_bits_equal(got.numpy(), _np(want))
+
+
+def test_fused_mlp_relu_keeps_a_nan_in_w_gate(rng):
+    x, up = _real(rng, (16, 128)), _real(rng, (128, 96))
+    gate = _with_special(_real(rng, (128, 96)), SPECIALS[0])
+    want = jops.oisma_mlp(jnp.asarray(x), jnp.asarray(up), jnp.asarray(gate),
+                          act="relu", interpret=True)
+    got = tops.oisma_mlp(torch.from_numpy(x), torch.from_numpy(up),
+                         torch.from_numpy(gate), act="relu")
+    assert_nan_and_bits_equal(got.numpy(), _np(want))
+    assert np.isnan(_np(want)).all()
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +309,18 @@ def test_decode_attention_odd_chunks(rng):
     """S=48 under a requested chunk of 13: the reference picks chunk 6."""
     got, want = _attn_both(_attn_inputs(rng, s=48), 17, None, 13)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_decode_attention_nan_in_q_matches_reference(rng):
+    """A NaN in one query head: NaN in that head's output, as in the
+    reference; every other value within 1e-5."""
+    arrs = _attn_inputs(rng)
+    arrs[0][1, 0, 2, 3] = np.nan
+    got, want = _attn_both(arrs, None, None, 16)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want[1, 0, 2]).all() and np.isnan(want).sum() == 16
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

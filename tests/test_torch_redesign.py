@@ -21,6 +21,13 @@
   splits' softmax partials; ``bp8_decode_attention_split_ref`` is that
   schedule as tensor code, held within 1e-5 of the JAX kernel (interpret
   mode, as the reference's tests run it) and of the plain version.
+* The popcount kernel gives a row ``popcount_lanes(C)`` lanes of a warp
+  and a warp ``32 / lanes`` rows; each lane reads the row's unaligned head
+  and tail bytes and its aligned 16-byte words at a stride of ``lanes``,
+  ``kUnroll`` words at a time, and the row's lanes fold their sums by xor
+  shuffles.  The emulation of that schedule reads every byte exactly once
+  and gives ``popcount_accumulate_ref``'s sums at every width 1..4096 and
+  every misalignment of the tile's start.
 """
 import math
 
@@ -256,3 +263,79 @@ def test_split_tokens_gives_live_splits_that_fit(s, rows, g, d):
     assert split == 32 or tattn._split_smem(g, d, split) <= tattn.SPLIT_SMEM
     if (s, rows) == (1024, 32):
         assert (split, n * rows) == (64, 512)        # fills 132 SMs ~4x
+
+
+# ---------------------------------------------------------------------------
+# popcount: the lane-to-row schedule
+# ---------------------------------------------------------------------------
+
+POPCOUNT_UNROLL = 4              # csrc/popcount.cu kUnroll
+
+
+def _lane_reads(c, misalign, lanes):
+    """Byte indices each of a row's ``lanes`` lanes reads, as the kernel's
+    loops take them: (lanes, n) arrays of indices and of validity."""
+    sub = np.arange(lanes)[:, None]
+    head = min(c, (16 - misalign) & 15)
+    nvec = (c - head) >> 4
+    hidx = sub + lanes * np.arange(-(-16 // lanes))
+    hok = hidx < head
+    step = POPCOUNT_UNROLL * lanes
+    i0 = sub + step * np.arange(max(-(-nvec // step), 1))        # (L, n0)
+    vi = i0[:, :, None] + lanes * np.arange(POPCOUNT_UNROLL)     # (L, n0, U)
+    vok = (i0[:, :, None] < nvec) & (vi < nvec)
+    vidx = head + 16 * vi[..., None] + np.arange(16)             # (.., 16)
+    vok = np.broadcast_to(vok[..., None], vidx.shape)
+    tidx = head + 16 * nvec + sub + lanes * np.arange(-(-16 // lanes))
+    tok = tidx < c
+    idx = np.concatenate([hidx, vidx.reshape(lanes, -1), tidx], axis=1)
+    ok = np.concatenate([hok, vok.reshape(lanes, -1), tok], axis=1)
+    return idx, ok
+
+
+def _popcount_warp_emulated(rows, misaligns, lanes):
+    """One warp: ``32 / lanes`` rows (byte arrays), lane sums, then the
+    segmented xor butterfly; returns each row's sum from its first lane
+    and how many times each byte of each row was read."""
+    acc = np.zeros(32, np.int64)
+    reads = []
+    for slot, (row, mis) in enumerate(zip(rows, misaligns)):
+        idx, ok = _lane_reads(row.size, mis, lanes)
+        cnt = np.zeros(row.size, np.int64)
+        np.add.at(cnt, idx[ok], 1)
+        reads.append(cnt)
+        vals = np.where(ok, row[np.where(ok, idx, 0)].astype(np.int64), 0)
+        acc[slot * lanes:(slot + 1) * lanes] = vals.sum(axis=1)
+    o = lanes // 2
+    while o:
+        acc = acc + acc[np.arange(32) ^ o]
+        o //= 2
+    return acc[::lanes][:len(rows)], reads
+
+
+@pytest.mark.parametrize("c0", range(1, 4097, 512))
+def test_popcount_schedule_reads_each_byte_once_and_sums(c0):
+    """Widths c0..c0+511, a warp of rows each, the tile starting at every
+    misalignment 0..15 (row r then starts at (m + r * C) % 16)."""
+    rng = np.random.default_rng(c0)
+    for c in range(c0, c0 + 512):
+        lanes = tbpm.popcount_lanes(c)
+        assert lanes in (1, 2, 4, 8, 16, 32)
+        n = 32 // lanes
+        tile = rng.integers(-128, 128, (n, c), dtype=np.int8)
+        want = tref.popcount_accumulate_ref(torch.from_numpy(tile)).numpy()
+        for m in range(16):
+            got, reads = _popcount_warp_emulated(
+                tile, [(m + r * c) % 16 for r in range(n)], lanes)
+            assert all((r == 1).all() for r in reads), (c, m)
+            np.testing.assert_array_equal(got, want, err_msg=f"C {c} m {m}")
+
+
+@pytest.mark.parametrize("c,lanes", [(1, 1), (16, 1), (31, 1), (32, 2),
+                                     (64, 4), (256, 16), (511, 16),
+                                     (512, 32), (2048, 32), (4096, 32)])
+def test_popcount_lanes_one_load_a_lane(c, lanes):
+    """A row of C bytes gets C / 16 lanes (one 16-byte load each), as a
+    power of two in 1..32: 16, 64 and 256 columns (the paper's adder
+    trees) take 1, 4 and 16 lanes, 2048 a whole warp."""
+    assert tbpm.popcount_lanes(c) == lanes
