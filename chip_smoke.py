@@ -77,6 +77,23 @@ prints its wall time):
    ``matmul_mode="bp8"`` serves 2 requests x 8 new tokens twice on one
    capturing engine; tokens/s of the second run, peak device memory, and
    a profile of one short request.
+7. Sampling, the lock-step engine, obs and traffic, on phase 4's model:
+   threefry keys, random bits (both layouts) and uniforms on the card
+   bitwise the CPU's, the tokens of (4, 32000) logits equal at T 0.5, 0.8
+   and 1.0, the gumbel noise's largest difference in ulps, and the host
+   time of ``sample_tokens`` at T 0.8 against T 0; 6 requests (prompts
+   of 32-200 tokens, 16 new tokens, seed 7, T 0.8) through the capturing
+   paged engine and through the lock-step engine serving each alone
+   (max_len 512, one decode graph, its launches counted): tokens/s of
+   both, the lock-step decode replayed bitwise equal to eager, and at 2
+   layers the card's tokens equal to the CPU's on both engines; a
+   captured profile at T 0.8 (``paged.sample``'s share); ``run_traffic``
+   (32 requests, offered load 0.2) on a capturing paged engine with a
+   registry, a tracer and a watchdog: the record, tokens/s, the watchdog
+   within ``compile_shape_bounds()``, the ``serve.*`` totals, the Chrome
+   trace written to ``chiprun_out/serve_trace.json``, and the
+   ``kernels.*`` counters (none on the capturing engine; an eager
+   engine's).
 
 The last lines are the kernels JSON (each kernel with the path its
 launches come from), the card line, and ``{"ok": true, "device":
@@ -854,12 +871,14 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
               f"{v['bits_sum_kernel_ms']:.4f}" for k, v in widths.items()))
 
 
-def make_engine(cfg, params, device, capture=None):
+def make_engine(cfg, params, device, capture=None, temperature=0.0,
+                seed=0):
     from repro_torch.models import build
     from repro_torch.serve.paged_engine import (PagedEngineConfig,
                                                 PagedServeEngine)
     ecfg = PagedEngineConfig(slots=4, block_size=16, num_blocks=96,
-                             max_prefill_tokens=64, eos_id=-1)
+                             max_prefill_tokens=64, eos_id=-1,
+                             temperature=temperature, seed=seed)
     return PagedServeEngine(build(cfg), params, cfg, ecfg, device=device,
                             capture=capture)
 
@@ -1091,6 +1110,310 @@ def phase_unfused(torch, timer, build, dev="cuda"):
           f"{EARLIER_MS['qwen2_72b_fused_ms']})")
     return launches, {"wall_s": wall, "launches": launches,
                       "layer_ms": layer, f"qwen2_72b_{qs}_ms": qwen}
+
+
+def f32_ulps(torch, got, want) -> float:
+    """Largest |got - want| in ulps of max(|want|, 1), in f32."""
+    scale = torch.clamp(want.abs(), min=1.0)
+    ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
+    return float(((got.double() - want.double()).abs() / ulp.double()).max())
+
+
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sampling_on_card(torch, dev="cuda"):
+    """Threefry keys, random bits (both layouts) and uniforms on the card
+    bitwise the CPU's, for 4 seeds x rids 0-5 x steps 0-7 at V 32000; the
+    gumbel noise's largest difference in ulps (of max(|g|, 1)); tokens of
+    (4, 32000) logits equal at T 0.5, 0.8 and 1.0, a dead row among them;
+    and the host time of one ``sample_tokens`` call of 4 live rows (the
+    work of ``paged.sample`` in a decode tick) at T 0.8 and at T 0."""
+    import numpy as np
+    from repro_torch.serve import sampling as S
+    vocab = 32000
+    rows = [(rid, step) for rid in range(6) for step in range(8)]
+    ulps = 0.0
+    for seed in range(4):
+        keys = S.row_keys(seed, rows, "cpu")
+        if not torch.equal(S.row_keys(seed, rows, dev).cpu(), keys):
+            fail(f"seed {seed}: the card's threefry keys differ")
+        for part in (True, False):
+            bits = S.random_bits(keys, vocab, part)
+            cbits = S.random_bits(keys.to(dev), vocab, part)
+            if not torch.equal(cbits.cpu(), bits):
+                fail(f"seed {seed}, partitionable={part}: random bits differ")
+            u, cu = S.uniform(bits), S.uniform(cbits).cpu()
+            if not torch.equal(cu.view(torch.int32), u.view(torch.int32)):
+                fail(f"seed {seed}, partitionable={part}: uniforms differ")
+            ulps = max(ulps, f32_ulps(torch, S.gumbel(cu.to(dev)).cpu(),
+                                      S.gumbel(u)))
+    rng = np.random.default_rng(17)
+    logits = torch.from_numpy((rng.normal(size=(4, vocab)) * 3)
+                              .astype(np.float32))
+    clogits = logits.to(dev)
+    draws = 0
+    for seed in range(4):
+        for step in range(4):
+            for batch in ([(0, step), (1, step), (2, step), (3, step)],
+                          [(4, step), None, (5, step), (0, step + 4)]):
+                for t in (0.5, 0.8, 1.0):
+                    kw = dict(seed=seed, temperature=t)
+                    got = S.sample_tokens(clogits, batch, **kw)
+                    want = S.sample_tokens(logits, batch, **kw)
+                    if not np.array_equal(got, want):
+                        fail(f"sampled tokens differ, seed {seed}, rows "
+                             f"{batch}, T {t}: card {got}, cpu {want}")
+                    draws += 1
+    live = [(r, 3) for r in range(4)]
+    host_ms = {}
+    for t in (0.8, 0.0):
+        S.sample_tokens(clogits, live, seed=0, temperature=t)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            S.sample_tokens(clogits, live, seed=0, temperature=t)
+        host_ms[t] = (time.perf_counter() - t0) / 50 * 1e3
+    print(f"sampling on the card: keys, bits (both layouts) and uniforms "
+          f"bitwise the CPU's (4 seeds x 48 (rid, step) x 32000); gumbel "
+          f"noise within {ulps:.3f} ulp of max(|g|, 1); {draws} batches of "
+          f"(4, 32000) sampled as on the CPU; sample_tokens of 4 live rows "
+          f"(paged.sample's work a decode tick): T 0.8 {host_ms[0.8]:.3f} ms,"
+          f" T 0 {host_ms[0.0]:.3f} ms (host clock, the tokens copied out)")
+    return {"gumbel_max_ulps": ulps, "token_batches": draws,
+            "sample_ms_t08": host_ms[0.8], "sample_ms_t0": host_ms[0.0]}
+
+
+def lockstep_engine(cfg, params, device, slots=1, temperature=0.8,
+                    capture=None):
+    from repro_torch.models import build as build_model
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    return ServeEngine(build_model(cfg), params, cfg, EngineConfig(
+        slots=slots, max_len=512, eos_id=-1, temperature=temperature),
+        device=device, capture=capture)
+
+
+def serve_lockstep(torch, engine, prompts, max_new, seed, alone):
+    """Serve ``prompts`` on the lock-step ``engine`` (each alone, or all in
+    one call); returns (tokens by request, seconds)."""
+    from repro_torch.serve.engine import Request
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    sync(torch, engine.device)
+    t0 = time.perf_counter()
+    out = {}
+    for batch in ([[r] for r in reqs] if alone else [reqs]):
+        out.update(engine.run(batch, seed=seed))
+    sync(torch, engine.device)
+    return out, time.perf_counter() - t0
+
+
+def lockstep_replay_vs_eager(torch, engine, params, prompt, rng):
+    """Two decode steps of the lock-step engine's captured graph (one row,
+    the contiguous 512-token cache, one scalar position) against eager
+    ``decode_step`` calls on the same inputs: logits and caches bitwise."""
+    with torch.inference_mode():        # the engine's buffers are made so
+        _replay_vs_eager(torch, engine, params, prompt, rng)
+    print("lock-step decode (1 row, 512-token contiguous cache, scalar "
+          "position): 2 replayed steps bitwise equal to eager (logits and "
+          "cache)")
+
+
+def _replay_vs_eager(torch, engine, params, prompt, rng):
+    from repro_torch.models.params import tree_leaves
+    model = engine.model
+    tok, cache, pos = engine._decode_inputs(1)
+    dev = engine.device
+    _, fresh = model.prefill(params, {"tokens": torch.as_tensor(
+        prompt[None].astype("int64"), device=dev)}, 512)
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    for step in range(2):
+        t = torch.as_tensor(rng.integers(3, model.cfg.vocab_size, (1, 1)),
+                            device=dev)
+        p = torch.tensor(len(prompt) + step, dtype=torch.int32, device=dev)
+        want, want_cache = model.decode_step(params, t, clone(fresh), p)
+        tok.copy_(t)
+        pos.copy_(p)
+        for (_, leaf), (_, src) in zip(tree_leaves(cache),
+                                       tree_leaves(fresh)):
+            leaf.copy_(src)
+        got, got_cache = engine._decode((1, 512))
+        if not torch.equal(got, want):
+            fail(f"lock-step decode replayed: logits differ from eager by "
+                 f"{(got - want).abs().max().item()}")
+        if not all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(tree_leaves(got_cache), tree_leaves(want_cache))):
+            fail("lock-step decode replayed: the cache differs from eager")
+        fresh = want_cache
+
+
+def engines_at_temperature(torch, build, full, params, rng, dev="cuda"):
+    """6 requests (prompts of 32-200 tokens, 16 new tokens, seed 7, T 0.8)
+    on the capturing paged engine (slots 4) and on the lock-step engine,
+    each request served alone (slots 1, max_len 512): tokens/s of both
+    (second runs), the lock-step engine's graph count and launches; the
+    lock-step replay bitwise equal to eager; and at 2 layers, the card's
+    tokens equal the CPU's for requests 0 and 2 (32 and 40 tokens) on the
+    paged engine and for request 0 served alone on the lock-step engine,
+    4 new tokens each (the CPU's plain path costs seconds a call)."""
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_map
+    lens = [32, 200, 40] + [int(n) for n in rng.integers(32, 201, 3)]
+    prompts = [rng.integers(3, full.vocab_size, n).astype("int32")
+               for n in lens]
+    paged = make_engine(full, params, dev, temperature=0.8, seed=7)
+    serve(torch, full, params, prompts, 16, dev, paged)
+    paged_out, paged_s, _ = serve(torch, full, params, prompts, 16, dev,
+                                  paged)
+    paged.ecfg.temperature = 0.0        # the same graphs and requests, greedy
+    _, greedy_s, _ = serve(torch, full, params, prompts, 16, dev, paged)
+    lock = lockstep_engine(full, params, dev)
+    serve_lockstep(torch, lock, prompts, 16, 7, alone=True)
+    build.reset_launches()
+    lock_out, lock_s = serve_lockstep(torch, lock, prompts, 16, 7,
+                                      alone=True)
+    lock_launches = dict(build.LAUNCHES)
+    counts = lock.compile_counts()
+    n_tok = sum(len(v) for v in lock_out.values())
+    same = sum(paged_out[i] == lock_out[i] for i in lock_out)
+    for out in (paged_out, lock_out):
+        for rid, toks in out.items():
+            if len(toks) != 16 or not all(0 <= t < full.vocab_size
+                                          for t in toks):
+                fail(f"T 0.8 request {rid}: bad output {toks}")
+    if counts != {"decode_step": 1}:
+        fail(f"lock-step engine served alone: {counts} decode graphs, not 1")
+    for name in ("absmax", "fused_matmul", "fused_mlp", "decode_attention"):
+        if dev == "cuda" and lock_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the lock-step path")
+    print(f"T 0.8, seed 7, {len(prompts)} requests (prompts {lens}), "
+          f"{n_tok} tokens: paged (captured, slots 4) {paged_s:.3f}s = "
+          f"{n_tok / paged_s:.2f} tok/s (the same at T 0: {greedy_s:.3f}s = "
+          f"{n_tok / greedy_s:.2f} tok/s); lock-step served alone (captured, "
+          f"slots 1, max_len 512) {lock_s:.3f}s = {n_tok / lock_s:.2f} "
+          f"tok/s, decode graphs {counts}, launches {lock_launches}")
+    print(f"  paged and lock-step streams equal for {same} of "
+          f"{len(prompts)} requests (not required in bp8_fused: a matmul "
+          f"call scales its activation by one absmax, so a stream depends "
+          f"on its batch and prefill chunks, in the reference too)")
+    lockstep_replay_vs_eager(torch, lock, params, prompts[1], rng)
+    del paged, lock
+    # the card against the CPU at 2 layers, both engines
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    p_cpu = init_params(build_model(cfg2).schema(), seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    two = [prompts[0], prompts[2]]
+    t0 = time.perf_counter()
+    outs = {}
+    for side, d, p in (("card", dev, p_gpu), ("cpu", "cpu", p_cpu)):
+        eng = make_engine(cfg2, p, d, temperature=0.8, seed=7)
+        outs[side, "paged"] = serve(torch, cfg2, p, two, 4, d, eng)[0]
+        outs[side, "lock"] = serve_lockstep(
+            torch, lockstep_engine(cfg2, p, d), two[:1], 4, 7,
+            alone=True)[0]
+    cpu_s = time.perf_counter() - t0
+    print(f"  card vs cpu at T 0.8 (2 layers, full width, prompts "
+          f"{[len(p) for p in two]}, 4 tokens): paged card "
+          f"{outs['card', 'paged']}, cpu {outs['cpu', 'paged']}; lock-step "
+          f"card {outs['card', 'lock']}, cpu {outs['cpu', 'lock']} "
+          f"({cpu_s:.1f}s)")
+    for kind in ("paged", "lock"):
+        if outs["card", kind] != outs["cpu", kind]:
+            fail(f"T 0.8: the {kind} engine's card and CPU tokens differ")
+    return {"prompt_lens": lens, "new_tokens": n_tok,
+            "paged_seconds": paged_s, "paged_tokens_per_s": n_tok / paged_s,
+            "paged_t0_seconds": greedy_s,
+            "paged_t0_tokens_per_s": n_tok / greedy_s,
+            "lockstep_seconds": lock_s,
+            "lockstep_tokens_per_s": n_tok / lock_s,
+            "lockstep_graphs": counts, "lockstep_launches": lock_launches,
+            "streams_equal_across_engines": same, "card_vs_cpu_s": cpu_s}
+
+
+def obs_and_traffic(torch, full, params, out_dir, dev="cuda"):
+    """``run_traffic`` (32 requests, offered load 0.2) on a capturing paged
+    engine at full width with a registry, a tracer and a watchdog: the
+    step-based record, wall seconds and tokens/s, the watchdog's report
+    (within ``compile_shape_bounds()``), the ``serve.*`` totals, the
+    Chrome trace (``chiprun_out/serve_trace.json``) and its spans; the
+    ``kernels.*`` counters of that run (0: warm-ups, captures and replays
+    record nothing) and of 2 requests on an eager engine."""
+    import numpy as np
+    from repro_torch.kernels import metrics as kmetrics
+    from repro_torch.models import build as build_model
+    from repro_torch.obs import (MetricsRegistry, Observability,
+                                 RetraceWatchdog, Tracer)
+    from repro_torch.serve.paged_engine import (PagedEngineConfig,
+                                                PagedServeEngine)
+    from repro_torch.serve.traffic import TrafficConfig, run_traffic
+    reg = MetricsRegistry()
+    obs = Observability(reg, Tracer(), RetraceWatchdog(reg))
+    ecfg = PagedEngineConfig(slots=4, block_size=8, num_blocks=64,
+                             max_prefill_tokens=16)
+    engine = PagedServeEngine(build_model(full), params, full, ecfg,
+                              device=dev, obs=obs)
+    tcfg = TrafficConfig(num_requests=32, offered_load=0.2,
+                         vocab=full.vocab_size)
+    kreg = MetricsRegistry()
+    prev = kmetrics.set_registry(kreg)
+    try:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        record = run_traffic(engine, tcfg)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        captured_kernels = kreg.snapshot()
+        kmetrics.set_registry(MetricsRegistry())
+        serve(torch, full, params, [p.astype("int32") for p in
+              (np.arange(3, 40), np.arange(5, 21))], 4, dev,
+              make_engine(full, params, dev, capture=False))
+        eager_kernels = kmetrics.get_registry().snapshot()
+    finally:
+        kmetrics.set_registry(prev)
+    report = obs.watchdog.report()
+    bounds = engine.compile_shape_bounds()
+    obs.watchdog.assert_ok()
+    if any(r["compiled"] > bounds[k] for k, r in report.items()):
+        fail(f"watchdog {report} over the bounds {bounds}")
+    serve_totals = {r["name"]: r.get("value", r.get("count"))
+                    for r in reg.snapshot() if r["name"].startswith("serve.")}
+    trace_path = out_dir / "serve_trace.json"
+    obs.tracer.export(str(trace_path))
+    spans = sum(e.ph == "X" for e in obs.tracer.events)
+    if record["completed"] != tcfg.num_requests or obs.tracer.open_spans():
+        fail(f"traffic run: {record['completed']} of {tcfg.num_requests} "
+             f"completed, {obs.tracer.open_spans()} spans open")
+    if engine.capture and any(r["name"] == "kernels.calls"
+                              for r in captured_kernels):
+        fail(f"kernels.* recorded on the capturing engine: "
+             f"{captured_kernels}")
+    eager_calls = {r["labels"]["kernel"]: r["value"] for r in eager_kernels
+                   if r["name"] == "kernels.calls"}
+    if not eager_calls.get("fused_matmul") or not eager_calls.get(
+            "fused_mlp"):
+        fail(f"kernels.calls on the eager engine: {eager_kernels}")
+    capture_s = engine.stats.snapshot()["capture_s"]
+    print(f"traffic (32 requests, offered load 0.2, capturing paged "
+          f"engine, slots 4, block 8, chunk 16): {record}; wall "
+          f"{wall:.3f}s = {record['output_tokens'] / wall:.2f} tok/s, of "
+          f"which warm-ups and captures {capture_s:.3f}s")
+    print(f"  watchdog {report} (bounds {bounds}); serve.* {serve_totals}")
+    print(f"  trace: {len(obs.tracer.events)} events, {spans} spans -> "
+          f"{out_dir.name}/{trace_path.name}; kernels.* on the capturing "
+          f"engine {captured_kernels}; kernels.calls on an eager engine "
+          f"(2 requests x 4 tokens) {eager_calls}")
+    return {"record": record, "wall_s": wall, "capture_s": capture_s,
+            "tokens_per_s": record["output_tokens"] / wall,
+            "watchdog": report, "bounds": bounds, "serve": serve_totals,
+            "trace_events": len(obs.tracer.events), "spans": spans,
+            "kernels_captured": captured_kernels,
+            "kernels_eager_calls": eager_calls}
 
 
 class Phase:
@@ -1412,6 +1735,28 @@ def main() -> None:
                                        prompts[:1], 16, 2)}
         del engine
 
+    # ---- phase 7: sampling, the lock-step engine, obs and traffic ----
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with Phase("7 sampling, lock-step engine, obs, traffic", report):
+        p7 = {"sampling": sampling_on_card(torch)}
+        p7["engines_t08"] = engines_at_temperature(torch, build, full,
+                                                   params, rng)
+        engine = make_engine(full, params, "cuda", temperature=0.8, seed=7)
+        p7["profile_t08"] = profile_serving(torch, engine, full, params,
+                                            prompts[:4])
+        del engine
+        p7["traffic"] = obs_and_traffic(torch, full, params, out_dir)
+        for what, prof in (("T 0", report["profile"]),
+                           ("T 0.8", p7["profile_t08"])):
+            r = prof["host_ranges"].get("paged.sample")
+            if r is None:
+                fail(f"no paged.sample range in the captured profile, {what}")
+            print(f"paged.sample, captured, {what}: {r['ms'] / r['calls']:.3f}"
+                  f" ms a call ({r['calls']} calls), {r['share_of_wall']:.3f} "
+                  f"of the run's wall")
+        report["phase7"] = p7
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches}
     kernels = []
     for name in SOURCES:
@@ -1428,8 +1773,6 @@ def main() -> None:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r["library_ms"]})
     report["kernels"] = kernels
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -21,9 +21,16 @@ nothing to the integer accumulation, so the results equal the
 reference's, which pads to its block grid.  A weight encoded once by
 ``prepare_bp_weight`` (int8 codes plus its scale) feeds the fused kernel
 as ``y``.
+
+``oisma_matmul(impl="fused")`` and ``oisma_mlp`` count each call they
+make eagerly in ``kernels.metrics`` (the reference's ``kernels.*``
+series), with the analytic traffic of ``kernels.traffic`` at the Hopper
+kernels' tiles; a call made while a CUDA graph is warmed up or captured
+is not counted, and a replay calls no op.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +38,8 @@ import torch
 from repro_torch.core.quantize import quantize_bp
 from repro_torch.kernels import bp_matmul as _k
 from repro_torch.kernels import fused as _f
+from repro_torch.kernels import metrics as _metrics
+from repro_torch.kernels import traffic as _traffic
 from repro_torch.kernels.ref import to_codes
 
 _TINY = float(torch.finfo(torch.float32).tiny)
@@ -74,6 +83,32 @@ def oisma_matmul_unfused(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return acc * ((sx * sy) * 0.1)
 
 
+@functools.lru_cache(maxsize=1024)
+def _traffic_counts(kernel: str, m: int, k: int, n: int,
+                    coded: bool) -> Tuple[int, int]:
+    """(elements padded to the tiles, bytes saved against the unfused
+    pipeline) of a fused call at the Hopper kernels' tiles."""
+    tiles = _traffic.hopper_tiles(m)
+    if kernel == "fused_matmul":
+        fused = _traffic.matmul_traffic_fused(m, k, n, weights_coded=coded,
+                                              **tiles)
+        unfused = _traffic.matmul_traffic_unfused(m, k, n, **tiles)
+    else:
+        fused = _traffic.mlp_traffic_fused(m, k, n, weights_coded=coded,
+                                           **_traffic.hopper_tiles(m, 2))
+        unfused = _traffic.mlp_traffic_unfused(m, k, n, **tiles)
+    return fused["padded_elements"], unfused["total"] - fused["total"]
+
+
+def _record(kernel: str, x: torch.Tensor, k: int, n: int,
+            coded: bool = False) -> None:
+    if not _metrics.recording() or (
+            x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return  # a graph's warm-up or capture: counted at eager entry only
+    padded, saved = _traffic_counts(kernel, x.shape[0], k, n, coded)
+    _metrics.record_call(kernel, padded_elements=padded, bytes_saved=saved)
+
+
 def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
                  y_scale: Optional[torch.Tensor] = None,
                  impl: str = "fused") -> torch.Tensor:
@@ -91,6 +126,7 @@ def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
         return oisma_matmul_unfused(x, y)
     if impl != "fused":
         raise ValueError(f"unknown impl {impl!r}")
+    _record("fused_matmul", x, y.shape[0], y.shape[1], y.dtype == torch.int8)
     x = x.to(torch.float32).contiguous()
     if y.dtype == torch.int8:
         if y_scale is None:
@@ -113,6 +149,7 @@ def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
     if k != w_up.shape[0] or w_gate.shape != w_up.shape:
         raise ValueError(f"mlp shapes: {tuple(x.shape)}, "
                          f"{tuple(w_up.shape)}, {tuple(w_gate.shape)}")
+    _record("fused_mlp", x, k, w_up.shape[1])
     x = x.to(torch.float32).contiguous()
     up, gate = _weight(w_up), _weight(w_gate)
     return _f.fused_mlp(x, up, gate, _scale(x), _scale(up), _scale(gate),

@@ -34,6 +34,12 @@ safe.
 replay launches the kernels that its capture recorded without calling
 the wrappers, so each replay adds the counts its capture recorded, and
 the capture itself, which runs nothing, adds none.
+
+``_cache_size()`` is ``count`` under the name that
+``obs.RetraceWatchdog`` reads, so the watchdog's ``jit_compiled_shapes``
+series counts captured graphs on the card.  The warm-up and the capture
+record nothing in ``kernels.metrics`` (as the reference's trace under
+jit records nothing), and a replay calls no op.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from typing import Any, Callable, Dict, Hashable, Optional
 
 import torch
 
+from repro_torch.kernels import metrics
 from repro_torch.kernels.build import LAUNCHES
 
 
@@ -71,6 +78,11 @@ class GraphedEntry:
             return sum(s.graph is not None for s in self._shapes.values())
         return len(self._shapes)
 
+    def _cache_size(self) -> int:
+        """``count``, under the name ``obs.RetraceWatchdog`` reads (a
+        jitted function's, in the reference)."""
+        return self.count
+
     def inputs(self, key: Hashable, make: Callable[[], tuple]) -> tuple:
         shape = self._shapes.get(key)
         if shape is None:
@@ -89,11 +101,12 @@ class GraphedEntry:
 
     def _capture(self, shape: _Shape) -> None:
         t0 = time.perf_counter()
-        self.fn(*shape.inputs)           # warm-up, eager
-        before = collections.Counter(LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            shape.outputs = self.fn(*shape.inputs)
+        with metrics.paused():           # the counterpart of a jit trace
+            self.fn(*shape.inputs)       # warm-up, eager
+            before = collections.Counter(LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                shape.outputs = self.fn(*shape.inputs)
         shape.launches = dict(collections.Counter(LAUNCHES) - before)
         LAUNCHES.clear()                 # the capture itself ran nothing
         LAUNCHES.update(before)

@@ -26,13 +26,24 @@ captured on first use and their count stays within
 eagerly (the counterpart of ``jax.disable_jit()``); on the CPU nothing is
 captured.
 
+Sampling is counter-based (``sampling.py``): greedy at temperature 0,
+else keyed on ``(seed, rid, step)`` as the reference's, bit for bit.
+
 Time is counted in engine steps (one ``step()`` = one unit); each request
 keeps its lifecycle record (arrival, admission, first token, finish).
 The host phases of a step run under ``torch.profiler.record_function``
 ranges named ``paged.*`` (schedule, gather, the two entry points, commit,
-sample), so a profile shows where the host spends a step.  The
-reference's observability hooks (tracer spans, registry series, retrace
-watchdog) come with the observability slice.
+sample), so a profile shows where the host spends a step.
+
+Observability: pass a ``repro_torch.obs.Observability`` to get the
+reference's hooks under the reference's names: spans per engine step,
+prefill chunk (lane ``1 + slot``) and decode tick on the tracer, the
+``submit`` / ``admit`` / ``retire`` instants and the ``blocks_in_use``
+trace counter; the ``serve.*`` counters, gauges and histograms on the
+registry; and the watchdog around both entry points, bounded by
+``compile_shape_bounds()``.  Spans time host work: around a replay they
+measure its launch, as the reference's measure a jitted call's dispatch.
+Without ``obs`` the engine keeps only its ``EngineStats``.
 """
 from __future__ import annotations
 
@@ -47,7 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.graphs import GraphedEntry
 from repro_torch.serve.paged_cache import PagedCache
-from repro_torch.serve.sampling import check_temperature, sample_tokens
+from repro_torch.serve.sampling import sample_row, sample_tokens
 from repro_torch.serve.scheduler import PriorityScheduler
 
 
@@ -73,7 +84,8 @@ class PagedEngineConfig:
     num_blocks: int = 64                # physical pool incl. null block
     max_prefill_tokens: int = 16        # per-slot chunk budget per step (2^k)
     eos_id: int = 1
-    temperature: float = 0.0            # 0 = greedy (the only mode so far)
+    temperature: float = 0.0            # 0 = greedy
+    seed: int = 0                       # sampling seed (counter-based)
     max_steps: int = 100_000            # drain-loop safety valve
 
 
@@ -140,15 +152,15 @@ class _Slot:
 class PagedServeEngine:
     """model: a ``DecoderModel``; ``params`` must live on ``device`` and,
     once a graph is captured, must not be replaced.  ``capture``: run the
-    entry points as CUDA graphs (``None``: on CUDA)."""
+    entry points as CUDA graphs (``None``: on CUDA).  ``obs``: an optional
+    ``repro_torch.obs.Observability``."""
 
     @torch.inference_mode()
     def __init__(self, model, params, cfg: ModelConfig,
                  ecfg: PagedEngineConfig, device="cuda",
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, obs=None):
         if ecfg.max_prefill_tokens & (ecfg.max_prefill_tokens - 1):
             raise ValueError("max_prefill_tokens must be a power of two")
-        check_temperature(ecfg.temperature)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -173,6 +185,18 @@ class PagedServeEngine:
             lambda tokens, view, pos0: model.prefill_chunk(
                 self.params, {"tokens": tokens}, view, pos0),
             capture=capture, pool=pool)
+        # what a tick calls: the entries, or the watchdog's wrappers of them
+        self._run_decode, self._run_prefill = self._decode, self._prefill
+        self.obs = obs
+        self._tracer = obs.tracer if obs is not None else None
+        self._registry = obs.registry if obs is not None else None
+        if obs is not None and obs.watchdog is not None:
+            limits = self.compile_shape_bounds()
+            self._run_prefill = obs.watchdog.watch(
+                self._prefill, "prefill_chunk",
+                limit=limits["prefill_chunk"])
+            self._run_decode = obs.watchdog.watch(
+                self._decode, "decode_step", limit=limits["decode_step"])
         self.scheduler = PriorityScheduler(ecfg.num_blocks - 1,
                                            ecfg.block_size)
         self._slots: List[Optional[_Slot]] = [None] * ecfg.slots
@@ -213,11 +237,20 @@ class PagedServeEngine:
         req.arrival_step = self.step_count
         if not self.scheduler.submit(req):
             self.stats.rejected += 1
+            if self._registry is not None:
+                self._registry.counter("serve.rejected_requests")
             raise ValueError(
                 f"request {req.rid}: prompt {len(req.prompt)} + max_new "
                 f"{req.max_new_tokens} exceeds the cache pool "
                 f"({self.ecfg.num_blocks - 1} blocks of "
                 f"{self.ecfg.block_size})")
+        if self._registry is not None:
+            self._registry.counter("serve.submitted_requests")
+        if self._tracer is not None:
+            self._tracer.instant("submit", rid=req.rid,
+                                 prompt_tokens=int(len(req.prompt)),
+                                 priority=req.priority,
+                                 step=self.step_count)
 
     # -- engine loop ----------------------------------------------------
 
@@ -225,18 +258,38 @@ class PagedServeEngine:
     def step(self) -> None:
         """Retire, admit, prefill one chunk per prefilling slot, decode one
         token for every decoding slot."""
+        if self._tracer is not None:
+            with self._tracer.span("engine_step", step=self.step_count):
+                self._ticks()
+        else:
+            self._ticks()
+        self.step_count += 1
+        self.stats.steps += 1
+        self.stats.capture_s = self._prefill.capture_s + \
+            self._decode.capture_s
+        if self._registry is not None:
+            used = self.ecfg.num_blocks - 1 - self.cache.free_blocks
+            self._registry.gauge("serve.blocks_in_use", used)
+            self._registry.observe("serve.blocks_in_use_per_step", used)
+            self._registry.gauge("serve.queue_depth", self.scheduler.pending)
+            self._registry.gauge("serve.live_slots", self.live)
+        if self._tracer is not None:
+            used = self.ecfg.num_blocks - 1 - self.cache.free_blocks
+            self._tracer.counter("blocks_in_use", used)
+
+    def _ticks(self) -> None:
         with record_function("paged.schedule"):
             self._retire()
             self._admit()
         self._prefill_tick()
         self._decode_tick()
-        self.step_count += 1
-        self.stats.steps += 1
-        self.stats.capture_s = self._prefill.capture_s + \
-            self._decode.capture_s
 
-    def run(self, requests: List[PagedRequest]) -> Dict[int, List[int]]:
-        """Serve ``requests`` to completion (batch mode: all arrive now)."""
+    def run(self, requests: List[PagedRequest],
+            seed: Optional[int] = None) -> Dict[int, List[int]]:
+        """Serve ``requests`` to completion (batch mode: all arrive now);
+        ``seed`` replaces the sampling seed of the config."""
+        if seed is not None:
+            self.ecfg.seed = seed
         for r in requests:
             self.submit(r)
         self.drain()
@@ -258,6 +311,17 @@ class PagedServeEngine:
             if s is not None and s.req.done:
                 self.results[s.req.rid] = s.req.out_tokens
                 self.lifecycle.append(lifecycle_record(s.req))
+                if self._registry is not None:
+                    self._registry.counter("serve.completed_requests")
+                    self._registry.counter("serve.output_tokens",
+                                           len(s.req.out_tokens))
+                    rec = self.lifecycle[-1]
+                    for m in ("queue_wait_steps", "ttft_steps",
+                              "latency_steps"):
+                        self._registry.observe(f"serve.{m}", rec[m])
+                if self._tracer is not None:
+                    self._tracer.instant("retire", rid=s.req.rid, slot=i,
+                                         output_tokens=len(s.req.out_tokens))
                 self.cache.free_slot(i)
                 self._slots[i] = None
 
@@ -269,9 +333,17 @@ class PagedServeEngine:
             self.cache.alloc_slot(i, self.scheduler.reservation(req))
             req.admitted_step = self.step_count
             self._slots[i] = _Slot(req)
+            if self._tracer is not None:
+                self._tracer.instant("admit", rid=req.rid, slot=i,
+                                     queue_wait=req.admitted_step
+                                     - req.arrival_step)
         self.stats.admitted += len(admitted)
+        if self._registry is not None and admitted:
+            self._registry.counter("serve.admitted_requests", len(admitted))
         if free and self.scheduler.pending:
             self.stats.deferred_steps += 1
+            if self._registry is not None:
+                self._registry.counter("serve.deferred_steps")
 
     def _prefill_tick(self) -> None:
         for i, s in enumerate(self._slots):
@@ -293,16 +365,26 @@ class PagedServeEngine:
                 pos0.fill_(s.pos)
                 self.cache.gather([i], view_tokens, out=view)
             with record_function("paged.prefill_chunk"):
-                logits, view = self._prefill(key)
+                if self._tracer is None:
+                    logits, view = self._run_prefill(key)
+                else:
+                    with self._tracer.span("prefill_chunk", tid=1 + i,
+                                           rid=s.req.rid, chunk=chunk,
+                                           view=view_tokens, pos=s.pos):
+                        logits, view = self._run_prefill(key)
             with record_function("paged.commit"):
                 self.cache.commit_prefill(view, i, s.pos, chunk)
             self.stats.prefill_shapes.add((chunk, view_tokens, False))
             self.stats.prefill_chunks += 1
+            if self._registry is not None:
+                self._registry.counter("serve.prefill_tokens", chunk)
             s.pos += chunk
             if not s.prefilling:          # prompt complete: first token
                 with record_function("paged.sample"):
-                    tok = sample_tokens(logits, self.ecfg.temperature)[0]
-                self._accept(s, int(tok))
+                    tok = sample_row(logits[0], seed=self.ecfg.seed,
+                                     rid=s.req.rid, step=0,
+                                     temperature=self.ecfg.temperature)
+                self._accept(s, tok)
 
     def _decode_tick(self) -> None:
         live = [(i, s) for i, s in enumerate(self._slots)
@@ -313,8 +395,10 @@ class PagedServeEngine:
         slot_ids = np.zeros(n, np.int64)      # padding rows gather slot 0
         tokens = np.zeros(n, np.int64)
         positions = np.zeros(n, np.int32)
+        rows: List[Optional[Tuple[int, int]]] = [None] * n
         for r, (i, s) in enumerate(live):
             slot_ids[r], tokens[r], positions[r] = i, s.next_token, s.pos
+            rows[r] = (s.req.rid, len(s.req.out_tokens))
         view_tokens = self.cache.view_len(int(positions.max()) + 1)
         tok_in, view, pos_in = self._decode.inputs(view_tokens, lambda: (
             torch.empty((n, 1), dtype=torch.int64, device=self.device),
@@ -325,15 +409,23 @@ class PagedServeEngine:
             pos_in.copy_(torch.from_numpy(positions))
             self.cache.gather(slot_ids.tolist(), view_tokens, out=view)
         with record_function("paged.decode_step"):
-            logits, view = self._decode(view_tokens)
+            if self._tracer is None:
+                logits, view = self._run_decode(view_tokens)
+            else:
+                with self._tracer.span("decode_tick", rows=len(live),
+                                       view=view_tokens):
+                    logits, view = self._run_decode(view_tokens)
         with record_function("paged.commit"):
             self.cache.commit_decode(view, list(range(len(live))),
                                      [i for i, _ in live],
                                      [s.pos for _, s in live])
         self.stats.decode_shapes.add((n, view_tokens))
         self.stats.decode_ticks += 1
+        if self._registry is not None:
+            self._registry.counter("serve.decode_tokens", len(live))
         with record_function("paged.sample"):
-            sampled = sample_tokens(logits, self.ecfg.temperature)
+            sampled = sample_tokens(logits, rows, seed=self.ecfg.seed,
+                                    temperature=self.ecfg.temperature)
         for r, (i, s) in enumerate(live):
             s.pos += 1                     # the input token is now cached
             self._accept(s, int(sampled[r]))

@@ -18,7 +18,10 @@ where the plain version does and its values elsewhere.  Popcount is exact
 at the periphery's widths (16, 64, 256) and 2048, in one launch, and on
 ragged rows at every misalignment.  The paged engine's entry points,
 replayed from CUDA graphs, give the eager calls' logits and caches
-bitwise, and the capturing engine the eager engine's tokens.
+bitwise, and the capturing engine the eager engine's tokens; so does the
+lock-step engine's decode.  Sampling on the card draws the CPU's bits and
+uniforms bitwise and its tokens.  The kernel counters count eager calls
+only.
 """
 import numpy as np
 import pytest
@@ -696,3 +699,112 @@ def test_captured_engine_tokens_equal_eager(cuda, rng):
                           "decode_step": snap["decode_shape_count"]}
         assert (snap["capture_s"] > 0) == (capture is None)
     assert out[None] == out[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("vocab", [7, 32000])
+def test_card_sampling_equals_cpu(vocab, partitionable, cuda, rng):
+    """Threefry keys, random bits and uniforms on the card are bitwise the
+    CPU's; the tokens are equal at T 0.5, 0.8 and 1.0 (the gumbel noise may
+    differ in the last bit of ``log``)."""
+    from repro_torch.serve import sampling as S
+    rows = [(rid, step) for rid in range(6) for step in range(8)]
+    for seed in range(4):
+        keys = S.row_keys(seed, rows, "cpu")
+        assert torch.equal(S.row_keys(seed, rows, cuda).cpu(), keys)
+        bits = S.random_bits(keys, vocab, partitionable)
+        cbits = S.random_bits(keys.to(cuda), vocab, partitionable)
+        assert torch.equal(cbits.cpu(), bits)
+        assert torch.equal(S.uniform(cbits).cpu(), S.uniform(bits))
+        logits = torch.from_numpy((rng.normal(size=(len(rows), vocab)) * 3)
+                                  .astype(np.float32))
+        for t in (0.5, 0.8, 1.0):
+            kw = dict(seed=seed, temperature=t, partitionable=partitionable)
+            np.testing.assert_array_equal(
+                S.sample_tokens(logits.to(cuda), rows, **kw),
+                S.sample_tokens(logits, rows, **kw))
+
+
+@pytest.mark.gpu
+def test_lockstep_replayed_decode_bitwise_equal_eager(cuda, rng):
+    """The lock-step engine's decode, replayed from its graph over the
+    engine's contiguous cache with one scalar position, gives the eager
+    call's logits and cache bitwise; a capturing and an eager engine emit
+    the same tokens (greedy and T 0.8), one graph for each (slots,
+    max_len) it meets.
+    """
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    cfg = _smoke()
+    model = build(cfg)
+    params = init_params(model.schema(), seed=0, device=cuda)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 13, 9, 30)]
+    for temperature in (0.0, 0.8):
+        out = {}
+        for capture in (True, False):
+            eng = ServeEngine(model, params, cfg,
+                              EngineConfig(slots=2, max_len=64,
+                                           temperature=temperature),
+                              device=cuda, capture=capture)
+            out[capture] = eng.run([Request(rid=i, prompt=p,
+                                            max_new_tokens=6)
+                                    for i, p in enumerate(prompts)], seed=3)
+            # two generations: requests 0-2 on 2 rows, then the deferred
+            # 30-token prompt alone
+            assert eng.compile_counts() == {"decode_step": 2}
+        assert out[True] == out[False]
+    eng = ServeEngine(model, params, cfg, EngineConfig(slots=2, max_len=64),
+                      device=cuda, capture=True)
+    eng.run([Request(rid=0, prompt=prompts[0], max_new_tokens=2)])
+    with torch.inference_mode():        # the engine's buffers are made so
+        _lockstep_replays(eng, model, params, prompts[3], cuda, rng)
+    assert eng.compile_counts() == {"decode_step": 1}
+
+
+def _lockstep_replays(eng, model, params, prompt, cuda, rng):
+    tok, cache, pos = eng._decode_inputs(1)          # its captured shape
+    _, fresh = model.prefill(params, {"tokens": torch.from_numpy(
+        prompt[None].astype(np.int64)).to(cuda)}, 64)
+    for step in range(3):
+        t = torch.from_numpy(rng.integers(2, model.cfg.vocab_size,
+                                          (1, 1))).to(cuda)
+        p = torch.tensor(30 + step, dtype=torch.int32, device=cuda)
+        want, want_cache = model.decode_step(params, t, _clone(fresh), p)
+        tok.copy_(t)
+        pos.copy_(p)
+        for leaf, src in zip(cache["layers"].values(),
+                             fresh["layers"].values()):
+            leaf.copy_(src)
+        got, got_cache = eng._decode((1, 64))
+        assert torch.equal(got, want), (got - want).abs().max()
+        assert _trees_equal(got_cache, want_cache)
+        fresh = want_cache
+
+
+@pytest.mark.gpu
+def test_record_counts_eager_calls_only(cuda, rng):
+    """``kernels.calls`` counts eager calls; a capture records nothing and
+    a replay calls no op."""
+    from repro_torch.kernels import metrics
+    from repro_torch.obs import MetricsRegistry
+    reg = MetricsRegistry()
+    prev = metrics.set_registry(reg)
+    try:
+        x = _randn(rng, (4, 256), cuda)
+        w = _randn(rng, (256, 128), cuda).to(torch.bfloat16)
+        tops.oisma_matmul(x, w)                       # eager: counted
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tops.oisma_matmul(x, w)
+        assert reg.value("kernels.calls", kernel="fused_matmul") == 1
+        graph.replay()
+        torch.cuda.synchronize()
+        assert reg.value("kernels.calls", kernel="fused_matmul") == 1
+        assert torch.equal(out, tops.oisma_matmul(x, w))
+        assert reg.value("kernels.calls", kernel="fused_matmul") == 2
+    finally:
+        metrics.set_registry(prev)

@@ -64,6 +64,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
     from repro_torch.models import build
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
     from repro_torch.serve.paged_engine import (PagedEngineConfig,
                                                 PagedServeEngine)
     cfg = get_config("h2o_danube_1p8b", smoke=True)
@@ -78,8 +79,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
         params_from_numpy(tree, cfg, "cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--paged"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(model, params, cfg, EngineConfig())
     # asked for by name, the CPU runs (the kernels' plain versions)
     PagedServeEngine(model, params, cfg, PagedEngineConfig(), device="cpu")
+    ServeEngine(model, params, cfg, EngineConfig(), device="cpu")
 
 
 def test_cli_serves_on_cpu_when_asked(capsys):
@@ -89,8 +95,11 @@ def test_cli_serves_on_cpu_when_asked(capsys):
     assert sorted(out) == [0, 1, 2]
     assert all(len(v) == 4 for v in out.values())
     assert "danube-smoke on cpu" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu"])           # only the paged engine
+    # without --paged the lock-step engine serves, at a temperature too
+    out = cli.main(["--device", "cpu", "--requests", "3", "--max-new", "4",
+                    "--temperature", "0.8"])
+    assert sorted(out) == [0, 1, 2]
+    assert all(1 <= len(v) <= 4 for v in out.values())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -190,12 +190,25 @@ def test_paged_engine_tokens_match_reference(arch):
 
 
 def test_temperature_sampling_waits_for_its_slice():
+    """The sampling slice has landed: an engine at temperature > 0 is
+    built, serves, and its streams are a function of the seed (bit for bit
+    the reference's: ``test_torch_engine.py``)."""
     _, tcfg = configs("h2o_danube_1p8b")
     tm = build(tcfg)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        tpe.PagedServeEngine(tm, {"embed": torch.zeros(1)}, tcfg,
-                             tpe.PagedEngineConfig(temperature=0.7),
-                             device="cpu")
+    from repro_torch.models.params import init_params
+    params = init_params(tm.schema(), 0, "cpu")
+
+    def run(seed):
+        te = tpe.PagedServeEngine(tm, params, tcfg,
+                                  tpe.PagedEngineConfig(temperature=0.7),
+                                  device="cpu")
+        return te.run([tpe.PagedRequest(rid=i, prompt=np.arange(
+            3, 8 + i, dtype=np.int32), max_new_tokens=6) for i in range(3)],
+            seed=seed)
+
+    first = run(13)
+    assert first == run(13)
+    assert first != run(14)
 
 
 def test_unservable_request_is_rejected():
