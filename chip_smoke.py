@@ -76,7 +76,9 @@ prints its wall time):
 6. Full depth in ``bp8``: the 24-layer h2o-danube-1.8b with
    ``matmul_mode="bp8"`` serves 2 requests x 8 new tokens twice on one
    capturing engine; tokens/s of the second run, peak device memory, and
-   a profile of one short request.
+   a profile of one short request.  ``bp8``'s bitplane encode as a
+   comparison with the plane thresholds is timed beside the earlier
+   gather from the dataset's table (the same planes, checked bitwise).
 7. Sampling, the lock-step engine, obs and traffic, on phase 4's model:
    threefry keys, random bits (both layouts) and uniforms on the card
    bitwise the CPU's, the tokens of (4, 32000) logits equal at T 0.5, 0.8
@@ -95,8 +97,36 @@ prints its wall time):
    ``kernels.*`` counters (none on the capturing engine; an eager
    engine's).
 
+8. Training in ``bp8_fused``: absmax, the fused matmul and the fused MLP
+   at the training path's rows (M 1024 = 8 x 128 tokens, and a ragged
+   1000) and every projection shape of the full model against their
+   plain versions (bitwise; the MLP within 1e-5), one layer's forward
+   timed beside its bound; one train step at full width and 2 layers on
+   the card against the CPU from the same seeded state (2 x 32 tokens:
+   the loss within 1e-3, the grad norm within 1e-2 relative, each leaf's
+   gradient through AdamW's first moment within 5e-2 of its max with a
+   cosine of at least 0.999, the new params' step of the same sign as
+   the CPU's on 90% of the elements the CPU's step moved in each leaf
+   and 99% of each bf16 leaf's elements equal), a checkpoint written on the
+   card (raw, into ``build/``, removed after) restored bitwise and
+   ``train()`` resuming from it (losses within 2e-2 of an uninterrupted
+   run: the embedding's backward adds with atomics); then the full
+   24-layer h2o-danube-1.8b trained through ``trainer.train`` for 5 steps
+   of 8 x 128 tokens (lr 3e-5, warmup 5): per-step wall time, training
+   tokens/s past the first step, peak device memory, the losses (finite,
+   none above step 1's by more than 0.25), that it trained (every step's
+   gradient norm finite and above 0; every leaf moved from its seeded
+   value, each f32 leaf by 1/4 to 2 times the steps' learning rates
+   summed), launch counts zeroed just before and read just after (13
+   absmax, 5 matmuls and 1 MLP a layer, twice: forward and recompute),
+   and a profile of one more step (device time by kind of kernel, the
+   idle share, and the device time of the step's own ``train.*`` ranges:
+   forward, backward with the recompute, gradient sum, AdamW, with the
+   BP kernels of the forward and of the recompute apart).
+
 The last lines are the kernels JSON (each kernel with the path its
-launches come from), the card line, and ``{"ok": true, "device":
+launches come from; rows 1-3 also on the training path, timed at M
+1024), the card line, and ``{"ok": true, "device":
 {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -977,12 +1007,15 @@ def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
 
 
 def decode_layer_launches(torch, cfg, params):
-    """Device activities (kernels, memsets, copies) that one decode layer
-    adds to a decode step of 4 rows, by kernel name, and their device
-    time: the profile of a 3-layer step less that of a 2-layer step (same
-    weights; ``params`` must hold 3 layers or more).  Each step is
-    profiled twice and the second kept, so that the profiler's start-up
-    loses nothing."""
+    """Device work (kernels, memsets, copies) that one decode layer adds to
+    a decode step of 4 rows, and its device time: the profile of a
+    3-layer step less that of a 2-layer step (same weights; ``params``
+    must hold 3 layers or more).  The total counts the host's records of
+    the launches (``ENQUEUE_CALLS``), which the profiler never drops; the
+    split by kernel name comes from the device's records, which a session
+    now and then loses (so it may sum to less).  Each step is profiled
+    twice and the second kept, so that the profiler's start-up loses
+    nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build as build_model
@@ -999,23 +1032,25 @@ def decode_layer_launches(torch, cfg, params):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 model.decode_step(params, tokens, cache, pos)
                 torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        avgs = prof.key_averages()
+        evs = [e for e in avgs if e.device_type == DeviceType.CUDA]
         steps.append(({e.key: e.count for e in evs},
-                      sum(getattr(e, "self_device_time_total", 0) for e in evs)))
-    (two, us2), (three, us3) = steps
+                      sum(getattr(e, "self_device_time_total", 0)
+                          for e in evs),
+                      sum(e.count for e in avgs if e.key in ENQUEUE_CALLS)))
+    (two, us2, host2), (three, us3, host3) = steps
     per = {k: three.get(k, 0) - two.get(k, 0) for k in set(two) | set(three)}
     per = {k: v for k, v in sorted(per.items(), key=lambda kv: -kv[1]) if v}
-    total = sum(per.values())
+    total = host3 - host2
     copies = sum(v for k, v in per.items() if "copy" in k.lower())
-    print(f"decode layer launches: {total} device activities a layer "
-          f"({copies} copy kernels), {(us3 - us2) / 1e3:.4f} ms of device "
-          f"time; by kernel: "
+    print(f"decode layer launches: {total} enqueued a layer (host records; "
+          f"device records {sum(per.values())}, {copies} copy kernels), "
+          f"{(us3 - us2) / 1e3:.4f} ms of device time; by kernel: "
           + ", ".join(f"{v} {k[:60]}" for k, v in per.items()))
-    return {"total": total, "copies": copies, "by_kernel": per,
+    return {"total": total, "device_records": sum(per.values()),
+            "copies": copies, "by_kernel": per,
             "device_ms": (us3 - us2) / 1e3,
-            "step_2_layers": sum(two.values()),
-            "step_3_layers": sum(three.values())}
+            "step_2_layers": host2, "step_3_layers": host3}
 
 
 def phase_unfused(torch, timer, build, dev="cuda"):
@@ -1416,6 +1451,537 @@ def obs_and_traffic(torch, full, params, out_dir, dev="cuda"):
             "kernels_eager_calls": eager_calls}
 
 
+#: the training path's rows: 8 x 128 tokens (the launcher's defaults),
+#: and a ragged count that is no multiple of the kernels' row tiles
+TRAIN_ROWS = (1024, 1000)
+
+
+def encode_forms_ms(torch, timer, dev="cuda"):
+    """``bp8``'s bitplane encode as one comparison with the plane thresholds
+    (the port's form) against the earlier gather from the dataset's
+    (10, 8) table, on the levels of one decode step's x (4 x 2560) and of
+    the wq weight (2560 x 2560) and the up weight (2560 x 6912); both give
+    the same planes bitwise."""
+    from repro_torch.core import bp_matmul as bpm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    levels = [torch.randint(0, 10, s, generator=gen, device=dev,
+                            dtype=torch.int8)
+              for s in ((4, D), (D, HD), (D, FF))]
+
+    def gather(lv, which):
+        return bpm._table(which, torch.float32, lv.device)[lv.long()]
+
+    for lv in levels:
+        for which in ("right", "left"):
+            if not torch.equal(bpm.encode_bitplanes(lv, which, torch.float32),
+                               gather(lv, which)):
+                fail(f"comparison encode differs from the table at "
+                     f"{tuple(lv.shape)} ({which})")
+    new = timer([lambda lv=lv: bpm.encode_bitplanes(lv, "left",
+                                                    torch.float32)
+                 for lv in levels])
+    old = timer([lambda lv=lv: gather(lv, "left") for lv in levels])
+    print(f"bp8 bitplane encode (x 4x{D}, w {D}x{HD} and {D}x{FF}, f32 "
+          f"planes): comparison {new:.4f} ms, table gather {old:.4f} ms")
+    return {"comparison_ms": new, "gather_ms": old}
+
+
+def phase_train_kernels(torch, timer, dev="cuda"):
+    """absmax, the fused matmul and the fused MLP at the training path's
+    rows (TRAIN_ROWS) and every h2o-danube-1.8b projection shape, against
+    their plain versions: absmax and the matmul bitwise, the MLP within
+    1e-5 relative for silu and gelu and bitwise for relu; at 1024 rows the
+    kernels of one layer's forward are timed (phase 2's timer) beside
+    their bound.  Returns rows for the kernels line."""
+    from repro_torch.kernels import fused as kf
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    mm = [(D, HD), (D, KVD), (D, KVD), (HD, D), (FF, D)]
+    ws = [randn(k, n, std=k ** -0.5).to(torch.bfloat16) for k, n in mm]
+    up, gate = (randn(D, FF, std=D ** -0.5).to(torch.bfloat16)
+                for _ in range(2))
+    rows, err = {}, 0.0
+    for m in TRAIN_ROWS:
+        xs = {k: randn(m, k) for k in (D, FF)}
+        am_in = [xs[k] for k, _ in mm] + ws + [xs[D], up, gate]
+        for t in am_in:
+            if not torch.equal(kf.absmax(t, TINY), ref.absmax_ref(t, TINY)):
+                fail(f"absmax differs at {tuple(t.shape)} {t.dtype}")
+        sc = {id(t): kf.absmax(t, TINY) for t in am_in}
+        mm_args = [(xs[k], w, sc[id(xs[k])], sc[id(w)])
+                   for (k, _), w in zip(mm, ws)]
+        for a in mm_args:
+            got, want = kf.fused_bp_matmul(*a), ref.fused_matmul_ref(*a)
+            if not torch.equal(got, want):
+                fail(f"fused matmul differs at M {m}, {tuple(a[1].shape)}: "
+                     f"max {(got - want).abs().max().item()}")
+        x = xs[D]
+        mlp_args = (x, up, gate, sc[id(x)], sc[id(up)], sc[id(gate)])
+        for act in ("silu", "gelu", "relu"):
+            got = kf.fused_mlp(*mlp_args, act)
+            want = ref.fused_mlp_ref(x, up, gate, act, *mlp_args[3:])
+            e = ((got - want).abs().max()
+                 / want.abs().max().clamp_min(1.0)).item()
+            if act == "relu" and not torch.equal(got, want):
+                fail(f"fused MLP (relu) not bitwise at M {m}: {e:.3g}")
+            if not math.isfinite(e) or e > 1e-5:
+                fail(f"fused MLP ({act}) off by {e:.3g} at M {m}")
+            err = max(err, (got - want).abs().max().item())
+        if m != TRAIN_ROWS[0]:
+            continue
+        rows["absmax"] = dict(
+            max_abs_err=0.0,
+            ms=timer([lambda t=t: kf.absmax(t, TINY) for t in am_in]),
+            plain_ms=timer([lambda t=t: ref.absmax_ref(t, TINY)
+                            for t in am_in]),
+            library_ms=timer([lambda t=t: torch.amax(t.abs())
+                              for t in am_in]),
+            b=[bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)
+               for t in am_in])
+        rows["fused_matmul"] = dict(
+            max_abs_err=0.0,
+            ms=timer([lambda a=a: kf.fused_bp_matmul(*a) for a in mm_args]),
+            plain_ms=timer([lambda a=a: ref.fused_matmul_ref(*a)
+                            for a in mm_args], iters=3),
+            library_ms=None,
+            b=[bound(4 * m * a[0].shape[1] + nbytes(a[1]) + 8
+                     + 4 * m * a[1].shape[1],
+                     2 * m * a[1].shape[1] * 8 * a[0].shape[1],
+                     H100_INT8_OPS_PER_S) for a in mm_args])
+        rows["fused_mlp"] = dict(
+            max_abs_err=0.0,
+            ms=timer([lambda: kf.fused_mlp(*mlp_args, "silu")]),
+            plain_ms=timer([lambda: ref.fused_mlp_ref(
+                x, up, gate, "silu", *mlp_args[3:])], iters=3),
+            library_ms=None,
+            b=[bound(4 * m * D + nbytes(up) + nbytes(gate) + 12 + 4 * m * FF,
+                     2 * 2 * m * FF * 8 * D, H100_INT8_OPS_PER_S)])
+    rows["fused_mlp"]["max_abs_err"] = err
+    for name, r in rows.items():
+        print(f"train kernel {name} (one layer's forward, M "
+              f"{TRAIN_ROWS[0]}): ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{sum(x[0] for x in r['b']):.4f} library_ms {r['library_ms']}")
+    print(f"train kernels checked at M {TRAIN_ROWS}: 13 absmax, 5 matmuls "
+          f"and the MLP (3 activations) of a layer, equal to plain")
+    return rows
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _leaves(torch, tree):
+    from repro_torch.models.params import tree_leaves
+    return [(path, t.detach().cpu()) for path, t in tree_leaves(tree)]
+
+
+def train_card_vs_cpu(torch, full, dev="cuda"):
+    """One ``bp8_fused`` train step at full width and 2 layers on the card
+    and on the CPU from the same seeded state (2 x 32 tokens): the loss,
+    the gradients (through AdamW's first moment, ``m = (1 - b1) g s``,
+    ``s`` the clip scale) within the tolerances stated, and the new params:
+    the step's sign agrees where the CPU's moved a weight, and a bf16 leaf
+    is mostly equal; then a checkpoint written on the card that restores
+    bitwise, and ``train()`` resuming from it."""
+    import shutil
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim.optimizer import OptimizerConfig, lr_at
+    from repro_torch.train import trainer as tr
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(full, num_layers=2)
+    model = build_model(cfg)
+    opt = OptimizerConfig(warmup_steps=5, total_steps=8)
+    step = make_train_step(model, opt, TrainPlan(1, 2))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)
+    host_batch = {k: torch.from_numpy(v)
+                  for k, v in batch_at(dcfg, 0).items()}
+    cpu_state = init_state(model, 0, opt, "cpu")
+    gpu_state = tree_map(lambda t: t.to(dev), cpu_state)
+    t0 = time.perf_counter()
+    new_cpu, m_cpu = step(cpu_state, host_batch)
+    cpu_s = time.perf_counter() - t0
+    new_gpu, m_gpu = step(gpu_state, {k: v.to(dev)
+                                      for k, v in host_batch.items()})
+    lr = float(lr_at(opt, torch.tensor(1)))
+    out = {"cpu_step_s": cpu_s, "loss_card": float(m_gpu["loss"]),
+           "loss_cpu": float(m_cpu["loss"]),
+           "grad_norm_card": float(m_gpu["grad_norm"]),
+           "grad_norm_cpu": float(m_cpu["grad_norm"]), "lr": lr,
+           "leaves": {}}
+    faults = []
+    if abs(out["loss_card"] - out["loss_cpu"]) > 1e-3:
+        faults.append(f"train step: loss on the card {out['loss_card']} vs "
+                      f"the CPU {out['loss_cpu']} (1e-3)")
+    if abs(out["grad_norm_card"] / out["grad_norm_cpu"] - 1) > 1e-2:
+        faults.append(f"train step: grad norm {out['grad_norm_card']} vs "
+                      f"{out['grad_norm_cpu']} (1e-2 relative)")
+    for which in ("m", "params"):
+        src_g = new_gpu["opt"]["m"] if which == "m" else new_gpu["params"]
+        src_c = new_cpu["opt"]["m"] if which == "m" else new_cpu["params"]
+        for (path, g), (_, c) in zip(_leaves(torch, src_g),
+                                     _leaves(torch, src_c)):
+            key = f"{which}/{'/'.join(path)}"
+            bf16 = c.dtype == torch.bfloat16
+            g, c = g.float(), c.float()
+            diff = (g - c).abs().max().item()
+            if which == "m":
+                big = c.abs().max().item()
+                cos = float((g * c).sum() / (g.norm() * c.norm()))
+                out["leaves"][key] = {"max_diff_of_max": diff / big,
+                                      "cosine": cos}
+                if diff > 5e-2 * big or cos < 0.999:
+                    faults.append(f"train step: gradient of {key} on the "
+                                  f"card vs the "
+                                  f"CPU: max diff {diff / big:.3g} of its "
+                                  f"max, cosine {cos:.6f} (5e-2, 0.999)")
+            else:
+                # the step each side took: a wrong or dropped update moves
+                # a weight the other way, or not at all, where the CPU's
+                # moved it (Adam's first step is about lr either way, so a
+                # bound on the difference could not tell)
+                old = _leaf(cpu_state["params"], path).detach().float()
+                dg, dc = g - old, c - old
+                on = dc != 0
+                if bool(on.any()):
+                    agree = float((torch.sign(dg[on]) == torch.sign(dc[on]))
+                                  .float().mean())
+                else:     # a leaf the CPU left as it was stays so
+                    agree = float(bool((dg == 0).all()))
+                same = float((g == c).float().mean())
+                out["leaves"][key] = {"max_diff": diff, "equal_share": same,
+                                      "moved_share": float(on.float().mean()),
+                                      "sign_agreement": agree,
+                                      "bf16": bf16}
+                # a bf16 leaf rounds the small differences away; an f32
+                # leaf (the norms' gains) keeps them in its last bits
+                if agree < 0.9 or (bf16 and same < 0.99):
+                    faults.append(f"train step: new {key} on the card vs "
+                                  f"the CPU: the step's sign agrees on "
+                                  f"{agree:.5f} of the elements the CPU "
+                                  f"moved (0.9), {same:.5f} of elements "
+                                  f"equal (0.99 of a bf16 leaf)")
+    worst = max(v.get("max_diff_of_max", 0) for v in out["leaves"].values())
+    least = min(v["equal_share"] for v in out["leaves"].values()
+                if v.get("bf16"))
+    signs = min(v["sign_agreement"] for v in out["leaves"].values()
+                if "sign_agreement" in v)
+    if not any(v.get("moved_share") for v in out["leaves"].values()):
+        faults.append("train step: the CPU's step moved no weight")
+    print(f"train step card vs cpu ({cfg.num_layers} layers, full width, "
+          f"2 x 32 tokens, bp8_fused): loss {out['loss_card']:.6f} vs "
+          f"{out['loss_cpu']:.6f}, grad norm {out['grad_norm_card']:.6f} "
+          f"vs {out['grad_norm_cpu']:.6f}; gradients' largest difference "
+          f"{worst:.3g} of a leaf's max; new bf16 params' least equal share "
+          f"{least:.5f}; the step's sign agrees on at least {signs:.5f} of a "
+          f"leaf's moved elements; the CPU step {cpu_s:.1f}s")
+    if faults:
+        fail("; ".join(faults))
+    del cpu_state, new_cpu, gpu_state, new_gpu
+
+    # a checkpoint written on the card, restored bitwise, and resumed
+    shape = ShapeConfig("t", "train", 32, 2)
+    d = ROOT / "build" / "smoke_train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+
+    def tcfg(steps, ckpt):
+        return tr.TrainerConfig(total_steps=steps, ckpt_every=100, keep=1,
+                                ckpt_dir=str(d) if ckpt else None,
+                                ckpt_compress_opt=False)
+
+    try:
+        t0 = time.perf_counter()
+        state, hist = tr.train(model, cfg, shape, tcfg(2, True),
+                               opt_cfg=opt, device=dev)
+        save_s = time.perf_counter() - t0
+        like = tr._payload(state, dcfg, 2, 0)
+        back, ckpt_step = CheckpointManager(str(d)).restore(like)
+        if ckpt_step != 2:
+            fail(f"checkpoint restored at step {ckpt_step}, not 2")
+        for (path, a), (_, b) in zip(_leaves(torch, state),
+                                     _leaves(torch, back["state"])):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"checkpoint leaf {'/'.join(path)} not restored "
+                     f"bitwise")
+        _, resumed = tr.train(model, cfg, shape, tcfg(3, True), opt_cfg=opt,
+                              device=dev)
+        _, straight = tr.train(model, cfg, shape, tcfg(3, False),
+                               opt_cfg=opt, device=dev)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if [h["step"] for h in resumed] != [3]:
+        fail(f"train() did not resume at step 3: {resumed}")
+    gaps = [abs(a["loss"] - b["loss"])
+            for a, b in zip(hist + resumed, straight)]
+    print(f"checkpoint at full width (2 layers) written on the card and "
+          f"restored bitwise; resumed losses {[h['loss'] for h in hist]} + "
+          f"{resumed[0]['loss']} vs uninterrupted "
+          f"{[h['loss'] for h in straight]} (largest gap {max(gaps):.3g}); "
+          f"2 steps + save {save_s:.1f}s")
+    if max(gaps) > 2e-2:
+        fail(f"resumed losses differ from an uninterrupted run by "
+             f"{max(gaps)} (2e-2)")
+    out.update(resume_gaps=gaps, save_s=save_s)
+    return out
+
+
+def _train_kernel_kind(name: str) -> str:
+    """A device activity of a train step by its name: the BP kernels, the
+    f32 matrix products (cuBLAS), or the rest (elementwise, reductions,
+    copies, the embedding's index ops)."""
+    low = name.lower()
+    if "absmax_kernel" in name or "bp_mma_kernel" in name:
+        return "bp_kernels"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "f32_matmuls"
+    return "other"
+
+
+#: the ``record_function`` ranges of ``make_train_step``, in step order
+TRAIN_PARTS = ("train.forward", "train.backward", "train.grad_sum",
+               "train.adamw")
+
+
+def profile_train_step(torch, model, opt, state, batch):
+    """Where one full-depth train step's time goes, from the Chrome trace of
+    a ``torch.profiler`` session over one step of ``make_train_step``:
+    device time by kind of kernel, the idle share (1 - device busy / wall)
+    and the device time of each part of the step.  A kernel belongs to the
+    part (the step's own ``train.*`` ranges) whose host range holds its
+    launch, matched through the trace's correlation ids, so the BP kernels
+    of the forward and of its recompute inside the backward are timed
+    apart.  Launches whose device record the session dropped are counted."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.train_step import TrainPlan, make_train_step
+    step = make_train_step(model, opt, TrainPlan(1, batch["tokens"].shape[0]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    path = ROOT / "build" / "train_step_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("ph") == "X"]
+    finally:
+        path.unlink(missing_ok=True)
+
+    def cat(e):
+        return str(e.get("cat", "")).lower()
+
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if cat(e) == "user_annotation" and e["name"] in TRAIN_PARTS]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if cat(e) in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and ("Launch" in e["name"] or "Memset" in e["name"]
+                     or "Memcpy" in e["name"])}
+    device = [e for e in events
+              if cat(e) in ("kernel", "gpu_memset", "gpu_memcpy")]
+
+    def part_of(e):
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        for lo, hi, name in ranges:
+            if ts is not None and lo <= ts <= hi:
+                return name
+        return "other"
+
+    kinds, parts, names = {}, {}, {}
+    for e in device:
+        ms = e["dur"] / 1e3
+        k = _train_kernel_kind(e["name"])
+        n, t = kinds.get(k, (0, 0.0))
+        kinds[k] = (n + 1, t + ms)
+        p = parts.setdefault(part_of(e), {"launches": 0, "device_ms": 0.0,
+                                          "bp_ms": 0.0})
+        p["launches"] += 1
+        p["device_ms"] += ms
+        if k == "bp_kernels":
+            p["bp_ms"] += ms
+        n, t = names.get(e["name"], (0, 0.0))
+        names[e["name"]] = (n + 1, t + ms)
+    for lo, hi, name in ranges:
+        p = parts.setdefault(name, {"launches": 0, "device_ms": 0.0,
+                                    "bp_ms": 0.0})
+        p["host_ms"] = p.get("host_ms", 0.0) + (hi - lo) / 1e3
+    missing = [n for n in TRAIN_PARTS if not any(r[2] == n for r in ranges)]
+    if missing:
+        fail(f"train step profile: no {missing} range in the trace")
+    if not device:
+        fail("train step profile: no device activity in the trace")
+    top = sorted(((t, k, n) for k, (n, t) in names.items()), reverse=True)
+    busy_ms = sum(t for _, t in kinds.values())
+    fwd, bwd = parts["train.forward"], parts["train.backward"]
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / (wall * 1e3),
+           "by_kind": {k: {"launches": n, "ms": t}
+                       for k, (n, t) in sorted(kinds.items())},
+           "bp_forward_ms": fwd["bp_ms"], "bp_recompute_ms": bwd["bp_ms"],
+           "parts": {k: parts[k] for k in TRAIN_PARTS + ("other",)
+                     if k in parts},
+           "launches_without_device_record": len(
+               set(launched) - {e.get("args", {}).get("correlation")
+                                for e in device}),
+           "top": [{"ms": t, "name": k[:100], "calls": n}
+                   for t, k, n in top[:12]]}
+    print(f"train step profile (full depth, 8 x 128 tokens): wall "
+          f"{out['wall_ms']:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+          f"share {out['idle_share']:.3f}; by kind "
+          + ", ".join(f"{k} {v['ms']:.1f} ms x{v['launches']}"
+                      for k, v in out["by_kind"].items())
+          + f"; BP kernels in the forward {fwd['bp_ms']:.1f} ms, in the "
+          f"backward's recompute {bwd['bp_ms']:.1f} ms; by part (device ms, "
+          f"launches, host ms) "
+          + ", ".join(f"{k} {v['device_ms']:.1f} x{v['launches']} "
+                      f"{v.get('host_ms', 0.0):.1f}"
+                      for k, v in out["parts"].items())
+          + f"; {out['launches_without_device_record']} launches without a "
+          f"device record")
+    for t, k, n in top[:8]:
+        print(f"  {t:.2f} ms x{n} {k[:100]}")
+    return out
+
+
+def update_from_init(torch, init, params, lr_sum):
+    """How far training moved each leaf from its initial value: the share
+    of elements that changed, and for each f32 leaf its largest change over
+    ``lr_sum``.  Fails unless every leaf moved and each f32 leaf's largest
+    change lies in [lr_sum / 4, 2 lr_sum + 4 ulps]: AdamW moves a weight by
+    about its step's lr, and a bf16 weight only where that exceeds half
+    its ulp."""
+    from repro_torch.models.params import tree_leaves
+    moved, gains, faults = {}, {}, []
+    for (path, a), (_, b) in zip(tree_leaves(init), tree_leaves(params)):
+        key = "/".join(path)
+        moved[key] = float((a != b).float().mean())
+        if moved[key] == 0:
+            faults.append(f"{key} did not move")
+        if a.dtype == torch.float32:
+            top = float((b - a).abs().max())
+            gains[key] = top / lr_sum
+            ulp = float(torch.finfo(torch.float32).eps * a.abs().max())
+            if not lr_sum / 4 <= top <= 2 * lr_sum + 4 * ulp:
+                faults.append(f"{key} moved at most {top:.3g}, not within "
+                              f"[{lr_sum / 4:.3g}, {2 * lr_sum:.3g}]")
+    if not gains:
+        faults.append("no f32 leaf")
+    if faults:
+        fail("full-depth training: against the initial weights, "
+             + "; ".join(faults))
+    return moved, gains
+
+
+def train_full_depth(torch, build, full, steps=5, dev="cuda"):
+    """The full h2o-danube-1.8b in ``bp8_fused`` trained through
+    ``trainer.train`` at the launcher's seq 128 and global batch 8, lr
+    3e-5 with warmup 5 (at lr 3e-4 the loss jumps from the third step at
+    this width, in bf16 as in bp8_fused, for a cause not yet found:
+    ``scripts/torch_train_lr.py``, ROADMAP Queue 3), launch counts zeroed
+    just before and read just after; per-step wall time, training tokens/s
+    past the first step, peak device memory and each step's loss (finite,
+    none above step 1's by more than 0.25, the spread of the first losses
+    over batches).  That the run trained: every step's gradient norm is
+    finite and above 0, and against the seeded initial weights every leaf
+    moved, each f32 leaf (the norms' gains) by at least a quarter and at
+    most twice the sum of the steps' learning rates (Adam moves a weight
+    by about lr a step).  Then a profile of one more step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.optimizer import OptimizerConfig, lr_at
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = dataclasses.replace(full, kv_quant="none")
+    model = build_model(cfg)
+    shape = ShapeConfig("train", "train", 128, 8)
+    opt = OptimizerConfig(learning_rate=3e-5, warmup_steps=5,
+                          total_steps=steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    norms = []
+    tcfg = TrainerConfig(total_steps=steps, ckpt_dir=None)
+    build.reset_launches()
+    state, hist = train(model, cfg, shape, tcfg, opt_cfg=opt, device=dev,
+                        on_metrics=lambda i, m: norms.append(
+                            float(m["grad_norm"])))
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(norms) != steps or not all(math.isfinite(g) and g > 0
+                                      for g in norms):
+        fail(f"full-depth training: gradient norms {norms}, not finite and "
+             f"above 0 at each of {steps} steps")
+    lr_sum = sum(float(lr_at(opt, torch.tensor(i)))
+                 for i in range(1, steps + 1))
+    moved, gains = update_from_init(
+        torch, init_params(model.schema(), seed=tcfg.seed, device=dev),
+        state["params"], lr_sum)
+    losses = [h["loss"] for h in hist]
+    dts = [h["dt"] for h in hist]
+    tokens = shape.seq_len * shape.global_batch
+    warm = sorted(dts[1:])
+    med = warm[len(warm) // 2]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"full-depth training: non-finite losses {losses}")
+    if max(losses[1:]) > losses[0] + 0.25:
+        fail(f"full-depth training: the loss rose above step 1's "
+             f"{losses[0]}: {losses}")
+    per_step = cfg.num_layers * 2     # each layer's forward, and its recompute
+    want = {"absmax": 13 * per_step * steps,
+            "fused_matmul": 5 * per_step * steps,
+            "fused_mlp": per_step * steps}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        fail(f"training launches {got}, expected {want} (13 absmax, 5 "
+             f"matmuls and 1 MLP a layer, forward and recompute)")
+    print(f"full-depth training: {cfg.name}, {cfg.num_layers} layers, "
+          f"bp8_fused, {steps} steps of {shape.global_batch} x "
+          f"{shape.seq_len} tokens; step 1 {dts[0]:.3f}s, steps 2-{steps} "
+          + ", ".join(f"{x:.3f}" for x in dts[1:])
+          + f"s (median {med:.3f}s = {tokens / med:.1f} training tokens/s); "
+          f"peak device memory {peak:.2f} GB; losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {launches}; gradient norms "
+          + ", ".join(f"{g:.4f}" for g in norms)
+          + f"; moved from the initial weights: least share of a leaf "
+          f"{min(moved.values()):.5f}, f32 leaves' largest step "
+          f"{min(gains.values()):.3f}-{max(gains.values()):.3f} of the "
+          f"learning rates' sum {lr_sum:.3g}")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                      global_batch=shape.global_batch)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in batch_at(dcfg, steps).items()}
+    prof = profile_train_step(torch, model, opt, state, batch)
+    return launches, {"model": cfg.name, "layers": cfg.num_layers,
+                      "steps": steps, "tokens_per_step": tokens,
+                      "step_s": dts, "median_step_s": med,
+                      "tokens_per_s": tokens / med, "losses": losses,
+                      "grad_norms": norms, "moved_share": moved,
+                      "f32_step_of_lr_sum": gains,
+                      "peak_mem_gb": peak, "launches": launches,
+                      "profile": prof}
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -1728,6 +2294,7 @@ def main() -> None:
               f"steps {engine.step_count // 2}, graphs "
               f"{engine.compile_counts()}, peak device memory {peak:.2f} GB")
         report["bp8_full_depth"] = {
+            "encode": encode_forms_ms(torch, timer),
             "seconds": dt, "first_run_s": first_s, "capture_s": capture_s,
             "new_tokens": n_tok, "tokens_per_s": n_tok / dt,
             "engine_steps": engine.step_count // 2, "peak_mem_gb": peak,
@@ -1757,17 +2324,28 @@ def main() -> None:
                   f"of the run's wall")
         report["phase7"] = p7
 
-    path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches}
+    # ---- phase 8: training ----
+    with Phase("8 training (bp8_fused)", report):
+        train_rows = phase_train_kernels(torch, timer)
+        p8 = {"card_vs_cpu": train_card_vs_cpu(torch, full)}
+        del params
+        train_launches, p8["full_depth"] = train_full_depth(torch, build,
+                                                            full)
+        report["phase8"] = p8
+
+    path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
+                     "train_bp8_fused": train_launches}
     kernels = []
-    for name in SOURCES:
-        r = rows[name]
+    for name, path, r in ([(n, PATHS[n], rows[n]) for n in SOURCES]
+                          + [(n, "train_bp8_fused", r)
+                             for n, r in train_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)
         t_ops = sum(x[2] for x in b)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "path": PATHS[name],
-            "launches": path_launches[PATHS[name]][name],
+            "replaces": REPLACES[name], "path": path,
+            "launches": path_launches[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": sum(x[0] for x in b),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -11,7 +11,9 @@ a fused attention kernel).  The second adds the unfused OISMA pipeline
 ``bp8``, ``bp8_lowrank`` and ``fp8`` matmul modes.  Later slices run the
 paged engine's entry points as CUDA graphs and add temperature sampling
 (threefry, bit for bit the reference's), the lock-step engine, the
-observability layer and the traffic harness.
+observability layer and the traffic harness.  The training slice adds
+straight-through gradients over the kernels, the loss, AdamW, the data
+pipeline, checkpoints in the reference's on-disk format and the trainer.
 
   configs/   ModelConfig and the two decoder configs of the slice
   core/      the BP datasets, plane thresholds, BP and E4M3 quantisation,
@@ -19,10 +21,16 @@ observability layer and the traffic harness.
   kernels/   seven CUDA kernels (``csrc/``), their wrappers and plain
              PyTorch versions, the ``oisma_matmul``/``oisma_mlp`` ops, the
              ``kernels.*`` counters and the analytic traffic model
-  models/    params, layers, GQA attention, ``DecoderModel``, converter
-             from the reference's param tree
+  models/    params, layers, GQA attention, ``DecoderModel`` (serving
+             entry points and the training loss), converters from and to
+             the reference's param tree and train state
   obs/       metrics registry, tracer, shape watchdog
   serve/     scheduler, paged KV cache, sampling, the paged and lock-step
              engines, CUDA graphs of their entry points, traffic harness
-  launch/    the serving CLI
+  optim/     AdamW, the int8 error-feedback codec
+  data/      the seeded synthetic data pipeline
+  train/     ``TrainPlan``, the train step, the trainer
+  ckpt/      checkpoints (the reference's format) and the async manager
+  runtime/   failure injection, straggler monitor, supervisors
+  launch/    the serving and training CLIs
 """

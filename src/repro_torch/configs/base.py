@@ -41,6 +41,17 @@ class ModelConfig:
     # plus one f32 scale per (token, kv-head)
     kv_quant: str = "none"
     attn_chunk: int = 1024       # KV chunk for memory-efficient attention
+    # training: recompute each layer's activations in the backward
+    # (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
+    remat: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -103,11 +103,22 @@ def bp_matmul_lut(x_levels: torch.Tensor, y_levels: torch.Tensor,
     return torch.einsum("mka,knb,ab->mn", xoh, yoh, lut) * 0.1
 
 
+@device_constant
+def _thresholds(which: str, dtype, device) -> torch.Tensor:
+    """(8,) plane thresholds of one dataset: plane p is set iff level >=
+    t[p] (the datasets are nested, ``bp.plane_thresholds``)."""
+    return torch.tensor(bp.plane_thresholds(which), dtype=dtype,
+                        device=device)
+
+
 def encode_bitplanes(levels: torch.Tensor, which: str,
                      dtype=torch.bfloat16) -> torch.Tensor:
-    """(...) integer levels -> (..., 8) 0/1 bitplanes of one dataset."""
-    return _table("right" if which == "right" else "left", dtype,
-                  levels.device)[levels.long()]
+    """(...) integer levels -> (..., 8) 0/1 bitplanes of one dataset, as
+    one elementwise comparison with the plane thresholds (the same planes
+    as the dataset's table, without a gather)."""
+    t = _thresholds("right" if which == "right" else "left", levels.dtype,
+                    levels.device)
+    return (levels[..., None] >= t).to(dtype)
 
 
 def bp_matmul_bitplane(x_levels: torch.Tensor, y_levels: torch.Tensor,

@@ -1,6 +1,7 @@
 """Public ops of the BP kernels: ``oisma_matmul`` (fused and unfused),
-``oisma_mlp``, ``prepare_bp_weight``, ``bp_matmul_codes`` and
-``popcount_accumulate``.
+``oisma_mlp``, their straight-through trainable forms
+``oisma_matmul_ste`` and ``oisma_mlp_ste``, ``prepare_bp_weight``,
+``bp_matmul_codes`` and ``popcount_accumulate``.
 
 ``oisma_matmul`` is what ``dense`` dispatches to under
 ``matmul_mode="bp8_fused"``: two absmax scans (x and, for a real weight,
@@ -154,6 +155,74 @@ def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
     up, gate = _weight(w_up), _weight(w_gate)
     return _f.fused_mlp(x, up, gate, _scale(x), _scale(up), _scale(gate),
                         act=act)
+
+
+# ---------------------------------------------------------------------------
+# straight-through wrappers (trainable dispatch targets)
+# ---------------------------------------------------------------------------
+
+class _MatmulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return oisma_matmul(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (gf @ y.to(torch.float32).T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gy = (x.to(torch.float32).T @ gf).to(y.dtype)
+        return gx, gy
+
+
+def oisma_matmul_ste(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``oisma_matmul`` forward (the kernels, on the weight as stored);
+    the gradients of the plain f32 matmul (straight-through), each in its
+    input's dtype, as the reference's f32 gradient passes back through
+    ``astype``.  Under ``torch.inference_mode`` nothing is recorded."""
+    return _MatmulSTE.apply(x, y)
+
+
+class _MlpSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_up, w_gate, act):
+        ctx.save_for_backward(x, w_up, w_gate)
+        ctx.act = act
+        return oisma_mlp(x, w_up, w_gate, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the VJP of the plain f32 gated MLP act(x @ w_gate) * (x @ w_up)
+        from repro_torch.models.layers import activation
+        x, w_up, w_gate = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        wu, wg = w_up.to(torch.float32), w_gate.to(torch.float32)
+        gf = g.to(torch.float32)
+        u = xf @ wu
+        with torch.enable_grad():
+            pre = (xf @ wg).requires_grad_()
+            a = activation(pre, ctx.act)
+            (d_gate,) = torch.autograd.grad(a, pre, gf * u)
+        d_up = gf * a.detach()
+        grads = [None, None, None, None]
+        if ctx.needs_input_grad[0]:
+            grads[0] = (d_up @ wu.T + d_gate @ wg.T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            grads[1] = (xf.T @ d_up).to(w_up.dtype)
+        if ctx.needs_input_grad[2]:
+            grads[2] = (xf.T @ d_gate).to(w_gate.dtype)
+        return tuple(grads)
+
+
+def oisma_mlp_ste(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor,
+                  *, act: str = "silu") -> torch.Tensor:
+    """``oisma_mlp`` forward (one fused kernel); the gradients of the
+    plain f32 gated MLP (straight-through), each in its input's dtype."""
+    return _MlpSTE.apply(x, w_up, w_gate, act)
 
 
 def popcount_accumulate(bits: torch.Tensor) -> torch.Tensor:

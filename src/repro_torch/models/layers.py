@@ -1,8 +1,10 @@
-"""Common layers: matmul dispatch, RMSNorm, rotary embeddings, MLP.
+"""Common layers: matmul dispatch, RMSNorm, rotary embeddings, MLP, and
+the chunked cross-entropy of training.
 
 ``dense`` is where the paper's technique plugs in: under
 ``matmul_mode="bp8_fused"`` every projection is an OISMA matmul run by
-the fused kernel; ``"bp8"`` and ``"bp8_lowrank"`` run the bit-exact
+the fused kernel, with the plain f32 matmul's gradients
+(straight-through, ``ops.oisma_matmul_ste``); ``"bp8"`` and ``"bp8_lowrank"`` run the bit-exact
 bitplane or low-rank formulation as plain f32 matmuls with a
 straight-through gradient (``core/bp_matmul.py``); ``"fp8"`` is the
 paper's E4M3 baseline; ``"bf16"`` is the plain bf16 matmul.
@@ -10,7 +12,7 @@ paper's E4M3 baseline; ``"bf16"`` is the plain bf16 matmul.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,7 +32,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, mode: str = "bf16",
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         if mode == "bp8_fused":         # w as held: the kernels read bf16
-            y = _ops.oisma_matmul(x2, w)
+            y = _ops.oisma_matmul_ste(x2, w)
         else:
             y = _bpm.bp_matmul_ste(
                 x2, w.to(torch.float32),
@@ -131,7 +133,7 @@ def mlp_apply(p, x: torch.Tensor, act: str, gated: bool,
         # reach device memory
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        up = _ops.oisma_mlp(x2, p["up"], p["gate"], act=act)
+        up = _ops.oisma_mlp_ste(x2, p["up"], p["gate"], act=act)
         up = up.reshape(*lead, p["up"].shape[-1]).to(x.dtype)
     else:
         up = dense(x, p["up"], mode)
@@ -148,3 +150,27 @@ def embed_def(vocab: int, d_model: int, dtype=torch.bfloat16) -> ParamDef:
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
+
+
+def chunked_softmax_xent(h: torch.Tensor, embed: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         chunk: int = 512, softcap: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over a large vocab without forming (B, S, V) at once:
+    f32 logits one sequence chunk at a time (``embed`` is (V, D)), their
+    ``logsumexp``, the gold logit, the mask.  Returns (sum_loss,
+    sum_mask)."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    ef = embed.to(torch.float32)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        hc = h[:, lo:lo + chunk].to(torch.float32)
+        logits = torch.einsum("bsd,vd->bsv", hc, ef)
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, lo:lo + chunk, None].long())[..., 0]
+        total = total + ((lse - gold) * mask[:, lo:lo + chunk]).sum()
+    return total, mask.sum()

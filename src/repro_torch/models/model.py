@@ -1,11 +1,13 @@
-"""``DecoderModel``: the decoder family's serving entry points.
+"""``DecoderModel``: the decoder family's serving entry points and its
+training loss.
 
 Functional like the reference: parameters are a nested dict of tensors
 (layer parameters stacked on a leading ``L`` axis) passed to every call,
 and a Python loop over the layers takes the place of ``lax.scan``.
 Caches are nested dicts of stacked tensors, updated in place layer by
-layer.  The model runs wherever its parameters live; every entry point
-runs under ``torch.inference_mode()``.
+layer.  The model runs wherever its parameters live; the three serving
+entry points run under ``torch.inference_mode()``, and ``loss`` under
+autograd, each layer recomputed in the backward when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -14,12 +16,13 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (embed_def, embed_lookup, linear_def,
-                                       mlp_apply, mlp_defs, norm_def,
-                                       rms_norm)
+from repro_torch.models.layers import (chunked_softmax_xent, embed_def,
+                                       embed_lookup, linear_def, mlp_apply,
+                                       mlp_defs, norm_def, rms_norm)
 from repro_torch.models.params import stack, tree_map
 
 BIG_WINDOW = 1 << 30  # "no window"
@@ -101,9 +104,23 @@ class DecoderModel:
     def _stack(self, params, x, positions, caches, mode: str):
         cfg = self.cfg
         windows = _layer_windows(cfg)
-        layers = params["layers"]
+        # one view per layer; under autograd, unbind's backward stacks the
+        # layers' gradients in one pass
+        layers = tree_map(lambda t: t.unbind(0), params["layers"])
+
+        def layer_fn(x, lp, window):
+            return _decoder_layer_apply(lp, cfg, x, positions,
+                                        window=window)[0]
+
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], layers)
+            if mode == "train":
+                if cfg.remat:
+                    x = checkpoint(layer_fn, x, lp, int(windows[i]),
+                                   use_reentrant=False)
+                else:
+                    x = layer_fn(x, lp, int(windows[i]))
+                continue
             lc = (None if caches is None else
                   {k: v[i] for k, v in caches["layers"].items()})
             x, _ = _decoder_layer_apply(lp, cfg, x, positions,
@@ -123,6 +140,27 @@ class DecoderModel:
         return logits
 
     # ---------------- entry points ----------------
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy over ``batch`` ("tokens" and
+        "labels" (B, S), optional "loss_mask"); returns (loss, metrics).
+        Runs under autograd; each layer is recomputed in the backward
+        when ``cfg.remat``."""
+        cfg = self.cfg
+        x = self._embed_in(params, batch)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h, _ = self._stack(params, x, positions, None, "train")
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        total, denom = chunked_softmax_xent(
+            h, params["embed"] if cfg.tie_embeddings else params["head"].T,
+            labels, mask, softcap=cfg.logit_softcap)
+        loss = total / torch.clamp_min(denom, 1.0)
+        return loss, {"loss": loss}
+
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
         """Prefill ``batch["tokens"]`` (B, S) into a fresh cache of

@@ -28,7 +28,11 @@ be replaced after capture.  The warm-up and every replay run on the
 caller's stream, one after another (``torch.cuda.graph`` synchronises
 before it captures on its own side stream, where nothing runs), which
 keeps absmax's device-global ticket and partials (``csrc/absmax.cu``)
-safe.
+safe.  Python's cyclic garbage collector is off during a capture: a
+dead reference cycle that holds another graph (an engine dropped
+earlier) would otherwise be collected whenever the capture's allocations
+cross its threshold, and destroying a graph while a stream captures
+invalidates the capture (``cudaErrorStreamCaptureInvalidated``).
 
 ``build.LAUNCHES`` counts a kernel where its wrapper launches it.  A
 replay launches the kernels that its capture recorded without calling
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Optional
 
@@ -105,8 +110,14 @@ class GraphedEntry:
             self.fn(*shape.inputs)       # warm-up, eager
             before = collections.Counter(LAUNCHES)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool):
-                shape.outputs = self.fn(*shape.inputs)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    shape.outputs = self.fn(*shape.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
         shape.launches = dict(collections.Counter(LAUNCHES) - before)
         LAUNCHES.clear()                 # the capture itself ran nothing
         LAUNCHES.update(before)

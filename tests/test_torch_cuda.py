@@ -21,7 +21,12 @@ replayed from CUDA graphs, give the eager calls' logits and caches
 bitwise, and the capturing engine the eager engine's tokens; so does the
 lock-step engine's decode.  Sampling on the card draws the CPU's bits and
 uniforms bitwise and its tokens.  The kernel counters count eager calls
-only.
+only.  Training: the straight-through matmul and MLP at 1024 and 1000
+rows give the plain forward (bitwise; the MLP 1e-5) and the CPU's
+gradients (f32 within 1e-5 of the largest, the MLP's 1e-4; bf16 within
+one bf16 ulp); one train step of the 2-layer smoke model gives the CPU's
+loss within 1e-4, its gradients (AdamW's first moments) with a cosine of
+at least 0.999 and its new params within 2.5 learning rates and an ulp.
 """
 import numpy as np
 import pytest
@@ -808,3 +813,102 @@ def test_record_counts_eager_calls_only(cuda, rng):
         assert reg.value("kernels.calls", kernel="fused_matmul") == 2
     finally:
         metrics.set_registry(prev)
+
+
+# ---------------------------------------------------------------------------
+# training: the straight-through ops and a train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1024, 1000])
+@pytest.mark.parametrize("k,n", [(2560, 640), (6912, 2560)])
+def test_matmul_ste_on_card(m, k, n, cuda, rng):
+    """Forward bitwise the plain version; the gradients (f32 products) within
+    1e-5 of the largest magnitude of the CPU's, the bf16 weight's within
+    one bf16 ulp an element."""
+    x = _randn(rng, (m, k), "cpu")
+    w = (_randn(rng, (k, n), "cpu") * k ** -0.5).to(torch.bfloat16)
+    g = _randn(rng, (m, n), "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        xr = x.detach().to(dev).requires_grad_()
+        wr = w.detach().to(dev).requires_grad_()
+        y = tops.oisma_matmul_ste(xr, wr)
+        (y * g.to(dev)).sum().backward()
+        out[str(dev)] = (y.detach().cpu(), xr.grad.cpu(), wr.grad.cpu())
+    (yc, gxc, gwc), (yg, gxg, gwg) = out["cpu"], out["cuda"]
+    assert torch.equal(yg, yc)
+    assert gwg.dtype == torch.bfloat16
+    assert (gxg - gxc).abs().max() <= 1e-5 * gxc.abs().max()
+    ulp = 2.0 ** (torch.floor(torch.log2(gwc.float().abs().clamp_min(1e-30)))
+                  - 7)
+    assert ((gwg.float() - gwc.float()).abs()
+            <= torch.maximum(ulp, 1e-5 * gwc.float().abs().max())).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1024, 1000])
+def test_mlp_ste_on_card(m, cuda, rng):
+    k, f = 2560, 6912
+    x = _randn(rng, (m, k), "cpu")
+    up, gate = ((_randn(rng, (k, f), "cpu") * k ** -0.5).to(torch.bfloat16)
+                for _ in range(2))
+    g = _randn(rng, (m, f), "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev).requires_grad_() for t in (x, up, gate)]
+        y = tops.oisma_mlp_ste(*ts, act="silu")
+        (y * g.to(dev)).sum().backward()
+        out[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in ts]
+    (yc, *gc), (yg, *gg) = out["cpu"], out["cuda"]
+    assert (yg - yc).abs().max() <= 1e-5 * yc.abs().max().clamp_min(1.0)
+    for a, b in zip(gg, gc):
+        a, b = a.float(), b.float()
+        ulp = 2.0 ** (torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+        assert ((a - b).abs() <= torch.maximum(
+            ulp, 1e-4 * b.abs().max())).all()
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One ``bp8_fused`` train step of the 2-layer smoke model on the card
+    against the CPU's plain path: the loss within 1e-4, AdamW's first
+    moments (the clipped gradients) with a cosine of at least 0.999 a
+    leaf, and the new params within 2.5 learning rates and one ulp of
+    their dtype (Adam's first step moves each weight by about one
+    learning rate either way, and the sum rounds to the leaf's dtype)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import build
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim.optimizer import OptimizerConfig, lr_at
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(get_config("h2o_danube_1p8b", smoke=True),
+                              matmul_mode="bp8_fused")
+    model = build(cfg)
+    opt = OptimizerConfig(learning_rate=3e-3, warmup_steps=5, total_steps=8)
+    step = make_train_step(model, opt, TrainPlan(1, 4))
+    batch = {k: torch.from_numpy(v) for k, v in batch_at(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4),
+        0).items()}
+    cpu = init_state(model, 0, opt, "cpu")
+    new_c, mc = step(cpu, batch)
+    new_g, mg = step(tree_map(lambda t: t.to(cuda), cpu),
+                     {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4
+    for (_, a), (_, b) in zip(tree_leaves(new_g["opt"]["m"]),
+                              tree_leaves(new_c["opt"]["m"])):
+        a = a.cpu().float()
+        cos = float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
+        assert cos >= 0.999 or float(b.abs().max()) == 0.0
+    lr = float(lr_at(opt, torch.tensor(1)))
+    for (_, a), (_, b) in zip(tree_leaves(new_g["params"]),
+                              tree_leaves(new_c["params"])):
+        bits = 7 if b.dtype == torch.bfloat16 else 23
+        b = b.float()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30)))
+                         - bits)
+        assert ((a.cpu().float() - b).abs() <= 2.5 * lr + ulp).all()
+

@@ -141,6 +141,43 @@ def test_uncaptured_entry_calls_fn_on_its_static_inputs():
     assert entry.count == 2 and entry.capture_s == 0.0
 
 
+def test_capture_runs_with_the_cyclic_collector_off(monkeypatch):
+    """A dead cycle holding another graph must not be collected while a
+    stream captures (destroying a graph then invalidates the capture): the
+    collector is off inside the capture, on again after it, also when the
+    capture raises."""
+    import gc
+    seen = []
+
+    class FakeGraph:
+        def replay(self):
+            seen.append(("replay", gc.isenabled()))
+
+    class FakeCapture:
+        def __init__(self, graph, pool=None):
+            pass
+
+        def __enter__(self):
+            seen.append(("capture", gc.isenabled()))
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", FakeCapture)
+    entry = GraphedEntry(lambda x: x + 1, capture=True)
+    entry.inputs("k", lambda: (torch.zeros(2),))
+    assert torch.equal(entry("k"), torch.ones(2))
+    assert seen == [("capture", False), ("replay", True)]
+    assert gc.isenabled()
+    failing = GraphedEntry(lambda x: 1 / 0 if not gc.isenabled() else x,
+                           capture=True)
+    failing.inputs("k", lambda: (torch.zeros(2),))
+    with pytest.raises(ZeroDivisionError):
+        failing("k")
+    assert gc.isenabled()
+
+
 # ---------------------------------------------------------------------------
 # pos0 as a tensor; the gather into static views
 # ---------------------------------------------------------------------------

@@ -88,6 +88,29 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
     ServeEngine(model, params, cfg, EngineConfig(), device="cpu")
 
 
+def test_training_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train as cli
+    from repro_torch.models import build
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import init_state
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = get_config("h2o_danube_1p8b", smoke=True)
+    model = build(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(model, 0, OptimizerConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(model, cfg, ShapeConfig("t", "train", 8, 1),
+              TrainerConfig(total_steps=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--steps", "1"])
+    # asked for by name, the CPU trains (the kernels' plain versions)
+    _, hist = train(model, cfg, ShapeConfig("t", "train", 8, 1),
+                    TrainerConfig(total_steps=1), device="cpu")
+    assert len(hist) == 1
+
+
 def test_cli_serves_on_cpu_when_asked(capsys):
     from repro_torch.launch import serve as cli
     out = cli.main(["--paged", "--device", "cpu", "--requests", "3",
