@@ -124,15 +124,41 @@ prints its wall time):
    forward, backward with the recompute, gradient sum, AdamW, with the
    BP kernels of the forward and of the recompute apart).
 
+9. The Gemma family in ``bp8_fused`` + ``bp8``.  (a) The served path's
+   four kernels against their plain versions at gemma3-12b's and
+   paligemma-3b's shapes (phase 2's timer, bounds and checks): decode
+   attention at head_dim 256 with G 2 (8 KV heads) and G 8 (MQA), S
+   1-4096, windows 1024 and full with positions past 1024, within 1e-5,
+   with the split and dynamic shared memory it launched with; the fused
+   matmul bitwise at every projection (K up to 16384, N down to 256) at M
+   4 and 64; the gelu MLP within 1e-5; absmax bitwise on the largest
+   weights; the ptxas registers and shared memory of the four.  (b) Card
+   vs CPU: gemma3 at full width and 6 layers (5 local, 1 global) on the
+   paged engine (prompts of 64 and 128 tokens, 4 greedy tokens), and
+   paligemma at full width and 2 layers on the lock-step engine (256 zero
+   patch tokens, prompts of 20 and 48, 6 tokens): card captured, card
+   eager and CPU tokens equal.  (c) The full 48-layer gemma3-12b, seeded
+   on the card (init time and peak printed), on ``PagedServeEngine`` (4
+   slots, block 16, 160 blocks, chunk 64): 8 requests, one of 1200
+   prompt tokens (the local window cuts) and 7 of 32-256, 16 new tokens,
+   twice on a capturing engine (the second timed, launches counted) and
+   once eager, all tokens equal; graphs within the bounds; the logits'
+   share of a captured decode step; a short profile.  (d) The full
+   18-layer paligemma-3b on the lock-step engine (256 zero patch tokens,
+   4 prompts of 16-64, 16 new tokens): twice captured (the second timed,
+   launches counted) and once eager, tokens equal, its decode graph
+   replayed bitwise equal to eager.
+
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
-1024), the card line, and ``{"ok": true, "device":
-{...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
+1024; rows 1-4 also on the Gemma paths, timed at their decode shapes),
+the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -902,11 +928,11 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
 
 
 def make_engine(cfg, params, device, capture=None, temperature=0.0,
-                seed=0):
+                seed=0, num_blocks=96):
     from repro_torch.models import build
     from repro_torch.serve.paged_engine import (PagedEngineConfig,
                                                 PagedServeEngine)
-    ecfg = PagedEngineConfig(slots=4, block_size=16, num_blocks=96,
+    ecfg = PagedEngineConfig(slots=4, block_size=16, num_blocks=num_blocks,
                              max_prefill_tokens=64, eos_id=-1,
                              temperature=temperature, seed=seed)
     return PagedServeEngine(build(cfg), params, cfg, ecfg, device=device,
@@ -929,6 +955,76 @@ def serve(torch, cfg, params, prompts, max_new, device, engine=None,
     if device == "cuda":
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0, engine
+
+
+#: the kernels of the served path (``bp8_fused`` over a ``bp8`` cache)
+SERVED = tuple(n for n, path in PATHS.items() if path == "serve_bp8_fused")
+
+
+def serve_captured_and_eager(torch, build, cfg, params, prompts,
+                             num_blocks=96):
+    """Serve ``prompts`` (16 new tokens each) twice on one capturing paged
+    engine (the first run captures each shape's graph; the second, timed,
+    replays them, its launches zeroed just before and read just after)
+    and once, after a short warm-up, on an eager engine of its own.  Fails
+    unless the graphs stay within ``compile_shape_bounds()``, the three
+    runs emit the same tokens, every served kernel launched, and every
+    request has 16 tokens of the vocabulary.  Returns (the record, the
+    capturing engine, the eager engine)."""
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(cfg, params, "cuda", num_blocks=num_blocks)
+    cold, cold_s, _ = serve(torch, cfg, params, prompts, 16, "cuda", engine)
+    capture_s = engine.stats.snapshot()["capture_s"]
+    before = engine.stats.snapshot()
+    build.reset_launches()
+    out, dt, _ = serve(torch, cfg, params, prompts, 16, "cuda", engine)
+    launches = dict(build.LAUNCHES)
+    run = {k: engine.stats.snapshot()[k] - before[k]
+           for k in ("steps", "prefill_chunks", "decode_ticks")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts, bounds = engine.compile_counts(), engine.compile_shape_bounds()
+    torch.cuda.reset_peak_memory_stats()
+    eager_engine = make_engine(cfg, params, "cuda", capture=False,
+                               num_blocks=num_blocks)
+    serve(torch, cfg, params, prompts[:1], 2, "cuda", eager_engine)
+    eager, eager_s, _ = serve(torch, cfg, params, prompts, 16, "cuda",
+                              eager_engine)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    lens = [len(p) for p in prompts]
+    n_tok = sum(len(v) for v in out.values())
+    print(f"served {cfg.name}: {cfg.num_layers} layers, {len(out)} requests "
+          f"(prompts {lens}), {n_tok} tokens; captured, warm: {dt:.3f}s = "
+          f"{n_tok / dt:.2f} tok/s; eager: {eager_s:.3f}s = "
+          f"{n_tok / eager_s:.2f} tok/s; captured, first run {cold_s:.3f}s "
+          f"of which warm-ups and captures {capture_s:.3f}s; engine steps a "
+          f"run {run['steps']}, prefill chunks {run['prefill_chunks']}, "
+          f"decode ticks {run['decode_ticks']}")
+    print(f"graphs per entry point {counts}, bound {bounds}; peak device "
+          f"memory captured {peak:.2f} GB, eager {eager_peak:.2f} GB")
+    print(f"served {cfg.name} launches (warm captured run, replays "
+          f"counted): {launches}")
+    if any(counts[k] > bounds[k] for k in bounds):
+        fail(f"{cfg.name}: graphs {counts} exceed the bound {bounds}")
+    if not out == cold == eager:
+        fail(f"{cfg.name}: captured (first and second run) and eager tokens "
+             f"differ")
+    for name in SERVED:
+        if launches.get(name, 0) <= 0:
+            fail(f"{cfg.name}: kernel {name} was not launched")
+    for rid, toks in out.items():
+        if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{cfg.name} request {rid}: bad output {toks}")
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "requests": len(out), "prompt_lens": lens, "new_tokens": n_tok,
+            "seconds": dt, "tokens_per_s": n_tok / dt,
+            "eager_seconds": eager_s, "eager_tokens_per_s": n_tok / eager_s,
+            "first_run_seconds": cold_s, "capture_s": capture_s,
+            "graphs": counts, "graph_bounds": bounds,
+            "engine_steps": run["steps"],
+            "prefill_chunks": run["prefill_chunks"],
+            "decode_ticks": run["decode_ticks"], "launches": launches,
+            "peak_mem_gb": peak, "eager_peak_mem_gb": eager_peak}, \
+        engine, eager_engine
 
 
 #: served-path kernels by the device names they run under
@@ -1247,22 +1343,25 @@ def serve_lockstep(torch, engine, prompts, max_new, seed, alone):
 
 def lockstep_replay_vs_eager(torch, engine, params, prompt, rng):
     """Two decode steps of the lock-step engine's captured graph (one row,
-    the contiguous 512-token cache, one scalar position) against eager
-    ``decode_step`` calls on the same inputs: logits and caches bitwise."""
+    the contiguous ``max_len`` cache plus any prefix, one scalar position)
+    against eager ``decode_step`` calls on the same inputs: logits and
+    caches bitwise."""
     with torch.inference_mode():        # the engine's buffers are made so
         _replay_vs_eager(torch, engine, params, prompt, rng)
-    print("lock-step decode (1 row, 512-token contiguous cache, scalar "
-          "position): 2 replayed steps bitwise equal to eager (logits and "
-          "cache)")
+    n = engine.ecfg.max_len + engine.cfg.num_prefix_tokens
+    print(f"lock-step decode ({engine.cfg.name}, 1 row, {n}-token "
+          f"contiguous cache, scalar position): 2 replayed steps bitwise "
+          f"equal to eager (logits and cache)")
 
 
 def _replay_vs_eager(torch, engine, params, prompt, rng):
     from repro_torch.models.params import tree_leaves
     model = engine.model
     tok, cache, pos = engine._decode_inputs(1)
-    dev = engine.device
-    _, fresh = model.prefill(params, {"tokens": torch.as_tensor(
-        prompt[None].astype("int64"), device=dev)}, 512)
+    max_len = engine.ecfg.max_len
+    _, fresh = model.prefill(params, engine._make_batch([prompt],
+                                                        len(prompt)), max_len)
+    dev, p0 = engine.device, len(prompt) + engine.cfg.num_prefix_tokens
 
     def clone(tree):
         return {k: clone(v) if isinstance(v, dict) else v.clone()
@@ -1271,14 +1370,14 @@ def _replay_vs_eager(torch, engine, params, prompt, rng):
     for step in range(2):
         t = torch.as_tensor(rng.integers(3, model.cfg.vocab_size, (1, 1)),
                             device=dev)
-        p = torch.tensor(len(prompt) + step, dtype=torch.int32, device=dev)
+        p = torch.tensor(p0 + step, dtype=torch.int32, device=dev)
         want, want_cache = model.decode_step(params, t, clone(fresh), p)
         tok.copy_(t)
         pos.copy_(p)
         for (_, leaf), (_, src) in zip(tree_leaves(cache),
                                        tree_leaves(fresh)):
             leaf.copy_(src)
-        got, got_cache = engine._decode((1, 512))
+        got, got_cache = engine._decode((1, max_len))
         if not torch.equal(got, want):
             fail(f"lock-step decode replayed: logits differ from eager by "
                  f"{(got - want).abs().max().item()}")
@@ -1982,6 +2081,360 @@ def train_full_depth(torch, build, full, steps=5, dev="cuda"):
                       "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Gemma family
+# ---------------------------------------------------------------------------
+
+#: the Gemma family's archs, their served paths in the kernels line
+GEMMA_PATHS = {"gemma3_12b": "serve_gemma3", "paligemma_3b": "serve_paligemma"}
+
+
+def gemma_config(arch: str, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), matmul_mode="bp8_fused",
+                               kv_quant="bp8", **kw)
+
+
+def gemma_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
+    """Phase 9(a) for one arch: the served path's four kernels against
+    their plain versions at its shapes: the fused matmul bitwise at every
+    projection (M 4 and 64), the gelu MLP within 1e-5 (M 4 and 64), absmax
+    bitwise on the largest weights, decode attention at D 256 within 1e-5
+    (S 1-4096, windows 1024 and full, positions past 1024).  Rows time one
+    layer of a 4-row decode step beside its bound; the attention row at
+    S 2048 (the served view of a 1300-token request) with gemma3's local
+    window, counting in its bound only the keys the masks let through."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import fused as kf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import KINDS, library
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def weight(k, n):
+        return randn(k, n, std=k ** -0.5).to(torch.bfloat16)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    d, ff = cfg.d_model, cfg.d_ff
+    kh, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim
+    mm = [(d, cfg.num_heads * hd), (d, kh * hd), (d, kh * hd),
+          (cfg.num_heads * hd, d), (ff, d)]
+    ws = [weight(k, n) for k, n in mm]
+    up, gate = weight(d, ff), weight(d, ff)
+    rows, detail = {}, {}
+
+    # the fused matmul, bitwise at every projection, 4 and 64 rows
+    for m in (4, 64):
+        for (k, n), w in zip(mm, ws):
+            x = randn(m, k)
+            sx, sy = kf.absmax(x, TINY), kf.absmax(w, TINY)
+            if not torch.equal(kf.fused_bp_matmul(x, w, sx, sy),
+                               ref.fused_matmul_ref(x, w, sx, sy)):
+                fail(f"{cfg.name}: fused matmul differs at {(m, k, n)}")
+    xs = {k: randn(4, k) for k in {k for k, _ in mm}}
+    calls, plain, bounds = [], [], []
+    for (k, n), w in zip(mm, ws):
+        args = (xs[k], w, kf.absmax(xs[k], TINY), kf.absmax(w, TINY))
+        calls.append(lambda a=args: kf.fused_bp_matmul(*a))
+        plain.append(lambda a=args: ref.fused_matmul_ref(*a))
+        bounds.append(bound(4 * 4 * k + nbytes(w) + 8 + 4 * 4 * n,
+                            2 * 4 * n * 8 * k, H100_INT8_OPS_PER_S))
+    rows["fused_matmul"] = dict(max_abs_err=0.0, ms=timer(calls),
+                                plain_ms=timer(plain, iters=3),
+                                library_ms=None, b=bounds)
+
+    # absmax: a decode layer's 13 scans, and bitwise on the largest weights
+    am_in = [xs[k] for k, _ in mm] + ws + [xs[d], up, gate]
+    for t in am_in + [torch.cat([up, gate], 1)]:
+        if not torch.equal(kf.absmax(t, TINY), ref.absmax_ref(t, TINY)):
+            fail(f"{cfg.name}: absmax differs at {tuple(t.shape)}")
+    rows["absmax"] = dict(
+        max_abs_err=0.0,
+        ms=timer([lambda t=t: kf.absmax(t, TINY) for t in am_in]),
+        plain_ms=timer([lambda t=t: ref.absmax_ref(t, TINY) for t in am_in]),
+        library_ms=timer([lambda t=t: torch.amax(t.abs()) for t in am_in]),
+        b=[bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)
+           for t in am_in])
+
+    # the gelu MLP, within 1e-5 of the output's magnitude
+    err = 0.0
+    su, sg = kf.absmax(up, TINY), kf.absmax(gate, TINY)
+    for m in (4, 64):
+        x = randn(m, d)
+        sx = kf.absmax(x, TINY)
+        a = kf.fused_mlp(x, up, gate, sx, su, sg, "gelu")
+        b = ref.fused_mlp_ref(x, up, gate, "gelu", sx, su, sg)
+        e = ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+        if not math.isfinite(e) or e > 1e-5:
+            fail(f"{cfg.name}: gelu MLP off by {e:.3g} at M {m}")
+        err = max(err, (a - b).abs().max().item())
+    x = xs[d]
+    sx = kf.absmax(x, TINY)
+    rows["fused_mlp"] = dict(
+        max_abs_err=err,
+        ms=timer([lambda: kf.fused_mlp(x, up, gate, sx, su, sg, "gelu")]),
+        plain_ms=timer([lambda: ref.fused_mlp_ref(x, up, gate, "gelu", sx,
+                                                  su, sg)], iters=3),
+        library_ms=None,
+        b=[bound(4 * 4 * d + nbytes(up) + nbytes(gate) + 12 + 4 * 4 * ff,
+                 2 * 2 * 4 * ff * 8 * d, H100_INT8_OPS_PER_S)])
+
+    # decode attention at D 256: 4 rows, positions past 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def cache(s):
+        kc, ks = ka.quantize_kv(randn(4, s, kh, hd))
+        vc, vs = ka.quantize_kv(randn(4, s, kh, hd))
+        pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(4, 1)
+        qp = torch.tensor([s - 1, max(s - 300, 0), max(s // 2 - 1, 0),
+                           max(s - 1100, 0)], dtype=torch.int32, device=dev)
+        pos[2, s // 2:] = -1                      # a row's empty tail
+        return kc, ks, vc, vs, pos, qp
+
+    q = randn(4, kh, g, hd) / math.sqrt(hd)
+    err, launched = 0.0, {}
+    for s in (1, 33, 1024, 1300, 2048, 4096):
+        cc = cache(s)
+        for win in (1024, None):
+            a = ka.bp8_decode_attention(q, *cc, win)
+            e = (a - ka.bp8_decode_attention_ref(q, *cc, win)).abs().max()
+            e = e.item()
+            if not math.isfinite(e) or e > 1e-5:
+                fail(f"{cfg.name}: decode attention (S {s}, window {win}) "
+                     f"off by {e:.3g}")
+            err = max(err, e)
+        split = ka.split_tokens(s, 4 * kh, g, hd, sms)
+        launched[s] = {"split_tokens": split,
+                       "dynamic_smem_bytes": ka._split_smem(g, hd, split)}
+    detail["decode_attention_launch"] = launched
+    S = 2048
+    kc, ks, vc, vs, pos, qp = cache(S)
+    main = (kc, ks, vc, vs, pos, qp)
+    win = cfg.window_size or ka.BIG_WINDOW
+    seen = ((pos >= 0) & (pos <= qp[:, None])
+            & (qp[:, None] - pos < win)).sum().item()   # keys let through
+    kd, vd = ka.dequantize_kv(kc, ks), ka.dequantize_kv(vc, vs)
+    qs = q.reshape(4, kh * g, 1, hd)
+    kt = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vt = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    mask = ((pos >= 0) & (pos <= qp[:, None])
+            & (qp[:, None] - pos < win))[:, None, None, :]
+    F = torch.nn.functional
+    rows["decode_attention"] = dict(
+        max_abs_err=err,
+        ms=timer([lambda: ka.bp8_decode_attention(q, *main, win)]),
+        plain_ms=timer([lambda: ka.bp8_decode_attention_ref(q, *main, win)]),
+        library_ms=timer([lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, scale=1.0)]),
+        b=[bound(2 * 4 * 4 * kh * g * hd + seen * kh * (2 * hd + 8)
+                 + 4 * seen + 4 * 4, 4 * seen * kh * g * hd,
+                 H100_F32_FLOPS_PER_S)])
+    lib = library()
+    detail["fused_matmul_dynamic_smem_bytes"] = {
+        m: lib.oisma_fused_matmul_smem(m, KINDS[torch.bfloat16])
+        for m in (4, 64)}
+    shown = [ln for ln in ptxas_report(log) if any(
+        k in ln for k in ("bp_mma_kernel", "absmax_kernel",
+                          "decode_partial_kernel", "decode_combine_kernel"))]
+    print(f"{cfg.name} kernels (registers, static shared memory, spills; "
+          f"ptxas): " + "; ".join(shown))
+    print(f"{cfg.name}: decode attention at D {hd}, KH {kh}, G {g}: "
+          + ", ".join(f"S {s}: split {v['split_tokens']} tokens, "
+                      f"{v['dynamic_smem_bytes']} B dynamic shared memory"
+                      for s, v in launched.items())
+          + f"; fused matmul tiles (bf16 weight) "
+          + ", ".join(f"M {m}: {v} B" for m, v in
+                      detail["fused_matmul_dynamic_smem_bytes"].items()))
+    for name, r in rows.items():
+        print(f"{cfg.name} kernel {name}: ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
+              f"{sum(x[0] for x in r['b']):.5f} max_abs_err "
+              f"{r['max_abs_err']}")
+    return rows, detail
+
+
+def lockstep_card_vs_cpu(torch, cfg, prompts, max_new):
+    """The same seeded weights on the card, captured and eager, and on the
+    CPU emit the same greedy tokens through the lock-step engine (all
+    prompts in one generation)."""
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models import build as build_model
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    p_cpu = init_params(build_model(cfg).schema(), seed=0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    out = {}
+    for what, params, dev, capture in (("captured", p_gpu, "cuda", None),
+                                       ("eager", p_gpu, "cuda", False),
+                                       ("cpu", p_cpu, "cpu", None)):
+        eng = ServeEngine(build_model(cfg), params, cfg, EngineConfig(
+            slots=len(prompts), max_len=128, eos_id=-1), device=dev,
+            capture=capture)
+        out[what], secs = serve_lockstep(torch, eng, prompts, max_new, 0,
+                                         alone=False)
+    print(f"card vs cpu ({cfg.name}, lock-step, {cfg.num_layers} layers, "
+          f"full width, {cfg.num_prefix_tokens} zero patch tokens): card, "
+          f"captured {out['captured']}; eager {out['eager']}; cpu "
+          f"{out['cpu']} ({secs:.1f}s on the CPU)")
+    if not out["captured"] == out["eager"] == out["cpu"]:
+        fail(f"{cfg.name}: card (captured, eager) and CPU tokens differ")
+    return secs
+
+
+def serve_gemma3(torch, build, timer, rng):
+    """Phase 9(c): the full gemma3-12b (48 layers) on ``PagedServeEngine``
+    (4 slots, block 16, 160 blocks, prefill chunk 64): 8 requests, one
+    prompt of 1200 tokens (past the local window of 1024) and 7 of
+    32-256, 16 new tokens each; twice on one capturing engine (the second
+    timed, launches zeroed just before and read just after) and once on an
+    eager engine, all three tokens equal; graphs within the bounds; a
+    short profile; the logits' share of a captured decode step."""
+    import numpy as np
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_leaves
+    cfg = gemma_config("gemma3_12b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model.schema(), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s, init_peak = (time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() / 1e9)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    print(f"{cfg.name}: {n_params / 1e9:.3f} B params seeded on the card in "
+          f"{init_s:.1f}s, init peak {init_peak:.2f} GB")
+    lens = [32, 1200, 256] + [int(n) for n in rng.integers(32, 257, 5)]
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    rec, engine, eager_engine = serve_captured_and_eager(
+        torch, build, cfg, params, prompts, num_blocks=160)
+    del eager_engine
+    # the logits (the tied (262144, 3840) embedding cast to f32 and a
+    # matmul) against a captured 4-row decode step over a 2048-token view
+    key = max(k for k in engine._decode._shapes)
+    h = torch.randn((4, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        logits_ms = timer([lambda: model._logits(params, h)], iters=5)
+        step_ms = timer([lambda: engine._decode(key)], iters=5)
+    print(f"{cfg.name}: logits of 4 rows {logits_ms:.4f} ms, a captured "
+          f"decode step (view {key}) {step_ms:.4f} ms: the logits' share "
+          f"{logits_ms / step_ms:.3f}")
+    prof = profile_serving(torch, engine, cfg, params, prompts[:4])
+    ran = set(prof["served_kernels"])
+    if not set(SERVED) <= ran:
+        fail(f"{cfg.name}: kernels missing from the captured profile "
+             f"(ran: {sorted(ran)})")
+    del engine
+    return rec["launches"], dict(
+        rec, params=n_params, init_s=init_s, init_peak_mem_gb=init_peak,
+        logits_ms=logits_ms, decode_step_ms=step_ms, decode_view=key,
+        logits_share_of_decode_step=logits_ms / step_ms, profile=prof)
+
+
+def serve_paligemma(torch, build, rng):
+    """Phase 9(d): the full paligemma-3b (18 layers) on the lock-step
+    engine (4 slots, max_len 128, 256 zero patch tokens a request): 4
+    requests of 16-64 prompt tokens, 16 new tokens each, twice on one
+    capturing engine (the second timed, launches zeroed just before and
+    read just after) and once eager, tokens equal; the decode graph
+    replayed bitwise equal to eager, logits and cache."""
+    import numpy as np
+    from repro_torch.models.params import init_params
+    from repro_torch.models import build as build_model
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    cfg = gemma_config("paligemma_3b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.schema(), seed=0, device="cuda")
+    lens = [16, 64] + [int(n) for n in rng.integers(16, 65, 2)]
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    ecfg = EngineConfig(slots=4, max_len=128, eos_id=-1)
+    engine = ServeEngine(model, params, cfg, ecfg, device="cuda")
+    cold, cold_s = serve_lockstep(torch, engine, prompts, 16, 0, False)
+    build.reset_launches()
+    out, dt = serve_lockstep(torch, engine, prompts, 16, 0, False)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_engine = ServeEngine(model, params, cfg, ecfg, device="cuda",
+                               capture=False)
+    eager, eager_s = serve_lockstep(torch, eager_engine, prompts, 16, 0,
+                                    False)
+    del eager_engine
+    n_tok = sum(len(v) for v in out.values())
+    print(f"served {cfg.name}: {cfg.num_layers} layers, lock-step, "
+          f"{len(out)} requests (prompts {lens} after "
+          f"{cfg.num_prefix_tokens} patch tokens), {n_tok} tokens; captured, "
+          f"warm: {dt:.3f}s = {n_tok / dt:.2f} tok/s (first run "
+          f"{cold_s:.3f}s); eager {eager_s:.3f}s = {n_tok / eager_s:.2f} "
+          f"tok/s; graphs {engine.compile_counts()}; peak device memory "
+          f"{peak:.2f} GB; launches (warm captured run) {launches}")
+    if not out == cold == eager:
+        fail(f"{cfg.name}: captured (first and second run) and eager tokens "
+             f"differ")
+    for name in SERVED:
+        if launches.get(name, 0) <= 0:
+            fail(f"{cfg.name}: kernel {name} was not launched")
+    for rid, toks in out.items():
+        if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{cfg.name} request {rid}: bad output {toks}")
+    lockstep_replay_vs_eager(torch, engine, params, prompts[1], rng)
+    del engine
+    return launches, {
+        "model": cfg.name, "layers": cfg.num_layers, "requests": len(out),
+        "prompt_lens": lens, "prefix_tokens": cfg.num_prefix_tokens,
+        "new_tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
+        "eager_seconds": eager_s, "eager_tokens_per_s": n_tok / eager_s,
+        "first_run_seconds": cold_s, "launches": launches,
+        "peak_mem_gb": peak}
+
+
+def phase_gemma(torch, timer, build, log: str, rng):
+    """Phase 9: the Gemma family on the card.  Returns the kernel rows and
+    the launches of each arch's served path, and a report."""
+    import numpy as np
+    report, rows, launches = {}, {}, {}
+    gc.collect()               # what the earlier phases left in cycles
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for arch in GEMMA_PATHS:
+        rows[arch], report[f"kernels_{arch}"] = gemma_kernel_rows(
+            torch, timer, gemma_config(arch), log)
+    report["a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    # prompts of one and two whole chunks: the CPU's plain path costs
+    # ~20 s a call at this width, so (b) makes six calls of the model
+    g3 = gemma_config("gemma3_12b", num_layers=6)
+    prompts = [rng.integers(3, g3.vocab_size, n).astype(np.int32)
+               for n in (64, 128)]
+    report["cpu_s"] = {"gemma3_12b": card_vs_cpu(torch, g3, prompts, 4)}
+    pali = gemma_config("paligemma_3b", num_layers=2)
+    prompts = [rng.integers(3, pali.vocab_size, n).astype(np.int32)
+               for n in (20, 48)]
+    report["cpu_s"]["paligemma_3b"] = lockstep_card_vs_cpu(torch, pali,
+                                                           prompts, 6)
+    report["b_s"] = time.perf_counter() - t1
+    print(f"phase 9(b) card vs cpu: {report['b_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["gemma3_12b"], report["gemma3"] = serve_gemma3(
+        torch, build, timer, rng)
+    gc.collect()               # the engines' graphs sit in reference cycles
+    torch.cuda.empty_cache()
+    launches["paligemma_3b"], report["paligemma"] = serve_paligemma(
+        torch, build, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches"] = launches
+    return rows, launches, report
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -1997,20 +2450,22 @@ class Phase:
         print(f"phase {self.name}: {dt:.1f}s")
 
 
-def card_vs_cpu(torch, cfg, prompts):
-    """The same seeded 2-layer weights on the card, captured and eager, and
-    on the CPU must emit the same greedy tokens."""
+def card_vs_cpu(torch, cfg, prompts, max_new=8):
+    """The same seeded weights (``cfg.num_layers`` layers) on the card,
+    captured and eager, and on the CPU must emit the same greedy tokens
+    through the paged engine."""
     from repro_torch.models import build as build_model
     from repro_torch.models.params import init_params, tree_map
     p_cpu = init_params(build_model(cfg).schema(), seed=0, device="cpu")
     p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
-    out_gpu, _, eng = serve(torch, cfg, p_gpu, prompts, 8, "cuda")
+    out_gpu, _, eng = serve(torch, cfg, p_gpu, prompts, max_new, "cuda")
     if not eng.capture:
         fail("the engine on CUDA does not capture by default")
-    out_eager, _, _ = serve(torch, cfg, p_gpu, prompts, 8, "cuda",
+    out_eager, _, _ = serve(torch, cfg, p_gpu, prompts, max_new, "cuda",
                             capture=False)
-    out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, 8, "cpu")
-    print(f"card vs cpu ({cfg.matmul_mode}, 2 layers, full width): card, "
+    out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, max_new, "cpu")
+    print(f"card vs cpu ({cfg.name}, {cfg.matmul_mode}, {cfg.num_layers} "
+          f"layers, full width): card, "
           f"captured ({eng.compile_counts()} graphs) {out_gpu}")
     print(f"    card, eager {out_eager}")
     print(f"    cpu {out_cpu} ({cpu_s:.1f}s on the CPU)")
@@ -2184,51 +2639,9 @@ def main() -> None:
         lens = [32, 256] + [int(n) for n in rng.integers(32, 257, 6)]
         prompts = [rng.integers(3, full.vocab_size, n).astype(np.int32)
                    for n in lens]
-        # captured: the first run captures each shape's graph, the second
-        # (timed, launches counted) replays them
-        torch.cuda.reset_peak_memory_stats()
-        cold, cold_s, engine = serve(torch, full, params, prompts, 16, "cuda")
-        capture_s = engine.stats.snapshot()["capture_s"]
-        before = engine.stats.snapshot()
-        build.reset_launches()
-        out, dt, _ = serve(torch, full, params, prompts, 16, "cuda", engine)
-        launches = dict(build.LAUNCHES)
-        run = {k: engine.stats.snapshot()[k] - before[k]
-               for k in ("steps", "prefill_chunks", "decode_ticks")}
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        counts, bounds = engine.compile_counts(), engine.compile_shape_bounds()
-        # eager, on an engine of its own, after a short warm-up
-        torch.cuda.reset_peak_memory_stats()
-        eager_engine = make_engine(full, params, "cuda", capture=False)
-        serve(torch, full, params, prompts[:1], 2, "cuda", eager_engine)
-        eager, eager_s, _ = serve(torch, full, params, prompts, 16, "cuda",
-                                  eager_engine)
-        eager_peak = torch.cuda.max_memory_allocated() / 1e9
-        n_tok = sum(len(v) for v in out.values())
-        print(f"served path: {full.name} {full.num_layers} layers, "
-              f"{len(out)} requests (prompts {lens}), {n_tok} tokens; "
-              f"captured, warm: {dt:.3f}s = {n_tok / dt:.2f} tok/s; eager: "
-              f"{eager_s:.3f}s = {n_tok / eager_s:.2f} tok/s; captured, "
-              f"first run {cold_s:.3f}s of which warm-ups and captures "
-              f"{capture_s:.3f}s; engine steps a run {run['steps']}, "
-              f"prefill chunks {run['prefill_chunks']}, decode ticks "
-              f"{run['decode_ticks']}")
-        print(f"graphs per entry point {counts}, bound "
-              f"{bounds}; peak device memory captured {peak:.2f} GB, "
-              f"eager {eager_peak:.2f} GB")
-        print(f"served path launches (warm captured run, replays "
-              f"counted): {launches}")
-        if any(counts[k] > bounds[k] for k in bounds):
-            fail(f"graphs {counts} exceed the bound {bounds}")
-        if not out == cold == eager:
-            fail("captured (first and second run) and eager tokens differ")
-        for name, path in PATHS.items():
-            if path == "serve_bp8_fused" and launches.get(name, 0) <= 0:
-                fail(f"kernel {name} was not launched on the served path")
-        for rid, toks in out.items():
-            if len(toks) != 16 or not all(0 <= t < full.vocab_size
-                                          for t in toks):
-                fail(f"request {rid}: bad output {toks}")
+        main_path, engine, eager_engine = serve_captured_and_eager(
+            torch, build, full, params, prompts)
+        launches = main_path["launches"]
         logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
             prompts[0][None, :16].astype(np.int64), device="cuda")}, 16)
         if logits.shape != (1, full.vocab_size) or \
@@ -2242,25 +2655,13 @@ def main() -> None:
         report["profile_eager"] = profile_serving(torch, eager_engine, full,
                                                   params, prompts[:4])
         ran = set(report["profile"]["served_kernels"])
-        for name, path in PATHS.items():
-            if path == "serve_bp8_fused" and name not in ran:
-                fail(f"kernel {name} does not run in the captured profile "
-                     f"(ran: {sorted(ran)})")
+        if not set(SERVED) <= ran:
+            fail(f"served kernels missing from the captured profile (ran: "
+                 f"{sorted(ran)})")
         del eager_engine
         report["decode_layer_launches"] = decode_layer_launches(
             torch, full, params)
-        report["main_path"] = {
-            "model": full.name, "layers": full.num_layers,
-            "requests": len(out), "prompt_lens": lens, "new_tokens": n_tok,
-            "seconds": dt, "tokens_per_s": n_tok / dt,
-            "eager_seconds": eager_s, "eager_tokens_per_s": n_tok / eager_s,
-            "first_run_seconds": cold_s, "capture_s": capture_s,
-            "graphs": counts, "graph_bounds": bounds,
-            "engine_steps": run["steps"],
-            "prefill_chunks": run["prefill_chunks"],
-            "decode_ticks": run["decode_ticks"],
-            "launches": launches, "peak_mem_gb": peak,
-            "eager_peak_mem_gb": eager_peak}
+        report["main_path"] = main_path
         del engine
 
     # ---- phase 5: the unfused pipeline at full width ----
@@ -2333,12 +2734,22 @@ def main() -> None:
                                                             full)
         report["phase8"] = p8
 
+    # ---- phase 9: the Gemma family ----
+    with Phase("9 gemma3-12b and paligemma-3b", report):
+        gemma_rows, gemma_launches, report["phase9"] = phase_gemma(
+            torch, timer, build, log, rng)
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches}
+    for arch, path in GEMMA_PATHS.items():
+        path_launches[path] = gemma_launches[arch]
     kernels = []
     for name, path, r in ([(n, PATHS[n], rows[n]) for n in SOURCES]
                           + [(n, "train_bp8_fused", r)
-                             for n, r in train_rows.items()]):
+                             for n, r in train_rows.items()]
+                          + [(n, GEMMA_PATHS[arch], r)
+                             for arch, arch_rows in gemma_rows.items()
+                             for n, r in arch_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)
         t_ops = sum(x[2] for x in b)

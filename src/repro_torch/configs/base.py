@@ -10,7 +10,7 @@ import dataclasses
 import importlib
 from typing import Optional
 
-ARCH_IDS = ("h2o_danube_1p8b", "qwen2_72b")
+ARCH_IDS = ("gemma3_12b", "h2o_danube_1p8b", "qwen2_72b", "paligemma_3b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +28,15 @@ class ModelConfig:
     attention_type: str = "gqa"
     qkv_bias: bool = False
     window_size: Optional[int] = None        # SWA window (None = full attn)
+    local_global_pattern: int = 0            # N local layers per 1 global
+    qk_norm: bool = False
     rope_theta: float = 10_000.0
     logit_softcap: Optional[float] = None
     # MLP
     mlp_gated: bool = True
     act: str = "silu"
+    # vlm (paligemma): a bidirectional prefix of patch embeddings
+    num_prefix_tokens: int = 0
     # execution policy
     tie_embeddings: bool = True
     norm_eps: float = 1e-6

@@ -89,7 +89,9 @@ def bp_quantize_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     kernel casts its tile)."""
     x = x.to(torch.float32)
     s = scale.to(torch.float32).reshape(())
-    return (torch.sign(x) * bp_levels(x, s)).to(torch.int8)
+    # bp_levels' ops in place: one f32 temporary instead of five
+    lv = x.abs().div_(s).mul_(10.0).round_().clamp_(0.0, NUM_LEVELS - 1)
+    return lv.mul_(torch.sign(x)).to(torch.int8)
 
 
 def to_codes(q) -> torch.Tensor:
@@ -102,11 +104,18 @@ def popcount_accumulate_ref(bits: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).sum(-1, dtype=torch.int32)
 
 
-def _planes(levels: torch.Tensor, sign: torch.Tensor, which: str):
-    """(..., 8) signed bitplanes: ``sign * (level >= threshold[p])``."""
-    t = torch.tensor(plane_thresholds(which), dtype=torch.float32,
-                     device=levels.device)
-    return (levels[..., None] >= t).to(torch.float32) * sign[..., None]
+def _planes(codes: torch.Tensor, which: str, axis: int) -> torch.Tensor:
+    """Signed bitplanes ``sign * (level >= threshold[p])`` of int8 codes as
+    f32, the plane axis inserted at ``axis``: x's as (M, K, 8) and y's as
+    (K, 8, N), so that both flatten, without a copy, to one contraction
+    over (k, p)."""
+    t = torch.tensor(plane_thresholds(which), dtype=codes.dtype,
+                     device=codes.device)
+    shape = [1] * (codes.dim() + 1)
+    shape[axis] = -1
+    sign = torch.sign(codes).to(torch.float32).unsqueeze(axis)
+    return torch.where(codes.abs().unsqueeze(axis) >= t.reshape(shape), sign,
+                       0.0)
 
 
 def _scalar(s: torch.Tensor) -> torch.Tensor:
@@ -121,12 +130,9 @@ def bp_matmul_ref(x_codes: torch.Tensor,
     n = y_codes.shape[1]
     acc = torch.zeros((m, n), dtype=torch.float32, device=x_codes.device)
     for k0 in range(0, k, _K_CHUNK):
-        xs, ys = x_codes[:, k0:k0 + _K_CHUNK], y_codes[k0:k0 + _K_CHUNK]
-        xp = _planes(xs.abs().to(torch.float32),
-                     torch.sign(xs).to(torch.float32), "right")
-        yp = _planes(ys.abs().to(torch.float32),
-                     torch.sign(ys).to(torch.float32), "left")
-        acc += xp.reshape(m, -1) @ yp.permute(0, 2, 1).reshape(-1, n)
+        xp = _planes(x_codes[:, k0:k0 + _K_CHUNK], "right", 2)
+        yp = _planes(y_codes[k0:k0 + _K_CHUNK], "left", 1)
+        acc += xp.reshape(m, -1) @ yp.reshape(-1, n)
     return acc
 
 

@@ -4,12 +4,16 @@
   python -m repro_torch.launch.serve --paged --requests 8    # paged
   python -m repro_torch.launch.serve --paged --full-config --temperature 0.8
   python -m repro_torch.launch.serve --device cpu            # plain path
+  python -m repro_torch.launch.serve --arch gemma3_12b --paged --full-config
+  python -m repro_torch.launch.serve --arch paligemma_3b --full-config
 
 Flags follow the reference CLI, plus ``--device`` (default ``cuda``;
 without CUDA the run stops unless ``--device cpu`` is given).  ``--paged``
 runs the ``PagedServeEngine`` (paged KV cache, priority scheduler,
 chunked prefill); without it the lock-step ``ServeEngine`` serves, as in
-the reference.  The model runs the paper's path,
+the reference.  The archs are ``repro_torch.configs.base.ARCH_IDS``;
+paligemma (a prefix of zero patch embeddings) serves on the lock-step
+engine only, and ``--paged`` refuses it.  The model runs the paper's path,
 ``matmul_mode="bp8_fused"`` with a ``bp8`` KV cache.
 """
 from __future__ import annotations

@@ -19,7 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import device_constant
 from repro_torch.kernels import attention as kq
-from repro_torch.models.layers import ParamDef, apply_rope, dense, linear_def
+from repro_torch.models.layers import (ParamDef, apply_rope, dense,
+                                       linear_def, norm_def, rms_norm)
 
 NEG_INF = -1e30
 
@@ -29,14 +30,19 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def _allowed(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
-             window: Optional[int]) -> torch.Tensor:
+             window: Optional[int],
+             prefix_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Sq, Skv) boolean mask from absolute positions (kv_pos < 0 =
-    empty slot)."""
+    empty slot).  ``prefix_len`` (B,): keys below it are visible to every
+    query (the prefix-LM's bidirectional prefix)."""
     qp = q_pos[:, :, None]
     kp = kv_pos[:, None, :]
     ok = kp >= 0
     if causal:
-        ok = ok & (kp <= qp)
+        c = kp <= qp
+        if prefix_len is not None:
+            c = c | (kp < prefix_len[:, None, None])
+        ok = ok & c
     if window is not None:
         ok = ok & (qp - kp < window)
     return ok
@@ -75,7 +81,7 @@ def _sdpa_direct(q, k, v, mask, softcap=None):
 
 
 def _sdpa_chunked(q, k, v, q_pos, kv_pos, *, causal, window, chunk,
-                  softcap=None):
+                  softcap=None, prefix_len=None):
     """Online softmax over KV chunks; never forms (Sq, Skv) in full."""
     b, kh, g, sq, _ = q.shape
     dv = v.shape[-1]
@@ -92,7 +98,7 @@ def _sdpa_chunked(q, k, v, q_pos, kv_pos, *, causal, window, chunk,
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         mask = _allowed(q_pos, kv_pos[:, c0:c0 + chunk], causal=causal,
-                        window=window)
+                        window=window, prefix_len=prefix_len)
         s = _masked(s, mask[:, None, None])
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
@@ -105,7 +111,7 @@ def _sdpa_chunked(q, k, v, q_pos, kv_pos, *, causal, window, chunk,
 
 
 def sdpa(q, k, v, q_pos, kv_pos, *, causal=True, window=None, chunk=1024,
-         softcap=None):
+         softcap=None, prefix_len=None):
     """Grouped SDPA. q: (B,Sq,H,D) k/v: (B,Skv,KH,D[v]) -> (B,Sq,H,Dv) f32."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -116,9 +122,11 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal=True, window=None, chunk=1024,
     qg = qg.to(torch.float32) * _sdpa_scale(d, q.device)
     if skv > chunk and skv % chunk == 0:
         out = _sdpa_chunked(qg, kt, vt, q_pos, kv_pos, causal=causal,
-                            window=window, chunk=chunk, softcap=softcap)
+                            window=window, chunk=chunk, softcap=softcap,
+                            prefix_len=prefix_len)
     else:
-        mask = _allowed(q_pos, kv_pos, causal=causal, window=window)
+        mask = _allowed(q_pos, kv_pos, causal=causal, window=window,
+                        prefix_len=prefix_len)
         out = _sdpa_direct(qg, kt, vt, mask, softcap=softcap)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1)
 
@@ -229,16 +237,21 @@ def gqa_defs(cfg: ModelConfig, dtype=torch.bfloat16):
         defs["bq"] = ParamDef((h * d,), ("heads",), dtype, "zeros")
         defs["bk"] = ParamDef((kh * d,), ("kv_heads",), dtype, "zeros")
         defs["bv"] = ParamDef((kh * d,), ("kv_heads",), dtype, "zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = norm_def(d)
+        defs["k_norm"] = norm_def(d)
     return defs
 
 
 def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               *, window: Optional[int], cache: Optional[Dict] = None,
+              prefix_len: Optional[torch.Tensor] = None,
               append: bool = False):
     """Returns (out, cache).  Modes:
        * no cache: self-attention over x;
        * decode (Sq == 1): write one slot, attend over the cache — through
-         the fused kernel when the cache is BP8;
+         the fused kernel when the cache is BP8 and there is no
+         ``prefix_len`` (with one, over the dequantised cache);
        * chunked prefill (``append``): append the Sq tokens at slots
          [p0, p0+Sq) and attend over the whole cache;
        * prefill: write the cache densely from slot 0.
@@ -251,6 +264,9 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     q = dense(x, p["wq"], mode, p.get("bq")).reshape(b, sq, h, d)
     k = dense(x, p["wk"], mode, p.get("bk")).reshape(b, sq, kh, d)
     v = dense(x, p["wv"], mode, p.get("bv")).reshape(b, sq, kh, d)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q_pos = positions if positions.dim() == 2 else positions[None].expand(
@@ -269,7 +285,7 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         k_all, v_all, kv_pos = k, v, q_pos
     elif sq == 1:
         _cache_write(cache, updates, q_pos[:, 0])
-        if quant:
+        if quant and prefix_len is None:
             # codes stream into the kernel and dequantise on chip; the
             # cache is never expanded in device memory
             qg = q[:, 0].reshape(b, kh, h // kh, d).to(torch.float32)
@@ -280,6 +296,10 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                 q_pos[:, 0].to(torch.int32).contiguous(), window,
                 softcap=cfg.logit_softcap)
             out = o.reshape(b, 1, h, d)
+        elif quant:
+            k_all = kq.dequantize_kv(cache["k_codes"], cache["k_scale"])
+            v_all = kq.dequantize_kv(cache["v_codes"], cache["v_scale"])
+            kv_pos = cache["pos"]
         else:
             k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
     elif append:
@@ -302,6 +322,6 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     if out is None:
         out = sdpa(q, k_all, v_all, q_pos, kv_pos, causal=True,
                    window=window, chunk=cfg.attn_chunk,
-                   softcap=cfg.logit_softcap)
+                   softcap=cfg.logit_softcap, prefix_len=prefix_len)
     out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
     return out, cache

@@ -29,25 +29,38 @@ BIG_WINDOW = 1 << 30  # "no window"
 
 
 def _decoder_layer_defs(cfg: ModelConfig):
-    return {"ln1": norm_def(cfg.d_model), "ln2": norm_def(cfg.d_model),
-            "attn": attn.gqa_defs(cfg),
-            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)}
+    d = {"ln1": norm_def(cfg.d_model), "ln2": norm_def(cfg.d_model),
+         "attn": attn.gqa_defs(cfg),
+         "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)}
+    if cfg.local_global_pattern:  # gemma3 also post-norms
+        d["post_ln1"] = norm_def(cfg.d_model)
+        d["post_ln2"] = norm_def(cfg.d_model)
+    return d
 
 
 def _layer_windows(cfg: ModelConfig) -> np.ndarray:
-    """Per-layer attention windows (BIG_WINDOW = full attention)."""
-    return np.full((cfg.num_layers,), cfg.window_size or BIG_WINDOW,
-                   np.int64)
+    """Per-layer attention windows (BIG_WINDOW = full attention); with a
+    ``local_global_pattern`` of N, every (N+1)-th layer is global."""
+    w = np.full((cfg.num_layers,), cfg.window_size or BIG_WINDOW, np.int64)
+    if cfg.local_global_pattern:
+        w[cfg.local_global_pattern::cfg.local_global_pattern + 1] = \
+            BIG_WINDOW
+    return w
 
 
 def _decoder_layer_apply(p, cfg: ModelConfig, x, positions, *, window,
-                         cache=None, append=False):
+                         cache=None, prefix_len=None, append=False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
-                              cache=cache, append=append)
+                              cache=cache, prefix_len=prefix_len,
+                              append=append)
+    if "post_ln1" in p:
+        a = rms_norm(a, p["post_ln1"], cfg.norm_eps)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = mlp_apply(p["mlp"], h, cfg.act, cfg.mlp_gated, cfg.matmul_mode)
+    if "post_ln2" in p:
+        m = rms_norm(m, p["post_ln2"], cfg.norm_eps)
     return x + m, cache
 
 
@@ -101,7 +114,7 @@ class DecoderModel:
             self.cache_spec(batch, length), )
 
     # ---------------- forward over the stack ----------------
-    def _stack(self, params, x, positions, caches, mode: str):
+    def _stack(self, params, x, positions, caches, prefix_len, mode: str):
         cfg = self.cfg
         windows = _layer_windows(cfg)
         # one view per layer; under autograd, unbind's backward stacks the
@@ -110,7 +123,8 @@ class DecoderModel:
 
         def layer_fn(x, lp, window):
             return _decoder_layer_apply(lp, cfg, x, positions,
-                                        window=window)[0]
+                                        window=window,
+                                        prefix_len=prefix_len)[0]
 
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], layers)
@@ -125,11 +139,30 @@ class DecoderModel:
                   {k: v[i] for k, v in caches["layers"].items()})
             x, _ = _decoder_layer_apply(lp, cfg, x, positions,
                                         window=int(windows[i]), cache=lc,
+                                        prefix_len=prefix_len,
                                         append=mode == "prefill_chunk")
         return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
+    def _scaled_embed(self) -> bool:
+        """Token embeddings are scaled by sqrt(d_model) for gemma3 and
+        paligemma, as the reference decides."""
+        cfg = self.cfg
+        return cfg.local_global_pattern > 0 or cfg.num_prefix_tokens > 0
+
     def _embed_in(self, params, batch):
-        return embed_lookup(params["embed"], batch["tokens"])
+        """Token embeddings, and for paligemma the batch's patch
+        embeddings (the stub vision tower's output) prepended unscaled."""
+        x = embed_lookup(params["embed"], batch["tokens"],
+                         scale=self._scaled_embed())
+        if self.cfg.num_prefix_tokens and "patches" in batch:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x
+
+    def _prefix(self, b: int, device):
+        """(B,) prefix lengths for the mask, or None without a prefix."""
+        n = self.cfg.num_prefix_tokens
+        return (torch.full((b,), n, dtype=torch.int32, device=device)
+                if n else None)
 
     def _logits(self, params, h):
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
@@ -149,7 +182,10 @@ class DecoderModel:
         x = self._embed_in(params, batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        h, _ = self._stack(params, x, positions, None, "train")
+        h, _ = self._stack(params, x, positions, None,
+                           self._prefix(b, x.device), "train")
+        if cfg.num_prefix_tokens:
+            h = h[:, cfg.num_prefix_tokens:]
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         if mask is None:
@@ -163,13 +199,17 @@ class DecoderModel:
 
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
-        """Prefill ``batch["tokens"]`` (B, S) into a fresh cache of
-        ``cache_len``; returns (last-position logits (B, V), cache)."""
+        """Prefill ``batch["tokens"]`` (B, S) (after ``batch["patches"]``
+        (B, prefix, d_model) for paligemma) into a fresh cache of
+        ``cache_len`` plus the prefix; returns (last-position logits
+        (B, V), cache)."""
         x = self._embed_in(params, batch)
         b, s, _ = x.shape
-        cache = self.init_cache(b, cache_len, x.device)
+        cache = self.init_cache(b, cache_len + self.cfg.num_prefix_tokens,
+                                x.device)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        h, cache = self._stack(params, x, positions, cache, "prefill")
+        h, cache = self._stack(params, x, positions, cache,
+                               self._prefix(b, x.device), "prefill")
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     @torch.inference_mode()
@@ -179,22 +219,26 @@ class DecoderModel:
         an int or a one-element int tensor on the model's device, as the
         reference traces it: one CUDA graph then serves every chunk of a
         shape, wherever it starts."""
+        if self.cfg.num_prefix_tokens:
+            raise ValueError("chunked prefill: no prefix tokens")
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = embed_lookup(params["embed"], tokens)
+        x = embed_lookup(params["embed"], tokens,
+                         scale=self._scaled_embed())
         pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
                 else int(pos0))
         positions = (pos0 + torch.arange(s, device=x.device))[None]
         h, cache = self._stack(params, x, positions.expand(b, s), cache,
-                               "prefill_chunk")
+                               None, "prefill_chunk")
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache, pos):
         """One token per row: ``tokens`` (B, 1); ``pos`` a scalar or (B,)."""
-        x = embed_lookup(params["embed"], tokens)
+        x = embed_lookup(params["embed"], tokens,
+                         scale=self._scaled_embed())
         positions = _decode_positions(pos, x.shape[0], x.device)
-        h, cache = self._stack(params, x, positions, cache, "decode")
+        h, cache = self._stack(params, x, positions, cache, None, "decode")
         return self._logits(params, h)[:, 0], cache
 
 

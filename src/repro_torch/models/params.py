@@ -65,7 +65,7 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
     std = 1.0 if d.init == "embed" else d.scale / math.sqrt(max(1, fan_in))
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * std).to(d.dtype)
+    return x.mul_(std).to(d.dtype)     # in place: one f32 copy at a time
 
 
 def init_params(schema, seed: int = 0, device="cuda") -> Dict[str, Any]:

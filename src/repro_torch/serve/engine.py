@@ -8,7 +8,9 @@ with no wave barrier.
 
 Prompts are left-padded (with id 1), so every live slot shares one cache
 write position: decode runs with one scalar position for every row over a
-contiguous ``max_len`` cache.  A refilled request is prefilled alone,
+contiguous ``max_len`` cache, plus the prefix: for paligemma each
+prompt follows ``num_prefix_tokens`` patch embeddings (zeros from the
+stub vision tower), and positions count them.  A refilled request is prefilled alone,
 left-padded to exactly the current position, and its batch-1 cache row is
 scattered into its slot (over ``model.cache_axes()``'s batch axis).  A
 prompt longer than the current position is deferred, never refilled
@@ -100,14 +102,21 @@ class ServeEngine:
         toks = np.ones((len(prompts), plen), np.int64)  # pad with id 1
         for i, p in enumerate(prompts):
             toks[i, plen - len(p):] = p                  # left-pad
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.num_prefix_tokens:  # the stub vision tower's patches
+            batch["patches"] = torch.zeros(
+                (len(prompts), self.cfg.num_prefix_tokens, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        return batch
 
     def _decode_inputs(self, slots: int):
-        """The static (tokens, cache, position) of a ``slots``-row decode."""
+        """The static (tokens, cache, position) of a ``slots``-row decode;
+        the cache also holds the prefix."""
         max_len = self.ecfg.max_len
+        length = max_len + self.cfg.num_prefix_tokens
         return self._decode.inputs((slots, max_len), lambda: (
             torch.empty((slots, 1), dtype=torch.int64, device=self.device),
-            self.model.init_cache(slots, max_len, self.device),
+            self.model.init_cache(slots, length, self.device),
             torch.empty((), dtype=torch.int32, device=self.device)))
 
     def _scatter_slot(self, cache, single, slot: int) -> None:
@@ -144,6 +153,7 @@ class ServeEngine:
     def _run_generation(self, queue: List[Request],
                         results: Dict[int, List[int]]) -> None:
         ecfg = self.ecfg
+        prefix = self.cfg.num_prefix_tokens
         slots_n = min(ecfg.slots, len(queue))
         wave = [queue.pop(0) for _ in range(slots_n)]
         plen = max(len(r.prompt) for r in wave)
@@ -154,7 +164,7 @@ class ServeEngine:
                                        tree_leaves(fresh)):
             leaf.copy_(one)
         del fresh
-        pos = plen
+        pos = plen + prefix
         slots: List[Optional[Request]] = list(wave)
         cur = self._sample(logits, slots)
         for i, r in enumerate(slots):
@@ -171,7 +181,8 @@ class ServeEngine:
                 if slots[i] is not None or not queue:
                     continue
                 nxt = queue[0]
-                if len(nxt.prompt) > pos or pos + 1 > ecfg.max_len:
+                pad = pos - prefix
+                if len(nxt.prompt) > pad or pad + 1 > ecfg.max_len:
                     # prompt doesn't fit the already-filled region, or no
                     # cache room: defer (a later step or the next
                     # generation's fresh cache takes it, FIFO preserved)
@@ -179,13 +190,14 @@ class ServeEngine:
                 queue.pop(0)
                 slots[i] = nxt
                 slogits, scache = self.model.prefill(
-                    self.params, self._make_batch([nxt.prompt], pos),
+                    self.params, self._make_batch([nxt.prompt], pad),
                     ecfg.max_len)
                 self._scatter_slot(cache, scache, i)
                 tok = self._sample(slogits, [nxt])
                 self._accept(nxt, int(tok[0]))
                 cur[i] = tok[0]
-            if all(r is None for r in slots) or pos >= ecfg.max_len:
+            if (all(r is None for r in slots)
+                    or pos >= ecfg.max_len + prefix):
                 for r in slots:  # out of room: flush whatever is live
                     if r is not None:
                         r.done = True

@@ -159,6 +159,8 @@ class PagedServeEngine:
     def __init__(self, model, params, cfg: ModelConfig,
                  ecfg: PagedEngineConfig, device="cuda",
                  capture: Optional[bool] = None, obs=None):
+        if cfg.num_prefix_tokens:
+            raise ValueError("paged engine: prefix tokens (vlm) unsupported")
         if ecfg.max_prefill_tokens & (ecfg.max_prefill_tokens - 1):
             raise ValueError("max_prefill_tokens must be a power of two")
         self.device = resolve_device(device)

@@ -31,7 +31,7 @@ from repro_torch.models.params import init_params, tree_leaves, tree_map
 from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state)
 
-NEEDS_DIST = "needs the port's distributed layer (ROADMAP Queue 1 item 6)"
+NEEDS_DIST = "needs the port's distributed layer (ROADMAP Queue 1 item 5)"
 
 
 def bubble_fraction(num_stages: int, num_microbatches: int) -> float:

@@ -21,7 +21,10 @@ replayed from CUDA graphs, give the eager calls' logits and caches
 bitwise, and the capturing engine the eager engine's tokens; so does the
 lock-step engine's decode.  Sampling on the card draws the CPU's bits and
 uniforms bitwise and its tokens.  The kernel counters count eager calls
-only.  Training: the straight-through matmul and MLP at 1024 and 1000
+only.  The Gemma family's shapes: decode attention at head_dim 256 (G 2 and
+G 8, a window of 1024 cutting), the fused matmul at K 15360 and 16384 and
+N 256 bitwise, the gelu MLP at 3840 -> 15360 and 2048 -> 16384 within
+1e-5.  Training: the straight-through matmul and MLP at 1024 and 1000
 rows give the plain forward (bitwise; the MLP 1e-5) and the CPU's
 gradients (f32 within 1e-5 of the largest, the MLP's 1e-4; bf16 within
 one bf16 ulp); one train step of the 2-layer smoke model gives the CPU's
@@ -447,6 +450,59 @@ def test_decode_attention_wide_heads(s, cuda, rng):
     torch.testing.assert_close(tattn.bp8_decode_attention(*args),
                                tattn.bp8_decode_attention_ref(*args),
                                rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the Gemma family's shapes: head_dim 256, the windows, K 15360, gelu
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1024, None], ids=["local", "global"])
+@pytest.mark.parametrize("kh,g", [(8, 2), (1, 8)], ids=["gemma3", "paligemma"])
+@pytest.mark.parametrize("s", [1, 1300, 4096])
+def test_decode_attention_gemma_heads(s, kh, g, window, cuda, rng):
+    """D 256 with gemma3's heads (KH 8, G 2) and paligemma's (MQA: KH 1,
+    G 8); rows decode past position 1024, so the local window of 1024
+    cuts.  At D 256 a split's block takes more than ``SPLIT_SMEM`` at
+    every split, so the wrapper launches at 32 tokens a split."""
+    b, d = 4, 256
+    assert tattn._split_smem(g, d, 32) > tattn.SPLIT_SMEM
+    assert tattn.split_tokens(s, b * kh, g, d) == 32
+    q = _randn(rng, (b, kh, g, d), cuda, 1.0) / d ** 0.5
+    kc, ks = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    vc, vs = tattn.quantize_kv(_randn(rng, (b, s, kh, d), cuda, 1.0))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).repeat(b, 1)
+    pos[1, s // 2:] = -1                       # empty tail
+    qp = torch.tensor([s - 1, max(s // 2 - 1, 0), max(s - 150, 0), s - 1],
+                      dtype=torch.int32, device=cuda)
+    args = (q, kc, ks, vc, vs, pos, qp, window)
+    torch.testing.assert_close(tattn.bp8_decode_attention(*args),
+                               tattn.bp8_decode_attention_ref(*args),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n", [(15360, 3840), (2048, 256), (16384, 2048)])
+def test_fused_matmul_gemma_shapes_bitwise(m, k, n, cuda, rng):
+    """gemma3's down projection (K 15360), paligemma's k/v (N 256) and
+    down projection (K 16384), bf16 weights as the model holds them."""
+    x = _randn(rng, (m, k), cuda, 1.0)
+    w = _randn(rng, (k, n), cuda, k ** -0.5).to(torch.bfloat16)
+    assert torch.equal(tops.oisma_matmul(x, w), tref.fused_matmul_ref(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,f", [(3840, 15360), (2048, 16384)])
+def test_fused_mlp_gelu_gemma_widths(m, k, f, cuda, rng):
+    x = _randn(rng, (m, k), cuda, 1.0)
+    up, gate, su, sg = _mlp_weights(rng, k, f, "bf16", cuda)
+    sx = tref.tensor_scale(x)
+    torch.testing.assert_close(
+        tfused.fused_mlp(x, up, gate, sx, su, sg, "gelu"),
+        tref.fused_mlp_ref(x, up, gate, "gelu", sx, su, sg),
+        rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

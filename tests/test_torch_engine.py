@@ -79,7 +79,8 @@ def _prompts(seed, n, lo, hi, vocab):
                          ).astype(np.int32) for _ in range(n)]
 
 
-@pytest.fixture(scope="module", params=["h2o_danube_1p8b", "qwen2_72b"])
+@pytest.fixture(scope="module", params=["h2o_danube_1p8b", "qwen2_72b",
+                                        "gemma3_12b", "paligemma_3b"])
 def both(request):
     return stacks(request.param)
 

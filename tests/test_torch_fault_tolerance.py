@@ -130,7 +130,7 @@ def test_checkpoint_write_overlaps_training(tmp_path, small):
 
 def test_trainer_refuses_a_mesh(small):
     cfg, model = small
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         train(model, cfg, SHAPE, TrainerConfig(total_steps=1),
               mesh=object(), device="cpu")
 
@@ -145,7 +145,7 @@ def test_launcher_trains_on_cpu_and_refuses_shards(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "danube-smoke (2 layers, bp8) on cpu" in text
     assert "finished at step 3 after 1 restart(s)" in text
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         cli.main(["--device", "cpu", "--model-shards", "2"])
 
 

@@ -10,7 +10,12 @@ Tolerances:
   * ``chunked_softmax_xent`` — the summed loss within 1e-6 relative and
     the mask sum exact (f32 logsumexp and sums reduce in another order);
   * ``DecoderModel.loss`` — within 2e-5 absolute on losses of ~6.5
-    (observed <= 1.5e-5 on qwen2 in bf16, <= 1e-6 elsewhere);
+    (observed <= 1.5e-5 on qwen2 in bf16, <= 1e-6 elsewhere); the Gemma
+    family's tied std-1 embedding gives losses of ~50 on its smoke
+    configs, where the tolerance is 8 times that (``LOSS_SCALE``), the
+    same precision relative to the loss (observed <= 1.9e-5, 5 f32 ulps,
+    on paligemma in ``bp8_fused``); paligemma's batches carry seeded
+    patch embeddings for its prefix;
   * per-leaf gradients — the largest difference within 5e-2 of the leaf's
     largest magnitude and a cosine similarity of at least 0.9998.  The
     backward runs through the bf16 residual stream: each cast to bf16
@@ -43,6 +48,8 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 
 EXACT = {"xla_allow_excess_precision": False}
+#: absolute loss tolerances scale with the loss's magnitude (docstring)
+LOSS_SCALE = {"gemma3_12b": 8.0, "paligemma_3b": 8.0}
 
 
 def to_np(tree):
@@ -81,6 +88,9 @@ def _setup(arch, mode, remat=True):
     jp = init_tree(jm.schema(), jax.random.key(0))
     batch = batch_at(DataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
                                 global_batch=4), 0)
+    if jcfg.num_prefix_tokens:         # the stub vision tower's output
+        batch["patches"] = np.random.default_rng(1).normal(size=(
+            4, jcfg.num_prefix_tokens, jcfg.d_model)).astype(np.float32)
     return jm, tm, jp, batch
 
 
@@ -95,7 +105,8 @@ def _port_loss_and_grads(tm, params, batch):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "bp8", "bp8_fused", "fp8"])
-@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b",
+                                  "gemma3_12b", "paligemma_3b"])
 def test_loss_and_grads_match_reference(arch, mode):
     jm, tm, jp, batch = _setup(arch, mode)
     (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True),
@@ -103,7 +114,8 @@ def test_loss_and_grads_match_reference(arch, mode):
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = params_from_numpy(to_np(jp), tm.cfg, "cpu")
     tl, tg = _port_loss_and_grads(tm, tp, batch)
-    assert abs(float(tl) - float(jl)) <= 2e-5, (float(tl), float(jl))
+    assert abs(float(tl) - float(jl)) <= 2e-5 * LOSS_SCALE.get(arch, 1.0), \
+        (float(tl), float(jl))
     want = {tuple(k.key for k in path): np.asarray(
         g.astype(jnp.float32)) for path, g in
         jax.tree_util.tree_flatten_with_path(jg)[0]}

@@ -33,6 +33,11 @@ Tolerances:
     round in another order before the cast to bf16;
   * logits in ``fp8`` — 1e-5 (observed 0: on these inputs no sum rounds
     differently);
+  * the Gemma family (gemma3, paligemma) ties its std-1 embedding to
+    the logits, which reach ~55 on their smoke configs against ~3.4 for
+    the other two archs: its absolute logit tolerances are the table's
+    times 16 (``LOGIT_SCALE``), the same precision relative to the
+    logits (observed <= 1.5e-5 in ``bp8_fused``, a few f32 ulps of 55);
   * logits in ``bp8_lowrank`` — 1.0 absolute on logits of magnitude
     ~3.4.  A one-ulp difference of a low-rank f32 sum can flip a bf16
     projection output; the next layer's BP re-quantisation turns that flip
@@ -65,7 +70,9 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 EXACT = {"xla_allow_excess_precision": False}
-ARCHS = ["h2o_danube_1p8b", "qwen2_72b"]
+ARCHS = ["h2o_danube_1p8b", "qwen2_72b", "gemma3_12b", "paligemma_3b"]
+#: absolute logit tolerances scale with the logits' magnitude (docstring)
+LOGIT_SCALE = {"gemma3_12b": 16.0, "paligemma_3b": 16.0}
 MODES = [("bp8_fused", "bp8", 1e-5), ("bf16", "none", 2e-2),
          ("bp8", "bp8", 1e-5), ("bp8_lowrank", "none", 1.0),
          ("fp8", "none", 1e-5)]
@@ -94,6 +101,20 @@ def configs(arch, mode, kvq):
                                 matmul_mode=mode, kv_quant=kvq),
             dataclasses.replace(get_config(arch, smoke=True),
                                 matmul_mode=mode, kv_quant=kvq))
+
+
+def prefill_batches(cfg, tokens, rng):
+    """The reference's and the port's prefill batch of ``tokens``, with
+    seeded bf16 patch embeddings ahead of them where the config has a
+    prefix (paligemma)."""
+    jb = {"tokens": jnp.asarray(tokens)}
+    tb = {"tokens": torch.from_numpy(np.asarray(tokens, np.int64))}
+    if cfg.num_prefix_tokens:
+        pt = rng.normal(size=(tokens.shape[0], cfg.num_prefix_tokens,
+                              cfg.d_model)).astype(np.float32)
+        jb["patches"] = jnp.asarray(pt).astype(jnp.bfloat16)
+        tb["patches"] = torch.from_numpy(pt).bfloat16()
+    return jb, tb
 
 
 # ---------------------------------------------------------------------------
@@ -190,25 +211,34 @@ def test_decoder_logits_match_reference(arch, mode, kvq, tol, rng):
     jm, tm = jbuild(jcfg), build(tcfg)
     jp = init_tree(jm.schema(), jax.random.key(0))
     tp = params_from_numpy(to_np(jp), tcfg, "cpu")
+    tol = tol * LOGIT_SCALE.get(arch, 1.0)
     b, s, cache_len = 2, 12, 32
     toks = rng.integers(2, jcfg.vocab_size, size=(b, s + 4 + 3))
 
     def tt(a):
         return torch.from_numpy(np.asarray(a, np.int64))
 
-    jl, jc = jjit(jm.prefill, static_argnums=2)(
-        jp, {"tokens": jnp.asarray(toks[:, :s])}, cache_len)
-    tl, tc = tm.prefill(tp, {"tokens": tt(toks[:, :s])}, cache_len)
+    jb, tb = prefill_batches(jcfg, toks[:, :s], rng)
+    jl, jc = jjit(jm.prefill, static_argnums=2)(jp, jb, cache_len)
+    tl, tc = tm.prefill(tp, tb, cache_len)
     np.testing.assert_allclose(tl.numpy(), np.array(jl), rtol=0, atol=tol)
 
-    jl, jc = jjit(jm.prefill_chunk)(jp, {"tokens": jnp.asarray(
-        toks[:, s:s + 4])}, jc, jnp.int32(s))
-    tl, tc = tm.prefill_chunk(tp, {"tokens": tt(toks[:, s:s + 4])}, tc, s)
-    np.testing.assert_allclose(tl.numpy(), np.array(jl), rtol=0, atol=tol)
+    p = s + jcfg.num_prefix_tokens         # next position (prefix counted)
+    if jcfg.num_prefix_tokens:             # the chunked prefill refuses it
+        with pytest.raises(ValueError, match="no prefix tokens"):
+            tm.prefill_chunk(tp, {"tokens": tt(toks[:, s:s + 4])}, tc, p)
+    else:
+        jl, jc = jjit(jm.prefill_chunk)(jp, {"tokens": jnp.asarray(
+            toks[:, s:s + 4])}, jc, jnp.int32(s))
+        tl, tc = tm.prefill_chunk(tp, {"tokens": tt(toks[:, s:s + 4])}, tc,
+                                  s)
+        np.testing.assert_allclose(tl.numpy(), np.array(jl), rtol=0,
+                                   atol=tol)
+        p += 4
 
     dec = jjit(jm.decode_step)
     for i in range(3):
-        pos = np.full((b,), s + 4 + i, np.int32)
+        pos = np.full((b,), p + i, np.int32)
         tok = toks[:, s + 4 + i:s + 5 + i]
         jl, jc = dec(jp, jnp.asarray(tok), jc, jnp.asarray(pos))
         tl, tc = tm.decode_step(tp, tt(tok), tc, torch.from_numpy(pos))
@@ -270,15 +300,15 @@ def test_greedy_tokens_bp8_match_reference(arch, rng):
     tp = params_from_numpy(to_np(jp), tcfg, "cpu")
     b, s, steps = 2, 8, 16
     toks = rng.integers(2, jcfg.vocab_size, size=(b, s))
-    jl, jc = jjit(jm.prefill, static_argnums=2)(
-        jp, {"tokens": jnp.asarray(toks)}, s + steps)
-    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, s + steps)
+    jb, tb = prefill_batches(jcfg, toks, rng)
+    jl, jc = jjit(jm.prefill, static_argnums=2)(jp, jb, s + steps)
+    tl, tc = tm.prefill(tp, tb, s + steps)
     dec = jjit(jm.decode_step)
     jtoks, ttoks = [], []
     for i in range(steps):
         jtoks.append(np.argmax(np.array(jl), -1))
         ttoks.append(tl.argmax(-1).numpy())
-        pos = np.full((b,), s + i, np.int32)
+        pos = np.full((b,), s + jcfg.num_prefix_tokens + i, np.int32)
         jl, jc = dec(jp, jnp.asarray(jtoks[-1][:, None]), jc,
                      jnp.asarray(pos))
         tl, tc = tm.decode_step(tp, torch.from_numpy(ttoks[-1][:, None]), tc,
@@ -291,4 +321,4 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown matmul mode"):
         tlayers.dense(x, torch.zeros(64, 8), "int4")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma3_12b")
+        get_config("granite_moe_1b")

@@ -232,9 +232,9 @@ def test_train_plan_matches_reference_over_a_grid(arch):
 def test_pipelined_plan_and_mesh_raise():
     model = build(get_config("h2o_danube_1p8b", smoke=True))
     cfg = topt.OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         make_train_step(model, cfg, TrainPlan(1, 4, pipeline_stages=2))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         make_train_step(model, cfg, TrainPlan(1, 4), mesh=object())
 
 

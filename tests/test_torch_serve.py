@@ -157,7 +157,8 @@ def test_paged_cache_matches_reference(rng):
 # the slice as a whole: the paged engine's greedy tokens
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b",
+                                  "gemma3_12b"])
 def test_paged_engine_tokens_match_reference(arch):
     """Slots 2, block 8, 32 blocks, prefill chunk 8, prompts of 5/13/9
     tokens (the third is admitted mid-stream), 8 new tokens each."""
