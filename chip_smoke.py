@@ -149,9 +149,43 @@ prints its wall time):
    launches counted) and once eager, tokens equal, its decode graph
    replayed bitwise equal to eager.
 
+10. Mixture-of-experts and latent attention in ``bp8_fused`` (granite-moe
+   over a ``bp8`` cache; MLA's latent cache is bf16).  (a) The served
+   path's kernels at the new shapes (phase 2's timer, bounds and checks):
+   the fused matmul bitwise at every projection of a granite-moe-1b,
+   deepseek-v2 and minicpm3 layer (K 1024 / N 512; N 576, K 1536, N
+   24576, K 16384; the shared experts' N 3072; the dense layers' down
+   projections) at M 4 and 64; absmax bitwise on their weights; the silu
+   MLP at 5120 -> 12288 and 2560 -> 6400 within 1e-5; decode attention
+   at D 64, KH 8, G 2 within 1e-5 (S 1-4096, full and a 1024 window).
+   (b) Card vs CPU: the three archs at full width and 2 layers
+   (deepseek: its dense first layer and one MoE layer) on the paged
+   engine, prompts of 32 and 64 tokens (one chunk), 4 greedy tokens (3
+   for deepseek): card captured, card eager and CPU tokens equal; where
+   they part, the step, the CPU's top-2 logit margin and the largest
+   logit difference are printed.  (c) The full 24-layer granite-moe-1b
+   on ``PagedServeEngine`` (4 slots, block 16, chunk 64): 8 requests of
+   32-256 prompt tokens, 16 new each, twice captured (the second timed,
+   launches counted) and once eager, tokens equal; graphs within the
+   bounds; a prefill chunk and a decode step replayed bitwise equal to
+   eager; the capacity and dropped slots of each MoE layer in a 64-token
+   chunk and a 4-row step; a short captured profile by kind of kernel
+   (the BP kernels, the expert bmm, routing sorts, dispatch and combine).
+   (d) deepseek-v2 at its published width and 4 layers (the dense first
+   layer and 3 MoE layers; ``reduced`` in the report): seeded on the card
+   (init time and peak), 4 requests, 16 new each, captured twice and
+   eager, tokens equal; a captured decode step's time against the bytes
+   of the routed experts it reads.  (e) The full granite-moe-1b trained 3
+   steps (8 x 128 tokens, lr 3e-5): gradient norms above 0, every leaf
+   (routers and experts included) moved from its seed, launches (8
+   absmax and 4 matmuls a layer, forward and recompute), step times and
+   peak memory.
+
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
-1024; rows 1-4 also on the Gemma paths, timed at their decode shapes),
+1024; rows 1-4 also on the Gemma paths, timed at their decode shapes;
+absmax, the matmul and attention on granite-moe's path and absmax, the
+matmul and the MLP on deepseek-v2's, timed at their decode shapes),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -927,6 +961,17 @@ def unfused_kernel_rows(torch, timer, randn, weight, rows, detail, dev):
               f"{v['bits_sum_kernel_ms']:.4f}" for k, v in widths.items()))
 
 
+def seeded_pair(cfg):
+    """The config's seeded weights on the card and a copy on the CPU:
+    (cpu params, card params).  Seeded on the card, where the draw takes
+    a fraction of a second (the CPU's draw of a full-width model takes
+    tens of seconds)."""
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_map
+    p_gpu = init_params(build_model(cfg).schema(), seed=0, device="cuda")
+    return tree_map(lambda t: t.to("cpu"), p_gpu), p_gpu
+
+
 def make_engine(cfg, params, device, capture=None, temperature=0.0,
                 seed=0, num_blocks=96):
     from repro_torch.models import build
@@ -962,15 +1007,16 @@ SERVED = tuple(n for n, path in PATHS.items() if path == "serve_bp8_fused")
 
 
 def serve_captured_and_eager(torch, build, cfg, params, prompts,
-                             num_blocks=96):
+                             num_blocks=96, kernels=None):
     """Serve ``prompts`` (16 new tokens each) twice on one capturing paged
     engine (the first run captures each shape's graph; the second, timed,
     replays them, its launches zeroed just before and read just after)
     and once, after a short warm-up, on an eager engine of its own.  Fails
     unless the graphs stay within ``compile_shape_bounds()``, the three
-    runs emit the same tokens, every served kernel launched, and every
-    request has 16 tokens of the vocabulary.  Returns (the record, the
-    capturing engine, the eager engine)."""
+    runs emit the same tokens, every kernel of the path (``kernels``,
+    default ``SERVED``) launched, and every request has 16 tokens of the
+    vocabulary.  Returns (the record, the capturing engine, the eager
+    engine)."""
     torch.cuda.reset_peak_memory_stats()
     engine = make_engine(cfg, params, "cuda", num_blocks=num_blocks)
     cold, cold_s, _ = serve(torch, cfg, params, prompts, 16, "cuda", engine)
@@ -1008,7 +1054,7 @@ def serve_captured_and_eager(torch, build, cfg, params, prompts,
     if not out == cold == eager:
         fail(f"{cfg.name}: captured (first and second run) and eager tokens "
              f"differ")
-    for name in SERVED:
+    for name in kernels or SERVED:
         if launches.get(name, 0) <= 0:
             fail(f"{cfg.name}: kernel {name} was not launched")
     for rid, toks in out.items():
@@ -1046,6 +1092,31 @@ def served_kernel(name: str):
                                    "2": "fused_mlp"}.get(m.group(1))
 
 
+#: device kernels by kind, first match wins: (kind, name parts)
+DEVICE_KINDS = (
+    ("gemm (cuBLAS/CUTLASS: expert bmm, logits, f32 einsums)",
+     ("gemm", "cutlass", "xmma", "cublas", "splitk", "nvjet", "gemv")),
+    ("sort (routing)", ("sort", "radix")),
+    ("scatter/gather/index (dispatch, combine, cache)",
+     ("scatter", "gather", "index", "cumsum", "scan")),
+    ("softmax and reductions", ("softmax", "reduce")),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def device_kind(name: str) -> str:
+    """A device kernel's kind for a profile's breakdown: the BP kernels by
+    name (``served_kernel``), the rest by ``DEVICE_KINDS``."""
+    bp = served_kernel(name)
+    if bp is not None:
+        return bp
+    low = name.lower()
+    for kind, parts in DEVICE_KINDS:
+        if any(p in low for p in parts):
+            return kind
+    return "other"
+
+
 def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
                     new=8):
     """Device time by kernel, the card's idle share, and the host's
@@ -1076,8 +1147,15 @@ def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    kinds = {}
+    for us, k, n in rows:
+        kind = device_kind(k)
+        c, t = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (c + n, t + us / 1e3)
     out = {"capture": engine.capture, "wall_s": wall_s,
            "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s,
+           "by_kind": {k: {"launches": c, "ms": t} for k, (c, t) in
+                       sorted(kinds.items(), key=lambda kv: -kv[1][1])},
            "host_ranges": {k: dict(v, share_of_wall=v["ms"] / 1e3 / wall_s)
                            for k, v in sorted(host.items())},
            "served_kernels": sorted({served_kernel(k) for _, k, _ in rows}
@@ -1094,6 +1172,9 @@ def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
     for r in out["top"][:8]:
         print(f"  {r['share_of_busy']:.3f} {r['ms']:.1f} ms x{r['calls']} "
               f"{r['name']}")
+    print("  device time by kind (ms, launches): " + ", ".join(
+        f"{k} {v['ms']:.1f} x{v['launches']}"
+        for k, v in out["by_kind"].items()))
     for r in out["copies"]:
         print(f"  copies: {r['ms']:.2f} ms x{r['calls']} {r['name'][:80]}")
     print("  host ranges (ms, share of wall): " + ", ".join(
@@ -1396,8 +1477,6 @@ def engines_at_temperature(torch, build, full, params, rng, dev="cuda"):
     tokens equal the CPU's for requests 0 and 2 (32 and 40 tokens) on the
     paged engine and for request 0 served alone on the lock-step engine,
     4 new tokens each (the CPU's plain path costs seconds a call)."""
-    from repro_torch.models import build as build_model
-    from repro_torch.models.params import init_params, tree_map
     lens = [32, 200, 40] + [int(n) for n in rng.integers(32, 201, 3)]
     prompts = [rng.integers(3, full.vocab_size, n).astype("int32")
                for n in lens]
@@ -1440,8 +1519,7 @@ def engines_at_temperature(torch, build, full, params, rng, dev="cuda"):
     del paged, lock
     # the card against the CPU at 2 layers, both engines
     cfg2 = dataclasses.replace(full, num_layers=2)
-    p_cpu = init_params(build_model(cfg2).schema(), seed=0, device="cpu")
-    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    p_cpu, p_gpu = seeded_pair(cfg2)
     two = [prompts[0], prompts[2]]
     t0 = time.perf_counter()
     outs = {}
@@ -2264,11 +2342,9 @@ def lockstep_card_vs_cpu(torch, cfg, prompts, max_new):
     """The same seeded weights on the card, captured and eager, and on the
     CPU emit the same greedy tokens through the lock-step engine (all
     prompts in one generation)."""
-    from repro_torch.models.params import init_params, tree_map
     from repro_torch.models import build as build_model
     from repro_torch.serve.engine import EngineConfig, ServeEngine
-    p_cpu = init_params(build_model(cfg).schema(), seed=0, device="cpu")
-    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    p_cpu, p_gpu = seeded_pair(cfg)
     out = {}
     for what, params, dev, capture in (("captured", p_gpu, "cuda", None),
                                        ("eager", p_gpu, "cuda", False),
@@ -2435,6 +2511,460 @@ def phase_gemma(torch, timer, build, log: str, rng):
     return rows, launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 10: mixture-of-experts and latent attention
+# ---------------------------------------------------------------------------
+
+#: the MoE archs' served paths in the kernels line, and their kernels
+MOE_PATHS = {"granite_moe_1b": "serve_granite_moe",
+             "deepseek_v2_236b": "serve_deepseek_v2"}
+MOE_KERNELS = {"granite_moe_1b": ("absmax", "fused_matmul",
+                                  "decode_attention"),
+               "deepseek_v2_236b": ("absmax", "fused_matmul", "fused_mlp")}
+#: deepseek-v2's cut: its published width, 4 of its 60 layers
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_REDUCED = {"num_layers": "60 -> 4 (the dense first layer and 3 MoE "
+                    "layers): 472 GB of bf16 weights do not fit one 80 GB "
+                    "card; one MoE layer's 160 routed experts alone are "
+                    "7.55 GB"}
+
+
+def moe_config(arch: str, **kw):
+    """The arch in ``bp8_fused``, over a ``bp8`` cache where it has one
+    (the MLA archs keep their bf16 latent cache: bp8 is GQA-only)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = {"matmul_mode": "bp8_fused",
+          "kv_quant": "none" if cfg.attention_type == "mla" else "bp8", **kw}
+    return dataclasses.replace(cfg, **kw)
+
+
+def moe_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
+    """Phase 10(a) for one arch: the kernels its served path runs, against
+    their plain versions at its shapes: the fused matmul bitwise at every
+    projection of a layer (attention, shared experts, the dense layer's
+    down projection) at M 4 and 64, absmax bitwise on the layer's
+    weights, the silu MLP within 1e-5 (M 4 and 64) where the arch has a
+    dense MLP, and decode attention within 1e-5 at D 64, KH 8, G 2 (S
+    1-4096, full and a 1024 window) where its cache is ``bp8``.  Rows time
+    one layer of a 4-row decode step beside its bound, decode attention
+    over a 512-token view (the served views of phase 10(c))."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import fused as kf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import KINDS, library
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def weight(k, n):
+        return randn(k, n, std=k ** -0.5).to(torch.bfloat16)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.attention_type == "mla":
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        mm = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, h * qk),
+              (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+              (h * cfg.v_head_dim, d)]
+    else:
+        kh, hd = cfg.num_kv_heads, cfg.head_dim
+        mm = [(d, h * hd), (d, kh * hd), (d, kh * hd), (h * hd, d)]
+    if cfg.num_shared_experts:
+        sd = cfg.moe_d_ff * cfg.num_shared_experts
+        mm += [(d, sd), (d, sd), (sd, d)]
+    dense_mlp = cfg.first_dense_layers > 0 or not cfg.num_experts
+    if dense_mlp:
+        mm += [(cfg.d_ff, d)]
+    ws = [weight(k, n) for k, n in mm]
+    rows, detail = {}, {"matmul_shapes": mm}
+
+    for m in (4, 64):
+        for (k, n), w in zip(mm, ws):
+            x = randn(m, k)
+            sx, sy = kf.absmax(x, TINY), kf.absmax(w, TINY)
+            if not torch.equal(kf.fused_bp_matmul(x, w, sx, sy),
+                               ref.fused_matmul_ref(x, w, sx, sy)):
+                fail(f"{cfg.name}: fused matmul differs at {(m, k, n)}")
+    xs = {k: randn(4, k) for k in {k for k, _ in mm}}
+    calls, plain, bounds = [], [], []
+    for (k, n), w in zip(mm, ws):
+        args = (xs[k], w, kf.absmax(xs[k], TINY), kf.absmax(w, TINY))
+        calls.append(lambda a=args: kf.fused_bp_matmul(*a))
+        plain.append(lambda a=args: ref.fused_matmul_ref(*a))
+        bounds.append(bound(4 * 4 * k + nbytes(w) + 8 + 4 * 4 * n,
+                            2 * 4 * n * 8 * k, H100_INT8_OPS_PER_S))
+    rows["fused_matmul"] = dict(max_abs_err=0.0, ms=timer(calls),
+                                plain_ms=timer(plain, iters=3),
+                                library_ms=None, b=bounds)
+
+    am_in = [xs[k] for k, _ in mm] + ws
+    if dense_mlp:
+        up, gate = weight(d, cfg.d_ff), weight(d, cfg.d_ff)
+        am_in += [xs[d], up, gate]
+    for t in am_in:
+        if not torch.equal(kf.absmax(t, TINY), ref.absmax_ref(t, TINY)):
+            fail(f"{cfg.name}: absmax differs at {tuple(t.shape)}")
+    rows["absmax"] = dict(
+        max_abs_err=0.0,
+        ms=timer([lambda t=t: kf.absmax(t, TINY) for t in am_in]),
+        plain_ms=timer([lambda t=t: ref.absmax_ref(t, TINY) for t in am_in]),
+        library_ms=timer([lambda t=t: torch.amax(t.abs()) for t in am_in]),
+        b=[bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)
+           for t in am_in])
+
+    if dense_mlp:
+        err, ff = 0.0, cfg.d_ff
+        su, sg = kf.absmax(up, TINY), kf.absmax(gate, TINY)
+        for m in (4, 64):
+            x = randn(m, d)
+            sx = kf.absmax(x, TINY)
+            a = kf.fused_mlp(x, up, gate, sx, su, sg, cfg.act)
+            b = ref.fused_mlp_ref(x, up, gate, cfg.act, sx, su, sg)
+            e = ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+            if not math.isfinite(e) or e > 1e-5:
+                fail(f"{cfg.name}: MLP off by {e:.3g} at M {m}")
+            err = max(err, (a - b).abs().max().item())
+        x = xs[d]
+        sx = kf.absmax(x, TINY)
+        rows["fused_mlp"] = dict(
+            max_abs_err=err,
+            ms=timer([lambda: kf.fused_mlp(x, up, gate, sx, su, sg,
+                                           cfg.act)]),
+            plain_ms=timer([lambda: ref.fused_mlp_ref(
+                x, up, gate, cfg.act, sx, su, sg)], iters=3),
+            library_ms=None,
+            b=[bound(4 * 4 * d + nbytes(up) + nbytes(gate) + 12
+                     + 4 * 4 * ff, 2 * 2 * 4 * ff * 8 * d,
+                     H100_INT8_OPS_PER_S)])
+
+    if cfg.kv_quant == "bp8":
+        kh, g, hd = cfg.num_kv_heads, h // cfg.num_kv_heads, cfg.head_dim
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+        def cache(s):
+            kc, ks = ka.quantize_kv(randn(4, s, kh, hd))
+            vc, vs = ka.quantize_kv(randn(4, s, kh, hd))
+            pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(
+                4, 1)
+            qp = torch.tensor([s - 1, max(s - 300, 0), max(s // 2 - 1, 0),
+                               max(s - 1100, 0)], dtype=torch.int32,
+                              device=dev)
+            pos[2, s // 2:] = -1                  # a row's empty tail
+            return kc, ks, vc, vs, pos, qp
+
+        q = randn(4, kh, g, hd) / math.sqrt(hd)
+        err, launched = 0.0, {}
+        for s in (1, 33, 512, 1024, 1300, 4096):
+            cc = cache(s)
+            for win in (1024, None):
+                a = ka.bp8_decode_attention(q, *cc, win)
+                e = (a - ka.bp8_decode_attention_ref(q, *cc, win)).abs().max()
+                e = e.item()
+                if not math.isfinite(e) or e > 1e-5:
+                    fail(f"{cfg.name}: decode attention (S {s}, window "
+                         f"{win}) off by {e:.3g}")
+                err = max(err, e)
+            split = ka.split_tokens(s, 4 * kh, g, hd, sms)
+            launched[s] = {"split_tokens": split,
+                           "dynamic_smem_bytes": ka._split_smem(g, hd, split)}
+        detail["decode_attention_launch"] = launched
+        S = 512
+        kc, ks, vc, vs, pos, qp = main = cache(S)
+        win = ka.BIG_WINDOW
+        allowed = (pos >= 0) & (pos <= qp[:, None])
+        seen = allowed.sum().item()                 # keys let through
+        kd, vd = ka.dequantize_kv(kc, ks), ka.dequantize_kv(vc, vs)
+        qs = q.reshape(4, kh * g, 1, hd)
+        kt = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+        vt = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+        F = torch.nn.functional
+        rows["decode_attention"] = dict(
+            max_abs_err=err,
+            ms=timer([lambda: ka.bp8_decode_attention(q, *main, win)]),
+            plain_ms=timer([lambda: ka.bp8_decode_attention_ref(
+                q, *main, win)]),
+            library_ms=timer([lambda: F.scaled_dot_product_attention(
+                qs, kt, vt, attn_mask=allowed[:, None, None, :],
+                scale=1.0)]),
+            b=[bound(2 * 4 * 4 * kh * g * hd + seen * kh * (2 * hd + 8)
+                     + 4 * seen + 4 * 4, 4 * seen * kh * g * hd,
+                     H100_F32_FLOPS_PER_S)])
+        print(f"{cfg.name}: decode attention at D {hd}, KH {kh}, G {g}: "
+              + ", ".join(f"S {s}: split {v['split_tokens']} tokens, "
+                          f"{v['dynamic_smem_bytes']} B dynamic shared "
+                          f"memory" for s, v in launched.items()))
+    lib = library()
+    detail["fused_matmul_dynamic_smem_bytes"] = {
+        m: lib.oisma_fused_matmul_smem(m, KINDS[torch.bfloat16])
+        for m in (4, 64)}
+    print(f"{cfg.name}: fused matmul bitwise at (K, N) {mm}, M 4 and 64"
+          + ("; silu MLP " + f"{d} -> {cfg.d_ff}" if dense_mlp else ""))
+    for name, r in rows.items():
+        print(f"{cfg.name} kernel {name}: ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
+              f"{sum(x[0] for x in r['b']):.5f} max_abs_err "
+              f"{r['max_abs_err']}")
+    return rows, detail
+
+
+def moe_drops(torch, model, params, rng):
+    """Capacity and dropped (token, slot)s of each MoE layer in one eager
+    64-token prefill chunk and one 4-row decode step (the engine's
+    shapes), read from the router (``moe.route``)."""
+    from repro_torch.models import moe as moe_mod
+    cfg = model.cfg
+    seen = []
+    route = moe_mod.route
+
+    def record(router, c, xt, capacity):
+        r = route(router, c, xt, capacity)
+        seen.append((xt.shape[0], capacity, r["keep"]))
+        return r
+
+    moe_mod.route = record
+    try:
+        cache = model.init_cache(4, 128, "cuda")
+        toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 64)),
+                               device="cuda")
+        one = {k: {n: v[:, :1] for n, v in stack.items()}
+               for k, stack in cache.items()}
+        model.prefill_chunk(params, {"tokens": toks}, one, 0)
+        prefill = [(t, c, int((~keep).sum())) for t, c, keep in seen]
+        seen.clear()
+        full = {k: {n: v.expand(-1, 4, *v.shape[2:]).contiguous()
+                    for n, v in stack.items()} for k, stack in one.items()}
+        model.decode_step(params, torch.as_tensor(
+            rng.integers(3, cfg.vocab_size, (4, 1)), device="cuda"), full,
+            torch.tensor([64, 64, 64, 64], dtype=torch.int32,
+                         device="cuda"))
+        decode = [(t, c, int((~keep).sum())) for t, c, keep in seen]
+    finally:
+        moe_mod.route = route
+    k = cfg.num_experts_per_tok
+    out = {}
+    for what, recs in (("prefill_chunk_64", prefill),
+                       ("decode_step_4_rows", decode)):
+        t, c = recs[0][:2]
+        dropped = [d for _, _, d in recs]
+        out[what] = {"tokens": t, "slots": t * k, "capacity": c,
+                     "dropped_by_layer": dropped,
+                     "dropped_share": sum(dropped) / (t * k * len(recs))}
+        print(f"{cfg.name} {what}: {t} tokens x {k} slots over "
+              f"{cfg.num_experts} experts, capacity {c} per expert; dropped "
+              f"slots by layer {dropped} (share "
+              f"{out[what]['dropped_share']:.4f})")
+    return out
+
+
+def seeded_on_card(torch, cfg):
+    """The arch's seeded weights on the card: (params, init seconds, init
+    peak GB, parameter count)."""
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(build_model(cfg).schema(), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    print(f"{cfg.name}: {cfg.num_layers} layers, {n / 1e9:.3f} B params "
+          f"seeded on the card in {init_s:.1f}s, init peak {peak:.2f} GB")
+    return params, init_s, peak, n
+
+
+def serve_granite(torch, build, rng):
+    """Phase 10(c): the full granite-moe-1b (24 layers) on the paged
+    engine, 8 requests of 32-256 prompt tokens, 16 new each, twice
+    captured and once eager (tokens equal, launches of the second run),
+    a prefill chunk and a decode step replayed bitwise equal to eager,
+    the capacity and dropped slots of a chunk and a step, and a short
+    captured profile by kind of kernel."""
+    from repro_torch.models import build as build_model
+    cfg = moe_config("granite_moe_1b")
+    model = build_model(cfg)
+    params, init_s, init_peak, n = seeded_on_card(torch, cfg)
+    lens = [32, 256] + [int(x) for x in rng.integers(32, 257, 6)]
+    prompts = [rng.integers(3, cfg.vocab_size, x).astype("int32")
+               for x in lens]
+    rec, engine, eager_engine = serve_captured_and_eager(
+        torch, build, cfg, params, prompts,
+        kernels=MOE_KERNELS["granite_moe_1b"])
+    del eager_engine
+    rec["graphed_vs_eager"] = graphed_vs_eager(torch, model, params, rng)
+    rec["drops"] = moe_drops(torch, model, params, rng)
+    # short: a MoE step launches ~4x the kernels of a dense one
+    prof = profile_serving(torch, engine, cfg, params, prompts[:2], 32, 4)
+    ran = set(prof["served_kernels"])
+    if not set(MOE_KERNELS["granite_moe_1b"]) <= ran:
+        fail(f"{cfg.name}: kernels missing from the captured profile (ran: "
+             f"{sorted(ran)})")
+    del engine
+    return rec["launches"], dict(rec, params=n, init_s=init_s,
+                                 init_peak_mem_gb=init_peak, profile=prof)
+
+
+def serve_deepseek(torch, build, timer, rng):
+    """Phase 10(d): deepseek-v2 at its published width, 4 layers (the dense
+    first layer and 3 MoE layers), on the paged engine: 4 requests of
+    32-200 prompt tokens, 16 new each, twice captured and once eager
+    (tokens equal); a captured 4-row decode step's time against the bytes
+    of the routed experts it reads (every expert runs its batched matmul,
+    as the reference's)."""
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import tree_leaves
+    cfg = moe_config("deepseek_v2_236b", num_layers=DEEPSEEK_LAYERS)
+    model = build_model(cfg)
+    params, init_s, init_peak, n = seeded_on_card(torch, cfg)
+    lens = [32, 200] + [int(x) for x in rng.integers(32, 201, 2)]
+    prompts = [rng.integers(3, cfg.vocab_size, x).astype("int32")
+               for x in lens]
+    rec, engine, eager_engine = serve_captured_and_eager(
+        torch, build, cfg, params, prompts,
+        kernels=MOE_KERNELS["deepseek_v2_236b"])
+    del eager_engine
+    expert_bytes = sum(t.numel() * t.element_size() for path, t in
+                       tree_leaves(params["layers"]["moe"])
+                       if path[0] in ("up", "gate", "down"))
+    key = max(engine._decode._shapes)
+    with torch.inference_mode():
+        step_ms = timer([lambda: engine._decode(key)], iters=5, clean=True)
+    bound_ms = expert_bytes / H100_BYTES_PER_S * 1e3
+    print(f"{cfg.name}: a captured 4-row decode step (view {key}) "
+          f"{step_ms:.3f} ms; the routed experts' weights it reads "
+          f"{expert_bytes / 1e9:.2f} GB, {bound_ms:.3f} ms at 3.35 TB/s "
+          f"(share of the step {bound_ms / step_ms:.3f}); reduced "
+          f"{DEEPSEEK_REDUCED}")
+    prof = profile_serving(torch, engine, cfg, params, prompts[:2], new=4)
+    del engine
+    return rec["launches"], dict(
+        rec, params=n, init_s=init_s, init_peak_mem_gb=init_peak,
+        reduced=DEEPSEEK_REDUCED, decode_step_ms=step_ms, decode_view=key,
+        expert_bytes=expert_bytes, expert_bytes_bound_ms=bound_ms,
+        profile=prof)
+
+
+def train_granite(torch, build, steps=3, dev="cuda"):
+    """Phase 10(e): the full granite-moe-1b in ``bp8_fused`` trained 3 steps
+    through ``trainer.train`` (8 x 128 tokens, lr 3e-5, warmup 3): every
+    gradient norm finite and above 0, every leaf moved from its seed (the
+    routers, f32, by a quarter to twice the learning rates' sum), launches
+    (8 absmax and 4 matmuls a layer, forward and recompute; the routed
+    experts are plain matmuls), step times and peak memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.optimizer import OptimizerConfig, lr_at
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = moe_config("granite_moe_1b", kv_quant="none")
+    model = build_model(cfg)
+    shape = ShapeConfig("train", "train", 128, 8)
+    opt = OptimizerConfig(learning_rate=3e-5, warmup_steps=steps,
+                          total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    norms = []
+    tcfg = TrainerConfig(total_steps=steps, ckpt_dir=None)
+    build.reset_launches()
+    state, hist = train(model, cfg, shape, tcfg, opt_cfg=opt, device=dev,
+                        on_metrics=lambda i, m: norms.append(
+                            float(m["grad_norm"])))
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(norms) != steps or not all(math.isfinite(g) and g > 0
+                                      for g in norms):
+        fail(f"granite training: gradient norms {norms}")
+    lr_sum = sum(float(lr_at(opt, torch.tensor(i)))
+                 for i in range(1, steps + 1))
+    moved, gains = update_from_init(
+        torch, init_params(model.schema(), seed=tcfg.seed, device=dev),
+        state["params"], lr_sum)
+    per = cfg.num_layers * 2 * steps
+    want = {"absmax": 8 * per, "fused_matmul": 4 * per}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        fail(f"granite training launches {got}, expected {want}")
+    losses = [h["loss"] for h in hist]
+    dts = [h["dt"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"granite training: non-finite losses {losses}")
+    moe_moved = {k: v for k, v in moved.items() if "/moe/" in k}
+    print(f"granite training: {cfg.num_layers} layers, bp8_fused, {steps} "
+          f"steps of {shape.global_batch} x {shape.seq_len} tokens; step "
+          f"times " + ", ".join(f"{x:.3f}" for x in dts) + f" s; peak "
+          f"device memory {peak:.2f} GB; losses (with the aux loss) "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; gradient norms "
+          + ", ".join(f"{g:.4f}" for g in norms) + f"; launches {launches}; "
+          f"router and experts moved from the seed (least share of a "
+          f"leaf): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  sorted(moe_moved.items())))
+    return {"model": cfg.name, "layers": cfg.num_layers, "steps": steps,
+            "step_s": dts, "losses": losses, "grad_norms": norms,
+            "peak_mem_gb": peak, "launches": launches,
+            "moved_share": moved, "f32_step_of_lr_sum": gains}
+
+
+def phase_moe(torch, timer, build, log: str, rng):
+    """Phase 10: mixture-of-experts and latent attention on the card.
+    Returns the kernel rows and the launches of each MoE arch's served
+    path, and a report."""
+    import numpy as np
+    report, rows, launches = {}, {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for arch in MOE_PATHS:
+        rows[arch], report[f"kernels_{arch}"] = moe_kernel_rows(
+            torch, timer, moe_config(arch), log)
+    _, report["kernels_minicpm3_4b"] = moe_kernel_rows(
+        torch, timer, moe_config("minicpm3_4b"), log)
+    shown = [ln for ln in ptxas_report(log) if any(
+        k in ln for k in ("bp_mma_kernel", "absmax_kernel",
+                          "decode_partial_kernel", "decode_combine_kernel"))]
+    print("kernels (registers, static shared memory, spills; ptxas): "
+          + "; ".join(shown))
+    report["a_s"] = time.perf_counter() - t0
+    print(f"phase 10(a) kernels at the new shapes: {report['a_s']:.1f}s")
+
+    t1 = time.perf_counter()
+    report["cpu_s"] = {}
+    for arch, lens, new in (("granite_moe_1b", (32, 64), 4),
+                            ("minicpm3_4b", (32, 64), 4),
+                            ("deepseek_v2_236b", (32, 64), 3)):
+        cfg = moe_config(arch, num_layers=2)
+        prompts = [rng.integers(3, cfg.vocab_size, x).astype(np.int32)
+                   for x in lens]
+        report["cpu_s"][arch] = card_vs_cpu(torch, cfg, prompts, new)
+        gc.collect()
+    report["b_s"] = time.perf_counter() - t1
+    print(f"phase 10(b) card vs cpu: {report['b_s']:.1f}s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["granite_moe_1b"], report["granite"] = serve_granite(
+        torch, build, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["deepseek_v2_236b"], report["deepseek"] = serve_deepseek(
+        torch, build, timer, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train_granite"] = train_granite(torch, build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches"] = launches
+    return rows, launches, report
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -2450,29 +2980,60 @@ class Phase:
         print(f"phase {self.name}: {dt:.1f}s")
 
 
+def parting(torch, cfg, p_cpu, p_gpu, prompt, cpu_toks, gpu_toks):
+    """Where a request's card and CPU tokens part: the step, and at that
+    step (the prompt and the agreed tokens through a one-shot prefill on
+    each device) the CPU's top-2 logit margin and the largest logit
+    difference."""
+    import numpy as np
+    from repro_torch.models import build as build_model
+    j = next(i for i, (a, b) in enumerate(zip(cpu_toks, gpu_toks))
+             if a != b)
+    seq = np.concatenate([prompt, np.asarray(cpu_toks[:j], np.int32)])
+    model = build_model(cfg)
+    logits = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        t = torch.as_tensor(seq[None].astype(np.int64), device=dev)
+        logits[dev] = model.prefill(params, {"tokens": t},
+                                    len(seq) + 1)[0][0].float().cpu()
+    top = torch.topk(logits["cpu"], 2).values
+    return {"step": j, "cpu_top2_margin": float(top[0] - top[1]),
+            "max_logit_diff": float((logits["cpu"]
+                                     - logits["cuda"]).abs().max())}
+
+
 def card_vs_cpu(torch, cfg, prompts, max_new=8):
     """The same seeded weights (``cfg.num_layers`` layers) on the card,
     captured and eager, and on the CPU must emit the same greedy tokens
-    through the paged engine."""
-    from repro_torch.models import build as build_model
-    from repro_torch.models.params import init_params, tree_map
-    p_cpu = init_params(build_model(cfg).schema(), seed=0, device="cpu")
-    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    through the paged engine.  Where a request parts, print the step, the
+    CPU's top-2 logit margin and the largest logit difference, and
+    fail."""
+    p_cpu, p_gpu = seeded_pair(cfg)
     out_gpu, _, eng = serve(torch, cfg, p_gpu, prompts, max_new, "cuda")
     if not eng.capture:
         fail("the engine on CUDA does not capture by default")
+    graphs = eng.compile_counts()
+    del eng
     out_eager, _, _ = serve(torch, cfg, p_gpu, prompts, max_new, "cuda",
                             capture=False)
     out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, max_new, "cpu")
-    print(f"card vs cpu ({cfg.name}, {cfg.matmul_mode}, {cfg.num_layers} "
-          f"layers, full width): card, "
-          f"captured ({eng.compile_counts()} graphs) {out_gpu}")
+    print(f"card vs cpu ({cfg.name}, {cfg.matmul_mode}, kv {cfg.kv_quant}, "
+          f"{cfg.num_layers} layers, full width, prompts "
+          f"{[len(p) for p in prompts]}): card, captured ({graphs} graphs) "
+          f"{out_gpu}")
     print(f"    card, eager {out_eager}")
     print(f"    cpu {out_cpu} ({cpu_s:.1f}s on the CPU)")
-    if out_gpu != out_eager:
-        fail(f"{cfg.matmul_mode}: captured and eager tokens differ")
-    if out_gpu != out_cpu:
-        fail(f"{cfg.matmul_mode}: card and CPU paths emit different tokens")
+    parts = {}
+    for rid, toks in out_cpu.items():
+        for what, other in (("captured", out_gpu), ("eager", out_eager)):
+            if other[rid] != toks:
+                parts[f"{rid} {what}"] = parting(torch, cfg, p_cpu, p_gpu,
+                                                 prompts[rid], toks,
+                                                 other[rid])
+    if parts:
+        print(f"{cfg.name}: card and CPU tokens part: {parts}")
+        fail(f"{cfg.name} ({cfg.matmul_mode}): card (captured, eager) and "
+             f"CPU tokens differ")
     return cpu_s
 
 
@@ -2513,8 +3074,9 @@ def graphed_vs_eager(torch, model, params, rng):
     result = {"prefill chunk 64": (got.clone(), want, got_cache,
                                    want_cache)}
     rows = 4
-    full = {"layers": {k: v.expand(-1, rows, *v.shape[2:]).contiguous()
-                       for k, v in want_cache["layers"].items()}}
+    full = {name: {k: v.expand(-1, rows, *v.shape[2:]).contiguous()
+                   for k, v in stack.items()}
+            for name, stack in want_cache.items()}
     t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (rows, 1)),
                         device="cuda")
     p = torch.tensor([128, 130, 200, 255], dtype=torch.int32, device="cuda")
@@ -2549,6 +3111,9 @@ def graphed_vs_eager(torch, model, params, rng):
 
 
 def main() -> None:
+    import faulthandler
+    faulthandler.enable()              # a native crash prints its stack
+    sys.stdout.reconfigure(line_buffering=True)
     try:
         import torch
     except ImportError:
@@ -2739,16 +3304,26 @@ def main() -> None:
         gemma_rows, gemma_launches, report["phase9"] = phase_gemma(
             torch, timer, build, log, rng)
 
+    # ---- phase 10: mixture-of-experts and latent attention ----
+    with Phase("10 granite-moe-1b, deepseek-v2 and minicpm3", report):
+        moe_rows, moe_launches, report["phase10"] = phase_moe(
+            torch, timer, build, log, rng)
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches}
     for arch, path in GEMMA_PATHS.items():
         path_launches[path] = gemma_launches[arch]
+    for arch, path in MOE_PATHS.items():
+        path_launches[path] = moe_launches[arch]
     kernels = []
     for name, path, r in ([(n, PATHS[n], rows[n]) for n in SOURCES]
                           + [(n, "train_bp8_fused", r)
                              for n, r in train_rows.items()]
                           + [(n, GEMMA_PATHS[arch], r)
                              for arch, arch_rows in gemma_rows.items()
+                             for n, r in arch_rows.items()]
+                          + [(n, MOE_PATHS[arch], r)
+                             for arch, arch_rows in moe_rows.items()
                              for n, r in arch_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)

@@ -10,7 +10,8 @@ import dataclasses
 import importlib
 from typing import Optional
 
-ARCH_IDS = ("gemma3_12b", "h2o_danube_1p8b", "qwen2_72b", "paligemma_3b")
+ARCH_IDS = ("gemma3_12b", "h2o_danube_1p8b", "qwen2_72b", "paligemma_3b",
+            "granite_moe_1b", "deepseek_v2_236b", "minicpm3_4b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,16 +26,29 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     # attention
-    attention_type: str = "gqa"
+    attention_type: str = "gqa"  # gqa | mla
     qkv_bias: bool = False
     window_size: Optional[int] = None        # SWA window (None = full attn)
     local_global_pattern: int = 0            # N local layers per 1 global
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     logit_softcap: Optional[float] = None
+    # MLA (minicpm3 / deepseek-v2)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # MLP
     mlp_gated: bool = True
     act: str = "silu"
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
     # vlm (paligemma): a bidirectional prefix of patch embeddings
     num_prefix_tokens: int = 0
     # execution policy

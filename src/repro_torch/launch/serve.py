@@ -6,6 +6,7 @@
   python -m repro_torch.launch.serve --device cpu            # plain path
   python -m repro_torch.launch.serve --arch gemma3_12b --paged --full-config
   python -m repro_torch.launch.serve --arch paligemma_3b --full-config
+  python -m repro_torch.launch.serve --arch granite_moe_1b --paged --full-config
 
 Flags follow the reference CLI, plus ``--device`` (default ``cuda``;
 without CUDA the run stops unless ``--device cpu`` is given).  ``--paged``
@@ -14,7 +15,9 @@ chunked prefill); without it the lock-step ``ServeEngine`` serves, as in
 the reference.  The archs are ``repro_torch.configs.base.ARCH_IDS``;
 paligemma (a prefix of zero patch embeddings) serves on the lock-step
 engine only, and ``--paged`` refuses it.  The model runs the paper's path,
-``matmul_mode="bp8_fused"`` with a ``bp8`` KV cache.
+``matmul_mode="bp8_fused"`` with a ``bp8`` KV cache (the MLA archs,
+deepseek-v2 and minicpm3, keep their bf16 latent cache: the reference
+refuses a ``bp8`` one).
 """
 from __future__ import annotations
 
@@ -49,9 +52,9 @@ def main(argv=None):
     from repro_torch.models.params import init_params
 
     device = resolve_device(args.device)
-    cfg = dataclasses.replace(get_config(args.arch,
-                                         smoke=not args.full_config),
-                              matmul_mode="bp8_fused", kv_quant="bp8")
+    cfg = get_config(args.arch, smoke=not args.full_config)
+    cfg = dataclasses.replace(cfg, matmul_mode="bp8_fused", kv_quant=(
+        "none" if cfg.attention_type == "mla" else "bp8"))
     model = build(cfg)
     params = init_params(model.schema(), seed=0, device=device)
     rng = np.random.default_rng(0)

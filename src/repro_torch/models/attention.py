@@ -1,4 +1,5 @@
-"""GQA attention with KV caches, plain or BP8-quantised.
+"""Attention: GQA with KV caches, plain or BP8-quantised, and MLA
+(multi-head latent attention) over a bf16 latent cache.
 
 ``sdpa`` is the reference's masked-softmax attention written in torch
 einsum/softmax (direct, or an online softmax over KV chunks when the
@@ -140,8 +141,9 @@ def kv_quantized(cfg: ModelConfig) -> bool:
         return False
     if cfg.kv_quant != "bp8":
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
-    if cfg.attention_type != "gqa":
-        raise ValueError("kv_quant='bp8' is GQA/MQA-only")
+    if cfg.attention_type == "mla":
+        raise ValueError("kv_quant='bp8' is GQA/MQA-only; the MLA latent "
+                         "cache is already compressed")
     return True
 
 
@@ -149,7 +151,14 @@ def kv_cache_spec(cfg: ModelConfig, batch: int,
                   length: int) -> Dict[str, tuple]:
     """One attention layer's cache: {leaf: (shape, dtype)}."""
     kh, d = cfg.num_kv_heads, cfg.head_dim
-    if kv_quantized(cfg):
+    quant = kv_quantized(cfg)       # raises for mla + kv_quant='bp8'
+    if cfg.attention_type == "mla":
+        return {
+            "ckv": ((batch, length, cfg.kv_lora_rank), torch.bfloat16),
+            "krope": ((batch, length, cfg.qk_rope_head_dim), torch.bfloat16),
+            "pos": ((batch, length), torch.int32),
+        }
+    if quant:
         # int8 sign*level codes + one f32 scale per (token, kv-head), so
         # appends never re-encode neighbours and scales page with tokens
         return {
@@ -172,7 +181,11 @@ def kv_cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
     def ax(*names):
         return ("stack", "batch") + names
 
-    if kv_quantized(cfg):
+    quant = kv_quantized(cfg)       # raises for mla + kv_quant='bp8'
+    if cfg.attention_type == "mla":
+        return {"ckv": ax("kv_seq", None), "krope": ax("kv_seq", None),
+                "pos": ax("kv_seq")}
+    if quant:
         return {"k_codes": ax("kv_seq", "kv_heads", None),
                 "k_scale": ax("kv_seq", "kv_heads"),
                 "v_codes": ax("kv_seq", "kv_heads", None),
@@ -325,3 +338,124 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                    softcap=cfg.logit_softcap, prefix_len=prefix_len)
     out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): minicpm3, deepseek-v2
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg: ModelConfig, dtype=torch.bfloat16):
+    dm, h = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    defs = {
+        "wdkv": linear_def(dm, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                           "d_model", "lora", dtype),
+        "kv_norm": norm_def(cfg.kv_lora_rank),
+        "wuk": ParamDef((cfg.kv_lora_rank, h, cfg.qk_nope_head_dim),
+                        ("lora", "heads", None), dtype),
+        "wuv": ParamDef((cfg.kv_lora_rank, h, cfg.v_head_dim),
+                        ("lora", "heads", None), dtype),
+        "wo": linear_def(h * cfg.v_head_dim, dm, "heads", "d_model", dtype),
+    }
+    if cfg.q_lora_rank:
+        defs["wdq"] = linear_def(dm, cfg.q_lora_rank, "d_model", "lora", dtype)
+        defs["q_norm"] = norm_def(cfg.q_lora_rank)
+        defs["wuq"] = linear_def(cfg.q_lora_rank, h * qk, "lora", "heads",
+                                 dtype)
+    else:
+        defs["wq"] = linear_def(dm, h * qk, "d_model", "heads", dtype)
+    return defs
+
+
+def _mla_q(p, cfg: ModelConfig, x: torch.Tensor):
+    """(q_nope, q_rope): (B, S, H, nope) and (B, S, H, rope)."""
+    b, s, _ = x.shape
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    mode = cfg.matmul_mode
+    if cfg.q_lora_rank:
+        ql = rms_norm(dense(x, p["wdq"], mode), p["q_norm"], cfg.norm_eps)
+        q = dense(ql, p["wuq"], mode)
+    else:
+        q = dense(x, p["wq"], mode)
+    q = q.reshape(b, s, -1, qk)
+    return q[..., :cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
+
+
+def _mla_expand(p, cfg: ModelConfig, q_nope, q_rope, ckv, krope):
+    """K/V expanded from f32 latents, and q: k = [ckv W_uk, krope]
+    (krope shared by every head), v = ckv W_uv."""
+    k_nope = torch.einsum("bsr,rhd->bshd", ckv, p["wuk"].to(torch.float32))
+    v = torch.einsum("bsr,rhv->bshv", ckv, p["wuv"].to(torch.float32))
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *k_nope.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope.to(torch.float32), q_rope.to(torch.float32)],
+                  dim=-1)
+    return q, k, v
+
+
+def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+              *, cache: Optional[Dict] = None, window=None,
+              append: bool = False):
+    """Returns (out, cache).  Training and prefill expand K/V from the
+    latent (prefill from the bf16-rounded latents it stores, so a later
+    absorbed decode reproduces its logits); chunked prefill (``append``)
+    appends the latents at [p0, p0+Sq) and expands K/V from the whole
+    cache; decode (Sq == 1) is absorbed: W_uk folds into q and the scores
+    are taken in the kv_lora latent space in f32, O(S * kv_lora) a step
+    instead of O(S * H * head_dim)."""
+    b, sq, _ = x.shape
+    mode = cfg.matmul_mode
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    dkv = dense(x, p["wdkv"], mode)
+    ckv = rms_norm(dkv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    krope = dkv[..., cfg.kv_lora_rank:]                     # (B, S, rope)
+    q_pos = positions if positions.dim() == 2 else positions[None].expand(
+        b, sq)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    krope = apply_rope(krope[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0]
+    updates = {"ckv": ckv, "krope": krope}
+
+    if cache is not None and sq == 1:
+        # ---- absorbed decode ----
+        _cache_write(cache, updates, q_pos[:, 0])
+        kv_pos = cache["pos"]
+        qa = torch.einsum("bqhd,rhd->bqhr", q_nope.to(torch.float32),
+                          p["wuk"].to(torch.float32))
+        ckv_all = cache["ckv"].to(torch.float32)             # (B, S, R)
+        kr_all = cache["krope"].to(torch.float32)            # (B, S, P)
+        s_nope = torch.einsum("bqhr,bsr->bhqs", qa, ckv_all)
+        s_rope = torch.einsum("bqhp,bsp->bhqs", q_rope.to(torch.float32),
+                              kr_all)
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        scores = (s_nope + s_rope) * _sdpa_scale(qk, x.device)
+        mask = _allowed(q_pos, kv_pos, causal=True, window=window)
+        pr = torch.softmax(_masked(scores, mask[:, None]), dim=-1)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv_all)  # (B,1,H,R)
+        out = torch.einsum("bqhr,rhv->bqhv", o_lat,
+                           p["wuv"].to(torch.float32))
+    elif cache is not None and append:
+        # ---- chunked prefill: attend every previously appended chunk,
+        # expanded from the bf16-stored latents absorbed decode reads ----
+        _cache_append(cache, updates, q_pos)
+        q, k, v = _mla_expand(p, cfg, q_nope, q_rope,
+                              cache["ckv"].to(torch.float32),
+                              cache["krope"].to(torch.float32))
+        out = sdpa(q, k, v, q_pos, cache["pos"], causal=True, window=window,
+                   chunk=cfg.attn_chunk)
+    else:
+        # ---- expanded train / prefill ----
+        if cache is not None:
+            ckv_e = ckv.to(torch.bfloat16).to(torch.float32)
+            kr_e = krope.to(torch.bfloat16).to(torch.float32)
+        else:
+            ckv_e, kr_e = ckv.to(torch.float32), krope.to(torch.float32)
+        q, k, v = _mla_expand(p, cfg, q_nope, q_rope, ckv_e, kr_e)
+        out = sdpa(q, k, v, q_pos, q_pos, causal=True, window=window,
+                   chunk=cfg.attn_chunk)
+        if cache is not None:                   # prefill: store latents
+            for key, val in updates.items():
+                cache[key][:, :sq] = val.to(cache[key].dtype)
+            cache["pos"][:, :sq] = q_pos.to(torch.int32)
+    out = out.reshape(b, sq, -1).to(x.dtype)
+    return dense(out, p["wo"], mode), cache

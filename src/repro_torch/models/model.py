@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (chunked_softmax_xent, embed_def,
                                        embed_lookup, linear_def, mlp_apply,
                                        mlp_defs, norm_def, rms_norm)
@@ -28,10 +29,14 @@ from repro_torch.models.params import stack, tree_map
 BIG_WINDOW = 1 << 30  # "no window"
 
 
-def _decoder_layer_defs(cfg: ModelConfig):
+def _decoder_layer_defs(cfg: ModelConfig, moe: bool = False):
     d = {"ln1": norm_def(cfg.d_model), "ln2": norm_def(cfg.d_model),
-         "attn": attn.gqa_defs(cfg),
-         "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)}
+         "attn": (attn.mla_defs(cfg) if cfg.attention_type == "mla"
+                  else attn.gqa_defs(cfg))}
+    if moe:
+        d["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)
     if cfg.local_global_pattern:  # gemma3 also post-norms
         d["post_ln1"] = norm_def(cfg.d_model)
         d["post_ln2"] = norm_def(cfg.d_model)
@@ -50,18 +55,29 @@ def _layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 def _decoder_layer_apply(p, cfg: ModelConfig, x, positions, *, window,
                          cache=None, prefix_len=None, append=False):
+    """Returns (x, cache, aux): aux is the MoE layer's auxiliary loss, or
+    None for a dense layer."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
-                              cache=cache, prefix_len=prefix_len,
-                              append=append)
+    if cfg.attention_type == "mla":
+        a, cache = attn.mla_apply(p["attn"], cfg, h, positions, cache=cache,
+                                  window=window, append=append)
+    else:
+        a, cache = attn.gqa_apply(p["attn"], cfg, h, positions,
+                                  window=window, cache=cache,
+                                  prefix_len=prefix_len, append=append)
     if "post_ln1" in p:
         a = rms_norm(a, p["post_ln1"], cfg.norm_eps)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = mlp_apply(p["mlp"], h, cfg.act, cfg.mlp_gated, cfg.matmul_mode)
+    aux = None
+    if "moe" in p:
+        r = moe_mod.moe_apply(p["moe"], cfg, h)
+        m, aux = r["out"], r["aux_loss"]
+    else:
+        m = mlp_apply(p["mlp"], h, cfg.act, cfg.mlp_gated, cfg.matmul_mode)
     if "post_ln2" in p:
         m = rms_norm(m, p["post_ln2"], cfg.norm_eps)
-    return x + m, cache
+    return x + m, cache, aux
 
 
 def _decode_positions(pos, b: int, device) -> torch.Tensor:
@@ -78,9 +94,10 @@ class DecoderModel:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.family != "decoder" or cfg.attention_type != "gqa":
+        if cfg.family != "decoder" or cfg.attention_type not in ("gqa",
+                                                                 "mla"):
             raise NotImplementedError(
-                f"{cfg.name}: only GQA decoders are ported so far")
+                f"{cfg.name}: only GQA and MLA decoders are ported so far")
         attn.kv_quantized(cfg)            # validates kv_quant
 
     # ---------------- schema / caches ----------------
@@ -89,21 +106,35 @@ class DecoderModel:
         sch: Dict[str, Any] = {
             "embed": embed_def(cfg.vocab_size, cfg.d_model),
             "final_norm": norm_def(cfg.d_model),
-            "layers": stack(_decoder_layer_defs(cfg), cfg.num_layers),
+            "layers": stack(_decoder_layer_defs(cfg, cfg.num_experts > 0),
+                            cfg.num_layers - cfg.first_dense_layers),
         }
+        if cfg.first_dense_layers:
+            sch["dense_layers"] = stack(_decoder_layer_defs(cfg),
+                                        cfg.first_dense_layers)
         if not cfg.tie_embeddings:
             sch["head"] = linear_def(cfg.d_model, cfg.vocab_size,
                                      "d_model", "vocab")
         return sch
 
+    def _stacks(self):
+        """(name, layers) of the stacks in the order they run: the dense
+        first layers (deepseek-v2), then the rest."""
+        cfg = self.cfg
+        n_dense = cfg.first_dense_layers
+        return ([("dense_layers", n_dense)] if n_dense else []) + [
+            ("layers", cfg.num_layers - n_dense)]
+
     def cache_spec(self, batch: int, length: int):
-        """{"layers": {leaf: ((L, batch, length, ...), dtype)}}."""
+        """{stack: {leaf: ((L, batch, length, ...), dtype)}}."""
         one = attn.kv_cache_spec(self.cfg, batch, length)
-        return {"layers": {k: ((self.cfg.num_layers,) + shape, dtype)
-                           for k, (shape, dtype) in one.items()}}
+        return {name: {k: ((n,) + shape, dtype)
+                       for k, (shape, dtype) in one.items()}
+                for name, n in self._stacks()}
 
     def cache_axes(self):
-        return {"layers": attn.kv_cache_axes(self.cfg)}
+        one = attn.kv_cache_axes(self.cfg)
+        return {name: one for name, _ in self._stacks()}
 
     def init_cache(self, batch: int, length: int, device):
         """Empty cache: zeros, and ``pos = -1`` (empty) everywhere."""
@@ -115,33 +146,44 @@ class DecoderModel:
 
     # ---------------- forward over the stack ----------------
     def _stack(self, params, x, positions, caches, prefix_len, mode: str):
+        """Runs the stacks in turn; returns (h, caches, aux): aux sums the
+        MoE layers' auxiliary losses (None without MoE layers)."""
         cfg = self.cfg
         windows = _layer_windows(cfg)
-        # one view per layer; under autograd, unbind's backward stacks the
-        # layers' gradients in one pass
-        layers = tree_map(lambda t: t.unbind(0), params["layers"])
+        aux_total = None
 
         def layer_fn(x, lp, window):
-            return _decoder_layer_apply(lp, cfg, x, positions,
-                                        window=window,
-                                        prefix_len=prefix_len)[0]
+            y, _, aux = _decoder_layer_apply(lp, cfg, x, positions,
+                                             window=window,
+                                             prefix_len=prefix_len)
+            return y, aux
 
-        for i in range(cfg.num_layers):
-            lp = tree_map(lambda t: t[i], layers)
-            if mode == "train":
-                if cfg.remat:
-                    x = checkpoint(layer_fn, x, lp, int(windows[i]),
-                                   use_reentrant=False)
+        i0 = 0
+        for name, n in self._stacks():
+            # one view per layer; under autograd, unbind's backward stacks
+            # the layers' gradients in one pass
+            layers = tree_map(lambda t: t.unbind(0), params[name])
+            for i in range(n):
+                lp = tree_map(lambda t: t[i], layers)
+                window = int(windows[i0 + i])
+                if mode == "train":
+                    if cfg.remat:
+                        x, aux = checkpoint(layer_fn, x, lp, window,
+                                            use_reentrant=False)
+                    else:
+                        x, aux = layer_fn(x, lp, window)
                 else:
-                    x = layer_fn(x, lp, int(windows[i]))
-                continue
-            lc = (None if caches is None else
-                  {k: v[i] for k, v in caches["layers"].items()})
-            x, _ = _decoder_layer_apply(lp, cfg, x, positions,
-                                        window=int(windows[i]), cache=lc,
-                                        prefix_len=prefix_len,
-                                        append=mode == "prefill_chunk")
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+                    lc = (None if caches is None else
+                          {k: v[i] for k, v in caches[name].items()})
+                    x, _, aux = _decoder_layer_apply(
+                        lp, cfg, x, positions, window=window, cache=lc,
+                        prefix_len=prefix_len,
+                        append=mode == "prefill_chunk")
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+            i0 += n
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), caches, \
+            aux_total
 
     def _scaled_embed(self) -> bool:
         """Token embeddings are scaled by sqrt(d_model) for gemma3 and
@@ -182,8 +224,8 @@ class DecoderModel:
         x = self._embed_in(params, batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        h, _ = self._stack(params, x, positions, None,
-                           self._prefix(b, x.device), "train")
+        h, _, aux = self._stack(params, x, positions, None,
+                                self._prefix(b, x.device), "train")
         if cfg.num_prefix_tokens:
             h = h[:, cfg.num_prefix_tokens:]
         labels = batch["labels"]
@@ -195,6 +237,9 @@ class DecoderModel:
             h, params["embed"] if cfg.tie_embeddings else params["head"].T,
             labels, mask, softcap=cfg.logit_softcap)
         loss = total / torch.clamp_min(denom, 1.0)
+        if cfg.num_experts:
+            loss = loss + 0.01 * aux / cfg.num_layers
+            return loss, {"loss": loss, "aux_loss": aux}
         return loss, {"loss": loss}
 
     @torch.inference_mode()
@@ -208,8 +253,8 @@ class DecoderModel:
         cache = self.init_cache(b, cache_len + self.cfg.num_prefix_tokens,
                                 x.device)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        h, cache = self._stack(params, x, positions, cache,
-                               self._prefix(b, x.device), "prefill")
+        h, cache, _ = self._stack(params, x, positions, cache,
+                                  self._prefix(b, x.device), "prefill")
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     @torch.inference_mode()
@@ -228,8 +273,8 @@ class DecoderModel:
         pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
                 else int(pos0))
         positions = (pos0 + torch.arange(s, device=x.device))[None]
-        h, cache = self._stack(params, x, positions.expand(b, s), cache,
-                               None, "prefill_chunk")
+        h, cache, _ = self._stack(params, x, positions.expand(b, s), cache,
+                                  None, "prefill_chunk")
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     @torch.inference_mode()
@@ -238,7 +283,8 @@ class DecoderModel:
         x = embed_lookup(params["embed"], tokens,
                          scale=self._scaled_embed())
         positions = _decode_positions(pos, x.shape[0], x.device)
-        h, cache = self._stack(params, x, positions, cache, None, "decode")
+        h, cache, _ = self._stack(params, x, positions, cache, None,
+                                  "decode")
         return self._logits(params, h)[:, 0], cache
 
 

@@ -120,10 +120,12 @@ class TrainPlan:
 
 
 def _layer_param_bytes(cfg: ModelConfig) -> float:
-    """bf16 bytes of ONE layer of the stack, from the model's schema."""
+    """bf16 bytes of ONE layer of the pipelined stack (attention + MLP or
+    MoE), from the model's schema: the dense first layers run outside
+    it, so they are not counted."""
     sch = build(cfg).schema()
     n = sum(math.prod(d.shape) for _, d in tree_leaves(sch["layers"]))
-    return n / max(1, cfg.num_layers) * 2.0
+    return n / max(1, cfg.num_layers - cfg.first_dense_layers) * 2.0
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan,

@@ -85,6 +85,12 @@ def both(request):
     return stacks(request.param)
 
 
+@pytest.fixture(scope="module", params=["granite_moe_1b", "deepseek_v2_236b",
+                                        "minicpm3_4b"])
+def moe_mla(request):
+    return stacks(request.param)
+
+
 @pytest.fixture(scope="module")
 def danube():
     return stacks("h2o_danube_1p8b")
@@ -102,7 +108,16 @@ def test_lockstep_engine_matches_reference(both, temperature):
     """slots 2: request 2 refills request 0's slot mid-stream; request 3's
     20-token prompt is longer than the cache position, so it and request 4
     behind it wait for the next generation."""
-    jstack, tstack = both
+    _lockstep_case(*both, temperature)
+
+
+def test_lockstep_engine_moe_mla_matches_reference(moe_mla):
+    """The same case greedily on the MoE and MLA archs (sampling at T 0.8
+    is the same code on every arch)."""
+    _lockstep_case(*moe_mla, 0.0)
+
+
+def _lockstep_case(jstack, tstack, temperature):
     specs = [([3, 4, 5], 2), ([6, 7, 8], 12), ([9, 10, 11], 2),
              (list(range(20, 40)), 3), ([12, 13, 14, 15], 2)]
 

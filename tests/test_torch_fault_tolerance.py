@@ -149,6 +149,16 @@ def test_launcher_trains_on_cpu_and_refuses_shards(tmp_path, capsys):
         cli.main(["--device", "cpu", "--model-shards", "2"])
 
 
+def test_launcher_trains_moe_on_cpu(capsys):
+    from repro_torch.launch import train as cli
+    out = cli.main(["--arch", "granite_moe_1b", "--device", "cpu",
+                    "--steps", "2", "--seq-len", "16", "--global-batch", "2",
+                    "--matmul-mode", "bp8"])
+    assert out == 2
+    assert "granite-moe-smoke (2 layers, bp8) on cpu" in \
+        capsys.readouterr().out
+
+
 # ---------------------------------------------------------------------------
 # injector, straggler monitor, supervisor (the reference's cases)
 # ---------------------------------------------------------------------------

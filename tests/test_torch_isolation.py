@@ -125,6 +125,18 @@ def test_cli_serves_on_cpu_when_asked(capsys):
     assert all(1 <= len(v) <= 4 for v in out.values())
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "deepseek_v2_236b",
+                                  "minicpm3_4b"])
+def test_cli_serves_moe_and_mla_on_cpu(arch, capsys):
+    from repro_torch.launch import serve as cli
+    for paged in (["--paged"], []):
+        out = cli.main(["--arch", arch, "--device", "cpu", "--requests", "2",
+                        "--max-new", "3"] + paged)
+        assert sorted(out) == [0, 1]
+        assert all(len(v) == 3 for v in out.values())
+    assert "-smoke on cpu" in capsys.readouterr().out
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Run without a card (or alone, without the package beside it), the
     card check fails with a non-zero exit and prints no result."""

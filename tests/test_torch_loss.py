@@ -15,7 +15,15 @@ Tolerances:
     configs, where the tolerance is 8 times that (``LOSS_SCALE``), the
     same precision relative to the loss (observed <= 1.9e-5, 5 f32 ulps,
     on paligemma in ``bp8_fused``); paligemma's batches carry seeded
-    patch embeddings for its prefix;
+    patch embeddings for its prefix; granite-moe and minicpm3 tie std-1
+    embeddings too (losses of ~37 and ~27): 8 times as well;
+  * the MoE archs' loss in ``bf16`` — 1e-3 absolute (observed 3.3e-4 on
+    granite-moe's ~37.5 and 3.2e-4 on deepseek-v2's ~6.6, against
+    <= 1.5e-5 for the dense archs): their routed experts are plain bf16
+    matmuls, which torch and XLA round one bf16 ulp apart now and then
+    (``test_torch_moe.py``); the top-k sets are equal.  In the BP modes
+    the dense rule holds (with the aux loss); the MoE and MLA archs run
+    in ``bf16``, ``bp8`` and ``bp8_fused``;
   * per-leaf gradients — the largest difference within 5e-2 of the leaf's
     largest magnitude and a cosine similarity of at least 0.9998.  The
     backward runs through the bf16 residual stream: each cast to bf16
@@ -49,7 +57,11 @@ from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 
 EXACT = {"xla_allow_excess_precision": False}
 #: absolute loss tolerances scale with the loss's magnitude (docstring)
-LOSS_SCALE = {"gemma3_12b": 8.0, "paligemma_3b": 8.0}
+LOSS_SCALE = {"gemma3_12b": 8.0, "paligemma_3b": 8.0, "granite_moe_1b": 8.0,
+              "minicpm3_4b": 8.0}
+#: (arch, mode) loss tolerances other than the rule above (docstring)
+LOSS_TOL = {("granite_moe_1b", "bf16"): 1e-3,
+            ("deepseek_v2_236b", "bf16"): 1e-3}
 
 
 def to_np(tree):
@@ -104,9 +116,13 @@ def _port_loss_and_grads(tm, params, batch):
     return loss, dict(zip([p for p, _ in tree_leaves(live)], grads))
 
 
-@pytest.mark.parametrize("mode", ["bf16", "bp8", "bp8_fused", "fp8"])
-@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b",
-                                  "gemma3_12b", "paligemma_3b"])
+@pytest.mark.parametrize("arch,mode", [
+    pytest.param(a, m, id=f"{a}-{m}")
+    for a in ("h2o_danube_1p8b", "qwen2_72b", "gemma3_12b", "paligemma_3b",
+              "granite_moe_1b", "deepseek_v2_236b", "minicpm3_4b")
+    for m in ("bf16", "bp8", "bp8_fused", "fp8")
+    if m != "fp8" or a in ("h2o_danube_1p8b", "qwen2_72b", "gemma3_12b",
+                           "paligemma_3b")])
 def test_loss_and_grads_match_reference(arch, mode):
     jm, tm, jp, batch = _setup(arch, mode)
     (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True),
@@ -114,8 +130,8 @@ def test_loss_and_grads_match_reference(arch, mode):
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = params_from_numpy(to_np(jp), tm.cfg, "cpu")
     tl, tg = _port_loss_and_grads(tm, tp, batch)
-    assert abs(float(tl) - float(jl)) <= 2e-5 * LOSS_SCALE.get(arch, 1.0), \
-        (float(tl), float(jl))
+    tol = LOSS_TOL.get((arch, mode), 2e-5 * LOSS_SCALE.get(arch, 1.0))
+    assert abs(float(tl) - float(jl)) <= tol, (float(tl), float(jl))
     want = {tuple(k.key for k in path): np.asarray(
         g.astype(jnp.float32)) for path, g in
         jax.tree_util.tree_flatten_with_path(jg)[0]}

@@ -41,7 +41,7 @@ from repro.optim import optimizer as jopt  # noqa: E402
 from repro.train.train_step import TrainPlan as JPlan  # noqa: E402
 from repro.train.train_step import init_state as jinit_state  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.configs.base import ARCH_IDS, ShapeConfig  # noqa: E402
 from repro_torch.data import pipeline as tdata  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.convert import (train_state_from_numpy,  # noqa: E402
@@ -211,9 +211,15 @@ def test_batch_at_bitwise(seed, step, host_slice):
 
 # ---------------- the train plan ----------------
 
-@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b"])
+@pytest.mark.parametrize("arch", [
+    "h2o_danube_1p8b", "qwen2_72b", "deepseek_v2_236b",
+    "granite_moe_1b-smoke", "deepseek_v2_236b-smoke"])
 def test_train_plan_matches_reference_over_a_grid(arch):
-    jcfg, tcfg = jget_config(arch), get_config(arch)
+    """The planner's arithmetic over a grid, its pipelined branch included
+    (deepseek-v2's dense first layer outside the stages' weights); the
+    pipelined step itself waits for ``dist/``."""
+    arch, _, smoke = arch.partition("-")
+    jcfg, tcfg = jget_config(arch, bool(smoke)), get_config(arch, bool(smoke))
     for seq, gb in ((128, 8), (4096, 256), (32, 4), (2048, 12)):
         for shards in (1, 2, 4, 8):
             for stages in (1, 2, 4):
@@ -227,6 +233,18 @@ def test_train_plan_matches_reference_over_a_grid(arch):
                     assert dataclasses.asdict(got) == dataclasses.asdict(
                         want), (seq, gb, kw)
                     assert got.bubble == want.bubble
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_layer_param_bytes_match_reference(arch, smoke):
+    """One pipelined-stack layer's bytes, which the planner charges per
+    stage: deepseek-v2's dense first layer is outside the stack, so the
+    stack's bytes divide by ``num_layers - first_dense_layers``."""
+    from repro.train.train_step import _layer_param_bytes as jbytes
+    from repro_torch.train.train_step import _layer_param_bytes as tbytes
+    assert tbytes(get_config(arch, smoke)) == jbytes(jget_config(arch,
+                                                                 smoke))
 
 
 def test_pipelined_plan_and_mesh_raise():

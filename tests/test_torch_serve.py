@@ -6,7 +6,8 @@
   block tables, gathered views and (scrubbed) pools;
 * the slice as a whole: the port's ``PagedServeEngine`` emits the same
   greedy tokens, in the same engine steps, as the reference's, on the
-  smoke decoders in ``bp8_fused`` + ``bp8`` with mid-stream admission.
+  smoke decoders in ``bp8_fused`` + ``bp8`` (MLA: its bf16 latent cache)
+  with mid-stream admission.
   The reference is compiled with ``xla_allow_excess_precision`` off (see
   ``test_torch_model.py``: with it on, XLA keeps some bf16 sums in f32
   and the streams part after a few tokens).
@@ -38,6 +39,8 @@ EXACT = {"xla_allow_excess_precision": False}
 
 
 def configs(arch, mode="bp8_fused", kvq="bp8"):
+    if jget_config(arch, smoke=True).attention_type == "mla":
+        kvq = "none"       # the latent cache is bf16 (bp8 is GQA-only)
     return (dataclasses.replace(jget_config(arch, smoke=True),
                                 matmul_mode=mode, kv_quant=kvq),
             dataclasses.replace(get_config(arch, smoke=True),
@@ -158,7 +161,8 @@ def test_paged_cache_matches_reference(rng):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b",
-                                  "gemma3_12b"])
+                                  "gemma3_12b", "granite_moe_1b",
+                                  "deepseek_v2_236b", "minicpm3_4b"])
 def test_paged_engine_tokens_match_reference(arch):
     """Slots 2, block 8, 32 blocks, prefill chunk 8, prompts of 5/13/9
     tokens (the third is admitted mid-stream), 8 new tokens each."""

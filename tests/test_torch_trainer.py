@@ -16,6 +16,16 @@ Tolerances on the 5-step loss history (h2o-danube smoke, 4 x 32 tokens):
   * ``bp8`` and ``bp8_fused`` within 0.15 (observed <= 5.5e-2 and 2.7e-2):
     a weight one bf16 ulp apart can move a value across a BP level
     boundary, and the next layer's re-quantisation carries that flip.
+
+granite-moe's smoke config (the same shape of run): its losses are ~30-37
+(a tied std-1 embedding), five times the danube smoke's, and its loss
+carries the routers' aux loss.  Step 1 within 1e-5 in ``bp8`` and
+``bp8_fused`` (observed 0: the aux loss included) and 5e-3 in ``bf16``
+(observed 1.7e-3: the routed experts are plain bf16 matmuls, which torch
+and XLA round apart now and then, ``test_torch_moe.py``; the top-k sets
+are equal); the history within five times the danube tolerances where
+that is above what was observed: 0.2 in ``bf16`` (observed 0.10) and
+0.75 in ``bp8`` and ``bp8_fused`` (observed 0.40).
 """
 import dataclasses
 
@@ -42,6 +52,8 @@ from repro_torch.train.trainer import TrainerConfig, train  # noqa: E402
 
 EXACT = {"xla_allow_excess_precision": False}
 SHAPE = ShapeConfig("t", "train", 32, 4)
+#: granite-moe's tolerances, step 1 and the history (docstring)
+MOE_STEP1_TOL = {"bf16": 5e-3, "bp8": 1e-5, "bp8_fused": 1e-5}
 
 
 def to_np(tree):
@@ -50,12 +62,12 @@ def to_np(tree):
                            else a), tree)
 
 
-@pytest.mark.parametrize("mode,tol", [("bf16", 5e-3), ("bp8", 0.15),
-                                      ("bp8_fused", 0.15)])
-def test_five_steps_match_reference_trainer(mode, tol):
-    jcfg = dataclasses.replace(jget_config("h2o_danube_1p8b", smoke=True),
+def _five_steps(arch, mode):
+    """The 5-step loss histories of the reference's trainer and the
+    port's, from the same state and data: (got, want)."""
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True),
                                matmul_mode=mode)
-    tcfg = dataclasses.replace(get_config("h2o_danube_1p8b", smoke=True),
+    tcfg = dataclasses.replace(get_config(arch, smoke=True),
                                matmul_mode=mode)
     jm, tm = jbuild(jcfg), build(tcfg)
     args = dict(learning_rate=3e-3, warmup_steps=2, total_steps=5)
@@ -74,7 +86,25 @@ def test_five_steps_match_reference_trainer(mode, tol):
                                                   ckpt_dir=None),
                    opt_cfg=topt, state=state, device="cpu")
     assert [h["step"] for h in got] == [h["step"] for h in want]
+    return got, want
+
+
+@pytest.mark.parametrize("mode,tol", [("bf16", 5e-3), ("bp8", 0.15),
+                                      ("bp8_fused", 0.15)])
+def test_five_steps_match_reference_trainer(mode, tol):
+    got, want = _five_steps("h2o_danube_1p8b", mode)
     assert abs(got[0]["loss"] - want[0]["loss"]) <= 1e-5
+    diffs = [abs(g["loss"] - w["loss"]) for g, w in zip(got, want)]
+    assert max(diffs) <= tol, diffs
+
+
+@pytest.mark.parametrize("mode,tol", [("bf16", 0.2), ("bp8", 0.75),
+                                      ("bp8_fused", 0.75)])
+def test_five_steps_moe_match_reference_trainer(mode, tol):
+    """granite-moe's smoke config: the loss carries the routers' aux loss
+    (``0.01 * aux / num_layers``), and the routers and experts train."""
+    got, want = _five_steps("granite_moe_1b", mode)
+    assert abs(got[0]["loss"] - want[0]["loss"]) <= MOE_STEP1_TOL[mode]
     diffs = [abs(g["loss"] - w["loss"]) for g, w in zip(got, want)]
     assert max(diffs) <= tol, diffs
 
