@@ -181,11 +181,41 @@ prints its wall time):
    absmax and 4 matmuls a layer, forward and recompute), step times and
    peak memory.
 
+11. The encoder-decoder and the hybrid in ``bp8_fused`` over a ``bp8``
+   cache, whose cross K/V (whisper) and conv and SSM states (zamba2) the
+   paged cache keeps dense per slot.  (a) The served path's kernels at
+   the new shapes (phase 2's timer, bounds and checks): the fused matmul
+   bitwise at every projection of whisper-base (K 512 -> N 512 / 2048, K
+   2048 -> 512) at M 4, 64 and 1500 (the encoder's rows and the cross
+   K/V) and of zamba2-2.7b (``in_proj`` 2560 -> 10448, ``out_proj`` 5120
+   -> 2560, attention 2560 -> 2560, down 10240 -> 2560) at M 4 and 64;
+   absmax bitwise on their inputs and weights; zamba2's silu MLP 2560 ->
+   10240 within 1e-5; decode attention at G 1 (whisper D 64, KH 8;
+   zamba2 D 80, KH 32; S 1-4096, full and a 1024 window) within 1e-5.
+   Rows time one decode layer (whisper) or group (zamba2) of a 4-row
+   step; whisper's encoder layer at M 1500 is timed beside its bound.
+   (b) Card vs CPU on the paged engine, prompts of 32 and 64 tokens, 4
+   greedy tokens, weights seeded on the card: the whole whisper-base
+   over non-zero seeded frames, and zamba2 at full width and 6 layers
+   (one group; ``reduced``); where they part, the margin report.  (c)
+   The full whisper-base and (d) the full zamba2-2.7b (54 Mamba2 layers
+   in 9 groups, 2.7 B parameters) on ``PagedServeEngine`` (4 slots,
+   block 16, chunk 64; whisper over seeded frames): 8 requests of 32-256
+   prompt tokens, 16 new each, twice captured (the second timed,
+   launches counted) and once eager, tokens equal; graphs within the
+   bounds (whisper's with-frames prefill graphs included); the first
+   chunk (with the frames), a later chunk and a decode step replayed
+   bitwise equal to eager; the same requests once on the lock-step
+   engine (each alone); peak memory, a slot's dense cache bytes, and a
+   short captured profile by kind of kernel with the idle share.
+
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
 1024; rows 1-4 also on the Gemma paths, timed at their decode shapes;
 absmax, the matmul and attention on granite-moe's path and absmax, the
-matmul and the MLP on deepseek-v2's, timed at their decode shapes),
+matmul and the MLP on deepseek-v2's, timed at their decode shapes; rows
+1, 2 and 4 on whisper-base's path and rows 1-4 on zamba2-2.7b's, timed
+at their decode shapes),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -973,24 +1003,30 @@ def seeded_pair(cfg):
 
 
 def make_engine(cfg, params, device, capture=None, temperature=0.0,
-                seed=0, num_blocks=96):
+                seed=0, num_blocks=96, frames=None):
+    """A paged engine (4 slots, block 16, chunk 64); ``frames`` (an
+    encoder-decoder's (1, F, d_model) frame embeddings) are written into
+    its frames buffer."""
     from repro_torch.models import build
     from repro_torch.serve.paged_engine import (PagedEngineConfig,
                                                 PagedServeEngine)
     ecfg = PagedEngineConfig(slots=4, block_size=16, num_blocks=num_blocks,
                              max_prefill_tokens=64, eos_id=-1,
                              temperature=temperature, seed=seed)
-    return PagedServeEngine(build(cfg), params, cfg, ecfg, device=device,
-                            capture=capture)
+    engine = PagedServeEngine(build(cfg), params, cfg, ecfg, device=device,
+                              capture=capture)
+    if frames is not None:
+        engine.frames.copy_(frames)
+    return engine
 
 
 def serve(torch, cfg, params, prompts, max_new, device, engine=None,
-          capture=None):
-    """Serve ``prompts`` on ``engine`` (a new one if None); returns
-    (tokens by request, seconds, engine)."""
+          capture=None, frames=None):
+    """Serve ``prompts`` on ``engine`` (a new one if None, with
+    ``frames``); returns (tokens by request, seconds, engine)."""
     from repro_torch.serve.paged_engine import PagedRequest
     if engine is None:
-        engine = make_engine(cfg, params, device, capture)
+        engine = make_engine(cfg, params, device, capture, frames=frames)
     reqs = [PagedRequest(rid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     if device == "cuda":
@@ -1007,7 +1043,7 @@ SERVED = tuple(n for n, path in PATHS.items() if path == "serve_bp8_fused")
 
 
 def serve_captured_and_eager(torch, build, cfg, params, prompts,
-                             num_blocks=96, kernels=None):
+                             num_blocks=96, kernels=None, frames=None):
     """Serve ``prompts`` (16 new tokens each) twice on one capturing paged
     engine (the first run captures each shape's graph; the second, timed,
     replays them, its launches zeroed just before and read just after)
@@ -1018,7 +1054,8 @@ def serve_captured_and_eager(torch, build, cfg, params, prompts,
     vocabulary.  Returns (the record, the capturing engine, the eager
     engine)."""
     torch.cuda.reset_peak_memory_stats()
-    engine = make_engine(cfg, params, "cuda", num_blocks=num_blocks)
+    engine = make_engine(cfg, params, "cuda", num_blocks=num_blocks,
+                         frames=frames)
     cold, cold_s, _ = serve(torch, cfg, params, prompts, 16, "cuda", engine)
     capture_s = engine.stats.snapshot()["capture_s"]
     before = engine.stats.snapshot()
@@ -1031,7 +1068,7 @@ def serve_captured_and_eager(torch, build, cfg, params, prompts,
     counts, bounds = engine.compile_counts(), engine.compile_shape_bounds()
     torch.cuda.reset_peak_memory_stats()
     eager_engine = make_engine(cfg, params, "cuda", capture=False,
-                               num_blocks=num_blocks)
+                               num_blocks=num_blocks, frames=frames)
     serve(torch, cfg, params, prompts[:1], 2, "cuda", eager_engine)
     eager, eager_s, _ = serve(torch, cfg, params, prompts, 16, "cuda",
                               eager_engine)
@@ -2540,15 +2577,40 @@ def moe_config(arch: str, **kw):
 
 
 def moe_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
-    """Phase 10(a) for one arch: the kernels its served path runs, against
-    their plain versions at its shapes: the fused matmul bitwise at every
-    projection of a layer (attention, shared experts, the dense layer's
-    down projection) at M 4 and 64, absmax bitwise on the layer's
-    weights, the silu MLP within 1e-5 (M 4 and 64) where the arch has a
-    dense MLP, and decode attention within 1e-5 at D 64, KH 8, G 2 (S
-    1-4096, full and a 1024 window) where its cache is ``bp8``.  Rows time
-    one layer of a 4-row decode step beside its bound, decode attention
-    over a 512-token view (the served views of phase 10(c))."""
+    """Phase 10(a) for one arch: ``served_kernel_rows`` over one layer of a
+    4-row decode step: granite's 4 projections; deepseek's and minicpm3's
+    MLA projections, shared experts and the dense layers' down
+    projection, with the silu MLP where the arch has a dense one."""
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.attention_type == "mla":
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        mm = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, h * qk),
+              (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+              (h * cfg.v_head_dim, d)]
+    else:
+        kh, hd = cfg.num_kv_heads, cfg.head_dim
+        mm = [(d, h * hd), (d, kh * hd), (d, kh * hd), (h * hd, d)]
+    if cfg.num_shared_experts:
+        sd = cfg.moe_d_ff * cfg.num_shared_experts
+        mm += [(d, sd), (d, sd), (sd, d)]
+    dense_mlp = cfg.first_dense_layers > 0 or not cfg.num_experts
+    if dense_mlp:
+        mm += [(cfg.d_ff, d)]
+    return served_kernel_rows(torch, timer, cfg, mm, mlp=dense_mlp, dev=dev)
+
+
+def served_kernel_rows(torch, timer, cfg, step, mlp: bool, big_m=(),
+                       dev="cuda"):
+    """The kernels an arch's served path runs, against their plain
+    versions at its shapes (phase 2's timer, bounds and checks): the fused
+    matmul bitwise at every projection in ``step`` (the (K, N) of one
+    layer of a decode step, with repeats) at M 4 and 64 and ``big_m``,
+    absmax bitwise on the layer's inputs and weights, the MLP (``mlp``,
+    the arch's activation) within 1e-5 at M 4 and 64, and decode
+    attention within 1e-5 at the arch's D, KH and G (S 1-4096, full and
+    a 1024 window) where its cache is ``bp8``.  Rows time the layer of a
+    4-row decode step beside its bound, decode attention over a 512-token
+    view.  Returns (rows, detail)."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import fused as kf
     from repro_torch.kernels import ref
@@ -2567,33 +2629,21 @@ def moe_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
         return t.numel() * t.element_size()
 
     d, h = cfg.d_model, cfg.num_heads
-    if cfg.attention_type == "mla":
-        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-        mm = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, h * qk),
-              (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
-              (h * cfg.v_head_dim, d)]
-    else:
-        kh, hd = cfg.num_kv_heads, cfg.head_dim
-        mm = [(d, h * hd), (d, kh * hd), (d, kh * hd), (h * hd, d)]
-    if cfg.num_shared_experts:
-        sd = cfg.moe_d_ff * cfg.num_shared_experts
-        mm += [(d, sd), (d, sd), (sd, d)]
-    dense_mlp = cfg.first_dense_layers > 0 or not cfg.num_experts
-    if dense_mlp:
-        mm += [(cfg.d_ff, d)]
-    ws = [weight(k, n) for k, n in mm]
-    rows, detail = {}, {"matmul_shapes": mm}
+    distinct = sorted(set(step))
+    ws = {kn: weight(*kn) for kn in distinct}
+    rows, detail = {}, {"matmul_shapes": step}
 
-    for m in (4, 64):
-        for (k, n), w in zip(mm, ws):
+    for m in (4, 64) + tuple(big_m):
+        for (k, n), w in ws.items():
             x = randn(m, k)
             sx, sy = kf.absmax(x, TINY), kf.absmax(w, TINY)
             if not torch.equal(kf.fused_bp_matmul(x, w, sx, sy),
                                ref.fused_matmul_ref(x, w, sx, sy)):
                 fail(f"{cfg.name}: fused matmul differs at {(m, k, n)}")
-    xs = {k: randn(4, k) for k in {k for k, _ in mm}}
+    xs = {k: randn(4, k) for k in {k for k, _ in distinct}}
     calls, plain, bounds = [], [], []
-    for (k, n), w in zip(mm, ws):
+    for k, n in step:
+        w = ws[(k, n)]
         args = (xs[k], w, kf.absmax(xs[k], TINY), kf.absmax(w, TINY))
         calls.append(lambda a=args: kf.fused_bp_matmul(*a))
         plain.append(lambda a=args: ref.fused_matmul_ref(*a))
@@ -2603,8 +2653,8 @@ def moe_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
                                 plain_ms=timer(plain, iters=3),
                                 library_ms=None, b=bounds)
 
-    am_in = [xs[k] for k, _ in mm] + ws
-    if dense_mlp:
+    am_in = [xs[k] for k, _ in step] + [ws[kn] for kn in step]
+    if mlp:
         up, gate = weight(d, cfg.d_ff), weight(d, cfg.d_ff)
         am_in += [xs[d], up, gate]
     for t in am_in:
@@ -2618,7 +2668,7 @@ def moe_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
         b=[bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)
            for t in am_in])
 
-    if dense_mlp:
+    if mlp:
         err, ff = 0.0, cfg.d_ff
         su, sg = kf.absmax(up, TINY), kf.absmax(gate, TINY)
         for m in (4, 64):
@@ -2703,8 +2753,9 @@ def moe_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
     detail["fused_matmul_dynamic_smem_bytes"] = {
         m: lib.oisma_fused_matmul_smem(m, KINDS[torch.bfloat16])
         for m in (4, 64)}
-    print(f"{cfg.name}: fused matmul bitwise at (K, N) {mm}, M 4 and 64"
-          + ("; silu MLP " + f"{d} -> {cfg.d_ff}" if dense_mlp else ""))
+    print(f"{cfg.name}: fused matmul bitwise at (K, N) {distinct}, M "
+          + ", ".join(str(m) for m in (4, 64) + tuple(big_m))
+          + (f"; {cfg.act} MLP {d} -> {cfg.d_ff}" if mlp else ""))
     for name, r in rows.items():
         print(f"{cfg.name} kernel {name}: ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
@@ -2965,6 +3016,205 @@ def phase_moe(torch, timer, build, log: str, rng):
     return rows, launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the encoder-decoder (whisper-base) and the hybrid (zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+#: the two archs' served paths in the kernels line, and their kernels
+#: (whisper's MLP is un-gated: it runs through ``dense``)
+EH_PATHS = {"whisper_base": "serve_whisper_base",
+            "zamba2_2p7b": "serve_zamba2_2p7b"}
+EH_KERNELS = {"whisper_base": ("absmax", "fused_matmul", "decode_attention"),
+              "zamba2_2p7b": ("absmax", "fused_matmul", "fused_mlp",
+                              "decode_attention")}
+#: 11(b)'s cut of zamba2: one group of its 9 (the CPU's plain path costs
+#: seconds a call at full width); whisper-base runs whole
+ZAMBA_CHECK_LAYERS = 6
+ZAMBA_REDUCED = {"num_layers": "54 -> 6 (one group: 6 Mamba2 blocks and "
+                 "the shared attention block) in 11(b), the card-vs-CPU "
+                 "check only: the CPU's plain path costs seconds a call "
+                 "at full width"}
+
+
+def eh_shapes(cfg):
+    """(the (K, N) of the projections one layer (whisper: a decoder layer;
+    zamba2: a group of ``attn_every`` Mamba2 blocks and the shared block)
+    runs in a decode step, with repeats; the distinct (K, N) every
+    projection of the arch has)."""
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = [(d, h * hd), (d, kh * hd), (d, kh * hd), (h * hd, d)]
+    if cfg.family == "encdec":
+        # self attention, cross attention's wq and wo (its wk/wv run once
+        # a request, at M = frames), the un-gated MLP
+        step = attn + [(d, h * hd), (h * hd, d), (d, cfg.d_ff),
+                       (cfg.d_ff, d)]
+    else:
+        d_inner = cfg.ssm_expand * d
+        n_in = 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_headdim
+        step = ([(d, n_in), (d_inner, d)] * cfg.attn_every + attn
+                + [(cfg.d_ff, d)])
+    return step, sorted(set(step))
+
+
+def eh_kernel_rows(torch, timer, cfg, dev="cuda"):
+    """Phase 11(a) for one arch: ``served_kernel_rows`` over one decode
+    layer (whisper) or group (zamba2) of a 4-row step (``eh_shapes``):
+    the matmul also at M 1500 for whisper (the encoder's rows and the
+    cross K/V), zamba2's silu MLP, decode attention at G 1.  whisper's
+    encoder layer at M 1500 is timed beside its bound into the detail."""
+    from repro_torch.kernels import fused as kf
+    step, _ = eh_shapes(cfg)
+    encdec = cfg.family == "encdec"
+    rows, detail = served_kernel_rows(torch, timer, cfg, step,
+                                      mlp=cfg.mlp_gated,
+                                      big_m=(1500,) if encdec else (),
+                                      dev=dev)
+    if encdec:          # the encoder layer's projections at 1500 rows
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        d, ff = cfg.d_model, cfg.d_ff
+        enc = [(d, d)] * 4 + [(d, ff), (ff, d)]
+        args = []
+        for k, n in enc:
+            x = torch.randn((1500, k), generator=gen, device=dev)
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 * k ** -0.5).to(torch.bfloat16)
+            args.append((x, w, kf.absmax(x, TINY), kf.absmax(w, TINY)))
+        ms = timer([lambda a=a: kf.fused_bp_matmul(*a) for a in args])
+        b = [bound(4 * 1500 * k + 2 * k * n + 8 + 4 * 1500 * n,
+                   2 * 1500 * n * 8 * k, H100_INT8_OPS_PER_S)
+             for k, n in enc]
+        detail["encoder_layer_1500_rows"] = {
+            "ms": ms, "bound_ms": sum(x[0] for x in b),
+            "bound_by": "bytes" if sum(x[1] for x in b) >= sum(
+                x[2] for x in b) else "operations"}
+        print(f"{cfg.name}: an encoder layer's 6 projections at M 1500: "
+              f"{ms:.4f} ms, bound {detail['encoder_layer_1500_rows']}")
+    return rows, detail
+
+
+def seeded_frames(torch, cfg, rng):
+    """(1, F, d_model) bf16 frame embeddings on the card from ``rng``."""
+    import numpy as np
+    fr = rng.normal(size=(1, cfg.encoder_frames, cfg.d_model))
+    return torch.as_tensor(fr.astype(np.float32), device="cuda").to(
+        torch.bfloat16)
+
+
+def dense_slot_bytes(engine) -> int:
+    """Bytes one slot's dense (per-slot) cache leaves hold in the pool."""
+    pc = engine.cache
+    return sum(leaf.numel() * leaf.element_size() // leaf.shape[bi]
+               for _, leaf, bi, is_kv in pc.leaves() if not is_kv)
+
+
+def serve_encdec_hybrid(torch, build, arch, rng):
+    """Phase 11(c)/(d): the full arch on the paged engine (4 slots, block
+    16, chunk 64): 8 requests of 32-256 prompt tokens, 16 new each, twice
+    captured (the second timed, launches counted) and once eager, tokens
+    equal, graphs within the bounds (whisper's with-frames prefill graphs
+    included); the first chunk (whisper: with its frames), a later chunk
+    and a decode step replayed bitwise equal to eager; the same requests
+    once on the lock-step engine (each alone: a refill's prefill of more
+    than 256 tokens is refused by the SSD's chunking, in the reference
+    too); peak memory, a slot's dense state bytes, and a short captured
+    profile by kind of kernel with the idle share."""
+    import numpy as np
+    from repro_torch.models import build as build_model
+    cfg = moe_config(arch)
+    model = build_model(cfg)
+    params, init_s, init_peak, n = seeded_on_card(torch, cfg)
+    frames = (seeded_frames(torch, cfg, rng) if cfg.family == "encdec"
+              else None)
+    lens = [32, 256] + [int(x) for x in rng.integers(32, 257, 6)]
+    prompts = [rng.integers(3, cfg.vocab_size, x).astype(np.int32)
+               for x in lens]
+    rec, engine, eager_engine = serve_captured_and_eager(
+        torch, build, cfg, params, prompts, kernels=EH_KERNELS[arch],
+        frames=frames)
+    del eager_engine
+    shapes = sorted(engine.stats.prefill_shapes)
+    if cfg.family == "encdec" and not any(k[2] for k in shapes):
+        fail(f"{cfg.name}: no prefill graph with frames ({shapes})")
+    rec["prefill_shapes"] = [list(k) for k in shapes]
+    rec["dense_slot_bytes"] = dense_slot_bytes(engine)
+    print(f"{cfg.name}: prefill shapes (chunk, view, frames) {shapes}; "
+          f"a slot's dense cache leaves {rec['dense_slot_bytes'] / 1e6:.2f} "
+          f"MB; peak device memory {rec['peak_mem_gb']:.2f} GB")
+    rec["graphed_vs_eager"] = graphed_vs_eager(torch, model, params, rng,
+                                               frames=frames)
+    lock = lockstep_engine(cfg, params, "cuda", temperature=0.0)
+    if frames is not None:
+        lock.frames.copy_(frames)
+    serve_lockstep(torch, lock, prompts[:1], 2, 0, alone=True)   # warm
+    out, secs = serve_lockstep(torch, lock, prompts, 16, 0, alone=True)
+    n_tok = sum(len(v) for v in out.values())
+    for rid, toks in out.items():
+        if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{cfg.name} lock-step request {rid}: bad output {toks}")
+    rec["lockstep"] = {"seconds": secs, "tokens_per_s": n_tok / secs,
+                       "graphs": lock.compile_counts()}
+    print(f"{cfg.name} on the lock-step engine (each request alone, "
+          f"captured decode): {n_tok} tokens in {secs:.3f}s = "
+          f"{n_tok / secs:.2f} tok/s, graphs {lock.compile_counts()}")
+    del lock
+    prof = profile_serving(torch, engine, cfg, params, prompts[:2], 32, 4)
+    ran = set(prof["served_kernels"])
+    if not set(EH_KERNELS[arch]) <= ran:
+        fail(f"{cfg.name}: kernels missing from the captured profile (ran: "
+             f"{sorted(ran)})")
+    del engine
+    return rec["launches"], dict(rec, params=n, init_s=init_s,
+                                 init_peak_mem_gb=init_peak, profile=prof)
+
+
+def phase_encdec_hybrid(torch, timer, build, rng):
+    """Phase 11: whisper-base and zamba2-2.7b on the card.  Returns the
+    kernel rows and the launches of each arch's served path, and a
+    report."""
+    import numpy as np
+    report, rows, launches = {}, {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for arch in EH_PATHS:
+        rows[arch], report[f"kernels_{arch}"] = eh_kernel_rows(
+            torch, timer, moe_config(arch))
+    report["a_s"] = time.perf_counter() - t0
+    print(f"phase 11(a) kernels at the new shapes: {report['a_s']:.1f}s")
+
+    t1 = time.perf_counter()
+    report["cpu_s"] = {}
+    for arch, layers in (("whisper_base", None),
+                         ("zamba2_2p7b", ZAMBA_CHECK_LAYERS)):
+        cfg = moe_config(arch, **({} if layers is None else
+                                  {"num_layers": layers}))
+        prompts = [rng.integers(3, cfg.vocab_size, x).astype(np.int32)
+                   for x in (32, 64)]
+        frames = (seeded_frames(torch, cfg, rng)
+                  if cfg.family == "encdec" else None)
+        report["cpu_s"][arch] = card_vs_cpu(torch, cfg, prompts, 4,
+                                            frames=frames)
+        gc.collect()
+    report["b_reduced"] = ZAMBA_REDUCED
+    report["b_s"] = time.perf_counter() - t1
+    print(f"phase 11(b) card vs cpu: {report['b_s']:.1f}s (reduced "
+          f"{ZAMBA_REDUCED})")
+
+    for arch, part in (("whisper_base", "c"), ("zamba2_2p7b", "d")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        launches[arch], report[arch] = serve_encdec_hybrid(torch, build,
+                                                           arch, rng)
+        report[f"{part}_s"] = time.perf_counter() - t2
+        print(f"phase 11({part}) {arch}: {report[f'{part}_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches"] = launches
+    return rows, launches, report
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -2980,11 +3230,12 @@ class Phase:
         print(f"phase {self.name}: {dt:.1f}s")
 
 
-def parting(torch, cfg, p_cpu, p_gpu, prompt, cpu_toks, gpu_toks):
+def parting(torch, cfg, p_cpu, p_gpu, prompt, cpu_toks, gpu_toks,
+            frames=None):
     """Where a request's card and CPU tokens part: the step, and at that
     step (the prompt and the agreed tokens through a one-shot prefill on
-    each device) the CPU's top-2 logit margin and the largest logit
-    difference."""
+    each device, after ``frames`` for an encoder-decoder) the CPU's top-2
+    logit margin and the largest logit difference."""
     import numpy as np
     from repro_torch.models import build as build_model
     j = next(i for i, (a, b) in enumerate(zip(cpu_toks, gpu_toks))
@@ -2993,8 +3244,11 @@ def parting(torch, cfg, p_cpu, p_gpu, prompt, cpu_toks, gpu_toks):
     model = build_model(cfg)
     logits = {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-        t = torch.as_tensor(seq[None].astype(np.int64), device=dev)
-        logits[dev] = model.prefill(params, {"tokens": t},
+        batch = {"tokens": torch.as_tensor(seq[None].astype(np.int64),
+                                           device=dev)}
+        if frames is not None:
+            batch["frames"] = frames.to(dev)
+        logits[dev] = model.prefill(params, batch,
                                     len(seq) + 1)[0][0].float().cpu()
     top = torch.topk(logits["cpu"], 2).values
     return {"step": j, "cpu_top2_margin": float(top[0] - top[1]),
@@ -3002,21 +3256,25 @@ def parting(torch, cfg, p_cpu, p_gpu, prompt, cpu_toks, gpu_toks):
                                      - logits["cuda"]).abs().max())}
 
 
-def card_vs_cpu(torch, cfg, prompts, max_new=8):
+def card_vs_cpu(torch, cfg, prompts, max_new=8, frames=None):
     """The same seeded weights (``cfg.num_layers`` layers) on the card,
     captured and eager, and on the CPU must emit the same greedy tokens
-    through the paged engine.  Where a request parts, print the step, the
-    CPU's top-2 logit margin and the largest logit difference, and
-    fail."""
+    through the paged engine (an encoder-decoder over the same
+    ``frames``, (1, F, d_model) on the card).  Where a request parts,
+    print the step, the CPU's top-2 logit margin and the largest logit
+    difference, and fail."""
     p_cpu, p_gpu = seeded_pair(cfg)
-    out_gpu, _, eng = serve(torch, cfg, p_gpu, prompts, max_new, "cuda")
+    f_cpu = None if frames is None else frames.to("cpu")
+    out_gpu, _, eng = serve(torch, cfg, p_gpu, prompts, max_new, "cuda",
+                            frames=frames)
     if not eng.capture:
         fail("the engine on CUDA does not capture by default")
     graphs = eng.compile_counts()
     del eng
     out_eager, _, _ = serve(torch, cfg, p_gpu, prompts, max_new, "cuda",
-                            capture=False)
-    out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, max_new, "cpu")
+                            capture=False, frames=frames)
+    out_cpu, cpu_s, _ = serve(torch, cfg, p_cpu, prompts, max_new, "cpu",
+                              frames=f_cpu)
     print(f"card vs cpu ({cfg.name}, {cfg.matmul_mode}, kv {cfg.kv_quant}, "
           f"{cfg.num_layers} layers, full width, prompts "
           f"{[len(p) for p in prompts]}): card, captured ({graphs} graphs) "
@@ -3029,7 +3287,7 @@ def card_vs_cpu(torch, cfg, prompts, max_new=8):
             if other[rid] != toks:
                 parts[f"{rid} {what}"] = parting(torch, cfg, p_cpu, p_gpu,
                                                  prompts[rid], toks,
-                                                 other[rid])
+                                                 other[rid], frames)
     if parts:
         print(f"{cfg.name}: card and CPU tokens part: {parts}")
         fail(f"{cfg.name} ({cfg.matmul_mode}): card (captured, eager) and "
@@ -3037,12 +3295,30 @@ def card_vs_cpu(torch, cfg, prompts, max_new=8):
     return cpu_s
 
 
-def graphed_vs_eager(torch, model, params, rng):
+def expand_rows(model, cache, rows: int):
+    """A batch-1 cache repeated to ``rows`` rows along each leaf's batch
+    axis (``cache_axes``), contiguous."""
+    from repro_torch.models.params import tree_leaves
+    axes = dict(tree_leaves(model.cache_axes()))
+    out = {}
+    for path, leaf in tree_leaves(cache):
+        shape = list(leaf.shape)
+        shape[axes[path].index("batch")] = rows
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf.expand(*shape).contiguous()
+    return out
+
+
+def graphed_vs_eager(torch, model, params, rng, frames=None):
     """A prefill chunk (64 tokens at position 64) and a decode step (4 rows)
     at full width, replayed from graphs, against the eager calls on the
     same inputs: the caches bitwise equal, and the logits bitwise equal
     (or, if the f32 logits matmul alone differs under capture, that is
-    printed with its largest difference)."""
+    printed with its largest difference).  With ``frames`` (an
+    encoder-decoder) the first chunk, which carries them and runs the
+    encoder, is replayed from its own graph and checked too."""
     from repro_torch.models.params import tree_leaves
     from repro_torch.serve.graphs import GraphedEntry
     cfg = model.cfg
@@ -3061,8 +3337,24 @@ def graphed_vs_eager(torch, model, params, rng):
     decode = GraphedEntry(lambda t, v, p: model.decode_step(params, t, v, p),
                           capture=True, pool=pool)
     cache = model.init_cache(1, 256, "cuda")
-    model.prefill_chunk(params, {"tokens": torch.as_tensor(rng.integers(
-        3, cfg.vocab_size, (1, 64)), device="cuda")}, cache, 0)
+    t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 64)),
+                        device="cuda")
+    result = {}
+    if frames is None:
+        model.prefill_chunk(params, {"tokens": t}, cache, 0)
+    else:
+        first = GraphedEntry(lambda t, v, p0, f: model.prefill_chunk(
+            params, {"tokens": t, "frames": f}, v, p0), capture=True,
+            pool=pool)
+        first.inputs("f", lambda: (t.clone(), clone(cache),
+                                   torch.zeros((), dtype=torch.int64,
+                                               device="cuda"),
+                                   frames.clone()))
+        want, cache = model.prefill_chunk(
+            params, {"tokens": t, "frames": frames}, clone(cache), 0)
+        got, got_cache = first("f")
+        result["prefill chunk 64 with frames"] = (got.clone(), want,
+                                                  got_cache, cache)
     t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 64)),
                         device="cuda")
     prefill.inputs("p", lambda: (t.clone(), clone(cache),
@@ -3071,12 +3363,9 @@ def graphed_vs_eager(torch, model, params, rng):
                                            clone(cache), 64)
     got, got_cache = prefill("p")
     # a graph's outputs live in the shared pool until another graph runs
-    result = {"prefill chunk 64": (got.clone(), want, got_cache,
-                                   want_cache)}
+    result["prefill chunk 64"] = (got.clone(), want, got_cache, want_cache)
     rows = 4
-    full = {name: {k: v.expand(-1, rows, *v.shape[2:]).contiguous()
-                   for k, v in stack.items()}
-            for name, stack in want_cache.items()}
+    full = expand_rows(model, want_cache, rows)
     t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (rows, 1)),
                         device="cuda")
     p = torch.tensor([128, 130, 200, 255], dtype=torch.int32, device="cuda")
@@ -3106,7 +3395,7 @@ def graphed_vs_eager(torch, model, params, rng):
                   f"cause: the f32 logits matmul alone differs under "
                   f"capture by {alone:.3g} (cuBLAS)")
             report[what]["cause"] = "f32 logits matmul under capture"
-    print(f"graphed vs eager at full width: {report}")
+    print(f"graphed vs eager at full width ({cfg.name}): {report}")
     return report
 
 
@@ -3309,12 +3598,19 @@ def main() -> None:
         moe_rows, moe_launches, report["phase10"] = phase_moe(
             torch, timer, build, log, rng)
 
+    # ---- phase 11: the encoder-decoder and the hybrid ----
+    with Phase("11 whisper-base and zamba2-2.7b", report):
+        eh_rows, eh_launches, report["phase11"] = phase_encdec_hybrid(
+            torch, timer, build, rng)
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches}
     for arch, path in GEMMA_PATHS.items():
         path_launches[path] = gemma_launches[arch]
     for arch, path in MOE_PATHS.items():
         path_launches[path] = moe_launches[arch]
+    for arch, path in EH_PATHS.items():
+        path_launches[path] = eh_launches[arch]
     kernels = []
     for name, path, r in ([(n, PATHS[n], rows[n]) for n in SOURCES]
                           + [(n, "train_bp8_fused", r)
@@ -3324,6 +3620,9 @@ def main() -> None:
                              for n, r in arch_rows.items()]
                           + [(n, MOE_PATHS[arch], r)
                              for arch, arch_rows in moe_rows.items()
+                             for n, r in arch_rows.items()]
+                          + [(n, EH_PATHS[arch], r)
+                             for arch, arch_rows in eh_rows.items()
                              for n, r in arch_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)

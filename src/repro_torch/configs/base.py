@@ -1,8 +1,8 @@
-"""Model configuration: the fields the decoder slice reads.
+"""Model configuration: the fields the ported families read.
 
 Field names, defaults and meanings follow the reference's
-``ModelConfig``; fields of families and modes not yet ported are left
-out until their slice.
+``ModelConfig``; fields of families and modes not yet ported (xLSTM,
+ring caches, pipeline stages) are left out until their slice.
 """
 from __future__ import annotations
 
@@ -11,13 +11,14 @@ import importlib
 from typing import Optional
 
 ARCH_IDS = ("gemma3_12b", "h2o_danube_1p8b", "qwen2_72b", "paligemma_3b",
-            "granite_moe_1b", "deepseek_v2_236b", "minicpm3_4b")
+            "granite_moe_1b", "deepseek_v2_236b", "minicpm3_4b",
+            "whisper_base", "zamba2_2p7b")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # decoder (the only family ported so far)
+    family: str                  # decoder | encdec | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -49,6 +50,18 @@ class ModelConfig:
     moe_d_ff: int = 0
     first_dense_layers: int = 0
     capacity_factor: float = 1.25
+    # SSM / hybrid (zamba2)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256         # SSD chunk length
+    ssm_decay_bf16: bool = False # store intra-chunk decay matrices in bf16
+    attn_every: int = 0          # zamba2: one shared attn block per N mamba
+    lora_rank: int = 0           # zamba2 shared-block adapters
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_frames: int = 1500
     # vlm (paligemma): a bidirectional prefix of patch embeddings
     num_prefix_tokens: int = 0
     # execution policy

@@ -13,7 +13,7 @@ the writes, and no second copy of the cache is made per layer.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -259,9 +259,14 @@ def gqa_defs(cfg: ModelConfig, dtype=torch.bfloat16):
 def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               *, window: Optional[int], cache: Optional[Dict] = None,
               prefix_len: Optional[torch.Tensor] = None,
-              append: bool = False):
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True, rope: bool = True, append: bool = False):
     """Returns (out, cache).  Modes:
-       * no cache: self-attention over x;
+       * no cache: self-attention over x (``causal=False``: every token
+         sees every other, as whisper's encoder);
+       * cross attention (``cross_kv``, (B, F, KH, D) each): the queries
+         attend the given K/V over positions ``arange(F)``, unmasked and
+         without RoPE; no cache;
        * decode (Sq == 1): write one slot, attend over the cache — through
          the fused kernel when the cache is BP8 and there is no
          ``prefix_len`` (with one, over the dequantised cache);
@@ -269,21 +274,33 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
          [p0, p0+Sq) and attend over the whole cache;
        * prefill: write the cache densely from slot 0.
     A quantised cache is attended as the values it stores (dequantised
-    codes), so decode over it reproduces prefill's logits.
+    codes), so decode over it reproduces prefill's logits.  ``rope=False``
+    skips the rotary embedding (whisper's learned positions).
     """
     b, sq, _ = x.shape
     h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mode = cfg.matmul_mode
     q = dense(x, p["wq"], mode, p.get("bq")).reshape(b, sq, h, d)
+    q_pos = positions if positions.dim() == 2 else positions[None].expand(
+        b, sq)
+    if cross_kv is not None:
+        k, v = cross_kv
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        kv_pos = _frame_positions(b, k.shape[1], x.device)
+        out = sdpa(q, k, v, q_pos, kv_pos, causal=False, window=window,
+                   chunk=cfg.attn_chunk, softcap=cfg.logit_softcap,
+                   prefix_len=prefix_len)
+        out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
+        return out, cache
     k = dense(x, p["wk"], mode, p.get("bk")).reshape(b, sq, kh, d)
     v = dense(x, p["wv"], mode, p.get("bv")).reshape(b, sq, kh, d)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    q_pos = positions if positions.dim() == 2 else positions[None].expand(
-        b, sq)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     quant = cache is not None and kv_quantized(cfg)
     if quant:
@@ -307,7 +324,7 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                 qg.contiguous(), cache["k_codes"], cache["k_scale"],
                 cache["v_codes"], cache["v_scale"], cache["pos"],
                 q_pos[:, 0].to(torch.int32).contiguous(), window,
-                softcap=cfg.logit_softcap)
+                softcap=cfg.logit_softcap, causal=causal)
             out = o.reshape(b, 1, h, d)
         elif quant:
             k_all = kq.dequantize_kv(cache["k_codes"], cache["k_scale"])
@@ -333,11 +350,22 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             k_all, v_all = k, v
         kv_pos = q_pos
     if out is None:
-        out = sdpa(q, k_all, v_all, q_pos, kv_pos, causal=True,
+        out = sdpa(q, k_all, v_all, q_pos, kv_pos, causal=causal,
                    window=window, chunk=cfg.attn_chunk,
                    softcap=cfg.logit_softcap, prefix_len=prefix_len)
     out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
     return out, cache
+
+
+@device_constant
+def _frames_arange(n: int, device) -> torch.Tensor:
+    return torch.arange(n, device=device)
+
+
+def _frame_positions(b: int, n: int, device) -> torch.Tensor:
+    """(B, F) positions ``arange(F)`` of cross-attention keys, made once
+    per (F, device) so that a captured graph needs no host copy."""
+    return _frames_arange(n, device)[None].expand(b, n)
 
 
 # ---------------------------------------------------------------------------

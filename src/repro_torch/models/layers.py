@@ -67,6 +67,24 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (y * (1.0 + gamma.to(torch.float32))).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in f32 (mean, then the biased variance ``jnp.var``
+    takes: the mean of the squared deviations), cast back to x's type."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    dev = xf - mu
+    var = torch.mean(dev * dev, dim=-1, keepdim=True)
+    y = dev * torch.rsqrt(var + eps)
+    return (y * gamma.to(torch.float32)
+            + beta.to(torch.float32)).to(x.dtype)
+
+
+def ln_defs(d: int):
+    return {"gamma": ParamDef((d,), (None,), torch.float32, "ones"),
+            "beta": ParamDef((d,), (None,), torch.float32, "zeros")}
+
+
 @device_constant
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:

@@ -1,5 +1,9 @@
-"""``DecoderModel``: the decoder family's serving entry points and its
-training loss.
+"""The model families' serving entry points, and the decoder's training
+loss (the other two families do not train yet): ``DecoderModel`` (the
+decoders), ``EncDecModel`` (whisper: an encoder over stub frame
+embeddings, a causal decoder with cross attention) and ``HybridModel``
+(zamba2: a Mamba2 backbone with one shared attention block every
+``attn_every`` layers, per-group LoRA).
 
 Functional like the reference: parameters are a nested dict of tensors
 (layer parameters stacked on a leading ``L`` axis) passed to every call,
@@ -21,10 +25,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (chunked_softmax_xent, embed_def,
-                                       embed_lookup, linear_def, mlp_apply,
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (chunked_softmax_xent, dense,
+                                       embed_def, embed_lookup, layer_norm,
+                                       linear_def, ln_defs, mlp_apply,
                                        mlp_defs, norm_def, rms_norm)
-from repro_torch.models.params import stack, tree_map
+from repro_torch.models.params import ParamDef, stack, tree_map
 
 BIG_WINDOW = 1 << 30  # "no window"
 
@@ -78,6 +84,31 @@ def _decoder_layer_apply(p, cfg: ModelConfig, x, positions, *, window,
     if "post_ln2" in p:
         m = rms_norm(m, p["post_ln2"], cfg.norm_eps)
     return x + m, cache, aux
+
+
+def _init_cache(spec, device):
+    """A cache of ``spec`` ({leaf: (shape, dtype)}): zeros, and
+    ``pos = -1`` (empty) in every int32 leaf."""
+    return tree_map(
+        lambda sd: (torch.full(sd[0], -1, dtype=sd[1], device=device)
+                    if sd[1] == torch.int32 else
+                    torch.zeros(sd[0], dtype=sd[1], device=device)), spec)
+
+
+def _stacked(spec: Dict[str, tuple], *lead: int) -> Dict[str, tuple]:
+    """``spec`` with leading stack dimensions ``lead`` on every leaf."""
+    return {k: (tuple(lead) + shape, dtype)
+            for k, (shape, dtype) in spec.items()}
+
+
+class _TiedLogits:
+    """``_logits``: f32 logits against the tied embedding (whisper and
+    zamba2 always tie it)."""
+
+    def _logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> (..., V)."""
+        return torch.matmul(h.to(torch.float32),
+                            params["embed"].to(torch.float32).T)
 
 
 def _decode_positions(pos, b: int, device) -> torch.Tensor:
@@ -138,11 +169,7 @@ class DecoderModel:
 
     def init_cache(self, batch: int, length: int, device):
         """Empty cache: zeros, and ``pos = -1`` (empty) everywhere."""
-        return tree_map(
-            lambda sd: (torch.full(sd[0], -1, dtype=sd[1], device=device)
-                        if sd[1] == torch.int32 else
-                        torch.zeros(sd[0], dtype=sd[1], device=device)),
-            self.cache_spec(batch, length), )
+        return _init_cache(self.cache_spec(batch, length), device)
 
     # ---------------- forward over the stack ----------------
     def _stack(self, params, x, positions, caches, prefix_len, mode: str):
@@ -239,8 +266,9 @@ class DecoderModel:
         loss = total / torch.clamp_min(denom, 1.0)
         if cfg.num_experts:
             loss = loss + 0.01 * aux / cfg.num_layers
-            return loss, {"loss": loss, "aux_loss": aux}
-        return loss, {"loss": loss}
+        else:              # no experts: the reference's f32 zero
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss, "aux_loss": aux}
 
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
@@ -288,5 +316,313 @@ class DecoderModel:
         return self._logits(params, h)[:, 0], cache
 
 
-def build(cfg: ModelConfig) -> DecoderModel:
-    return DecoderModel(cfg)
+# =============================================================================
+# encoder-decoder family (whisper)
+# =============================================================================
+
+def _enc_layer_defs(cfg: ModelConfig):
+    return {"ln1": ln_defs(cfg.d_model), "attn": attn.gqa_defs(cfg),
+            "ln2": ln_defs(cfg.d_model),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, gated=False)}
+
+
+def _dec_layer_defs(cfg: ModelConfig):
+    return {"ln1": ln_defs(cfg.d_model), "self_attn": attn.gqa_defs(cfg),
+            "ln_x": ln_defs(cfg.d_model), "cross_attn": attn.gqa_defs(cfg),
+            "ln2": ln_defs(cfg.d_model),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, gated=False)}
+
+
+def _ln(x, p, eps):
+    return layer_norm(x, p["gamma"], p["beta"], eps)
+
+
+def _layer(stacked, i: int):
+    """Layer ``i``'s parameters (or cache leaves) of a stacked tree."""
+    return tree_map(lambda t: t[i], stacked)
+
+
+@dataclasses.dataclass
+class EncDecModel(_TiedLogits):
+    """whisper: the encoder (non-causal, no RoPE) runs over frame
+    embeddings (the stub conv frontend's output, (B, F, d_model)) with
+    learned positions; the decoder is causal self-attention with learned
+    positions (no RoPE), cross attention over the encoder's output, and
+    an un-gated gelu MLP, all with LayerNorm.  The cache holds the
+    self-attention KV per layer and each layer's cross K/V (B, F, KH, D)
+    in bf16, computed once where the frames enter (``prefill``, or the
+    first ``prefill_chunk``) and read by every later chunk and step."""
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        if self.cfg.family != "encdec" or self.cfg.attention_type != "gqa":
+            raise NotImplementedError(f"{self.cfg.name}: EncDecModel is the "
+                                      "GQA encoder-decoder")
+        attn.kv_quantized(self.cfg)       # validates kv_quant
+
+    def schema(self):
+        cfg = self.cfg
+        return {
+            "embed": embed_def(cfg.vocab_size, cfg.d_model),
+            # decoder learned positions sized for the largest decode shape
+            "pos_embed": ParamDef((32_768, cfg.d_model),
+                                  (None, "d_model"), torch.bfloat16, "embed"),
+            "enc_pos_embed": ParamDef((cfg.encoder_frames, cfg.d_model),
+                                      ("frames", "d_model"), torch.bfloat16,
+                                      "embed"),
+            "enc_layers": stack(_enc_layer_defs(cfg), cfg.encoder_layers),
+            "enc_norm": ln_defs(cfg.d_model),
+            "dec_layers": stack(_dec_layer_defs(cfg), cfg.num_layers),
+            "dec_norm": ln_defs(cfg.d_model),
+        }
+
+    def cache_spec(self, batch: int, length: int):
+        cfg = self.cfg
+        cross = ((cfg.num_layers, batch, cfg.encoder_frames,
+                  cfg.num_kv_heads, cfg.head_dim), torch.bfloat16)
+        return {"self": _stacked(attn.kv_cache_spec(cfg, batch, length),
+                                 cfg.num_layers),
+                "cross": {"k": cross, "v": cross}}
+
+    def cache_axes(self):
+        cross = ("stack", "batch", "frames", "kv_heads", None)
+        return {"self": attn.kv_cache_axes(self.cfg),
+                "cross": {"k": cross, "v": cross}}
+
+    def init_cache(self, batch: int, length: int, device):
+        return _init_cache(self.cache_spec(batch, length), device)
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """(B, F, d_model) frame embeddings -> the encoder's output, bf16."""
+        cfg = self.cfg
+        x = frames.to(torch.bfloat16) + params["enc_pos_embed"][None]
+        positions = attn._frame_positions(x.shape[0], x.shape[1], x.device)
+        for i in range(cfg.encoder_layers):
+            lp = _layer(params["enc_layers"], i)
+            h = _ln(x, lp["ln1"], cfg.norm_eps)
+            a, _ = attn.gqa_apply(lp["attn"], cfg, h, positions, window=None,
+                                  causal=False, rope=False)
+            x = x + a
+            h = _ln(x, lp["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(lp["mlp"], h, "gelu", False, cfg.matmul_mode)
+        return _ln(x, params["enc_norm"], cfg.norm_eps)
+
+    def _decode_stack(self, params, x, positions, enc_out, cache, mode):
+        """The decoder layers.  With ``enc_out`` each layer projects its
+        cross K/V from it (and stores them in ``cache`` if there is one);
+        without, it reads them from ``cache``."""
+        cfg = self.cfg
+        b, kh, hd = x.shape[0], cfg.num_kv_heads, cfg.head_dim
+        for i in range(cfg.num_layers):
+            lp = _layer(params["dec_layers"], i)
+            lc = None if cache is None else _layer(cache["self"], i)
+            h = _ln(x, lp["ln1"], cfg.norm_eps)
+            a, _ = attn.gqa_apply(lp["self_attn"], cfg, h, positions,
+                                  window=None, cache=lc, rope=False,
+                                  append=mode == "prefill_chunk")
+            x = x + a
+            h = _ln(x, lp["ln_x"], cfg.norm_eps)
+            if enc_out is None:
+                ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
+            else:
+                f = enc_out.shape[1]
+                ck = dense(enc_out, lp["cross_attn"]["wk"],
+                           cfg.matmul_mode).reshape(b, f, kh, hd)
+                cv = dense(enc_out, lp["cross_attn"]["wv"],
+                           cfg.matmul_mode).reshape(b, f, kh, hd)
+                if cache is not None:
+                    cache["cross"]["k"][i].copy_(ck)
+                    cache["cross"]["v"][i].copy_(cv)
+            a, _ = attn.gqa_apply(lp["cross_attn"], cfg, h, positions,
+                                  window=None, cross_kv=(ck, cv), rope=False)
+            x = x + a
+            h = _ln(x, lp["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(lp["mlp"], h, "gelu", False, cfg.matmul_mode)
+        return _ln(x, params["dec_norm"], cfg.norm_eps)
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, cache_len: int):
+        """``batch``: "frames" (B, F, d_model) and "tokens" (B, S); returns
+        (last-position logits (B, V), cache)."""
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        cache = self.init_cache(b, cache_len, enc_out.device)
+        x = embed_lookup(params["embed"], tokens) + \
+            params["pos_embed"][None, :s]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h = self._decode_stack(params, x, positions, enc_out, cache,
+                               "prefill")
+        return self._logits(params, h[:, -1]), cache
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params, batch, cache, pos0):
+        """Append a chunk at positions [pos0, pos0+C).  The first chunk
+        carries ``batch["frames"]`` and runs the encoder, filling every
+        layer's cross K/V; later chunks read them from the cache.  The
+        learned positions are gathered at the tensor ``pos0``, so one
+        graph serves every chunk of a shape."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        frames = batch.get("frames")
+        enc_out = None if frames is None else self.encode(params, frames)
+        pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
+                else int(pos0))
+        positions = pos0 + torch.arange(s, device=tokens.device)
+        x = embed_lookup(params["embed"], tokens) + torch.index_select(
+            params["pos_embed"], 0, positions)[None]
+        h = self._decode_stack(params, x, positions[None].expand(b, s),
+                               enc_out, cache, "prefill_chunk")
+        return self._logits(params, h[:, -1]), cache
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, cache, pos):
+        """One token per row: ``tokens`` (B, 1); ``pos`` a scalar
+        (lock-step) or (B,) (paged, a learned position per row)."""
+        b = tokens.shape[0]
+        x = embed_lookup(params["embed"], tokens)
+        positions = _decode_positions(pos, b, x.device)
+        x = x + torch.index_select(params["pos_embed"], 0,
+                                   positions.reshape(-1)).reshape(b, 1, -1)
+        h = self._decode_stack(params, x, positions, None, cache, "decode")
+        return self._logits(params, h[:, 0]), cache
+
+
+# =============================================================================
+# hybrid family (zamba2): mamba2 backbone + shared attention block
+# =============================================================================
+
+@dataclasses.dataclass
+class HybridModel(_TiedLogits):
+    """zamba2: ``num_layers / attn_every`` groups, each ``attn_every``
+    Mamba2 blocks (RMSNorm, ``mamba2_apply``, residual) then the ONE
+    shared attention + gated MLP block, to whose attention each group
+    adds its own LoRA (``h @ a_q @ b_q``, in bf16).  The cache holds each
+    Mamba2 block's conv and SSM states (dense per row) and each group's
+    own KV cache for the shared attention."""
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if cfg.family != "hybrid" or cfg.attention_type != "gqa":
+            raise NotImplementedError(f"{cfg.name}: HybridModel is the GQA "
+                                      "hybrid")
+        if not cfg.attn_every or cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} is "
+                             f"not a multiple of attn_every "
+                             f"{cfg.attn_every}")
+        attn.kv_quantized(cfg)            # validates kv_quant
+
+    def _group_dims(self):
+        cfg = self.cfg
+        return cfg.num_layers // cfg.attn_every, cfg.attn_every
+
+    def schema(self):
+        cfg = self.cfg
+        n_groups, per = self._group_dims()
+        r = cfg.lora_rank
+        return {
+            "embed": embed_def(cfg.vocab_size, cfg.d_model),
+            "final_norm": norm_def(cfg.d_model),
+            "mamba": stack(stack({"block": ssm_mod.mamba2_defs(cfg),
+                                  "ln": norm_def(cfg.d_model)}, per),
+                           n_groups),
+            "shared": {"ln1": norm_def(cfg.d_model),
+                       "attn": attn.gqa_defs(cfg),
+                       "ln2": norm_def(cfg.d_model),
+                       "mlp": mlp_defs(cfg.d_model, cfg.d_ff, True)},
+            "lora": stack({
+                "a_q": ParamDef((cfg.d_model, r), ("d_model", None)),
+                "b_q": ParamDef((r, cfg.num_heads * cfg.head_dim),
+                                (None, "heads"), torch.bfloat16, "zeros"),
+            }, n_groups),
+        }
+
+    def cache_spec(self, batch: int, length: int):
+        cfg = self.cfg
+        n_groups, per = self._group_dims()
+        return {"mamba": _stacked(ssm_mod.mamba2_state_spec(cfg, batch),
+                                  n_groups, per),
+                "attn": _stacked(attn.kv_cache_spec(cfg, batch, length),
+                                 n_groups)}
+
+    def cache_axes(self):
+        return {"mamba": {"conv": ("stack", "stack2", "batch", None, "ffn"),
+                          "ssm": ("stack", "stack2", "batch", "heads", None,
+                                  "state")},
+                "attn": attn.kv_cache_axes(self.cfg)}
+
+    def init_cache(self, batch: int, length: int, device):
+        return _init_cache(self.cache_spec(batch, length), device)
+
+    def _forward(self, params, x, positions, cache, mode):
+        cfg = self.cfg
+        n_groups, per = self._group_dims()
+        shared = params["shared"]
+        for g in range(n_groups):
+            for j in range(per):
+                mp = tree_map(lambda t: t[g, j], params["mamba"])
+                state = (None if cache is None else
+                         {k: v[g, j] for k, v in cache["mamba"].items()})
+                h = rms_norm(x, mp["ln"], cfg.norm_eps)
+                y, new = ssm_mod.mamba2_apply(mp["block"], cfg, h,
+                                              state=state)
+                if state is not None:       # the states, in place
+                    for k, v in new.items():
+                        state[k].copy_(v)
+                x = x + y
+            h = rms_norm(x, shared["ln1"], cfg.norm_eps)
+            ac = None if cache is None else _layer(cache["attn"], g)
+            a, _ = attn.gqa_apply(shared["attn"], cfg, h, positions,
+                                  window=None, cache=ac,
+                                  append=mode == "prefill_chunk")
+            lora = _layer(params["lora"], g)
+            a = a + dense(dense(h, lora["a_q"], "bf16"), lora["b_q"], "bf16")
+            x = x + a
+            h = rms_norm(x, shared["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(shared["mlp"], h, cfg.act, True,
+                              cfg.matmul_mode)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, cache_len: int):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        cache = self.init_cache(b, cache_len, tokens.device)
+        x = embed_lookup(params["embed"], tokens)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h = self._forward(params, x, positions, cache, "prefill")
+        return self._logits(params, h[:, -1]), cache
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params, batch, cache, pos0):
+        """Append a chunk at [pos0, pos0+C): the attention caches append
+        there, the Mamba2 states carry on from the cache (a one-token
+        chunk takes the recurrent step)."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed_lookup(params["embed"], tokens)
+        pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
+                else int(pos0))
+        positions = (pos0 + torch.arange(s, device=x.device))[None]
+        h = self._forward(params, x, positions.expand(b, s), cache,
+                          "prefill_chunk")
+        return self._logits(params, h[:, -1]), cache
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, cache, pos):
+        x = embed_lookup(params["embed"], tokens)
+        positions = _decode_positions(pos, x.shape[0], x.device)
+        h = self._forward(params, x, positions, cache, "decode")
+        return self._logits(params, h[:, 0]), cache
+
+
+FAMILIES = {"decoder": DecoderModel, "encdec": EncDecModel,
+            "hybrid": HybridModel}
+
+
+def build(cfg: ModelConfig):
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
+                                  f"ported yet (ported: {sorted(FAMILIES)})")
+    return FAMILIES[cfg.family](cfg)

@@ -10,9 +10,12 @@ Prompts are left-padded (with id 1), so every live slot shares one cache
 write position: decode runs with one scalar position for every row over a
 contiguous ``max_len`` cache, plus the prefix: for paligemma each
 prompt follows ``num_prefix_tokens`` patch embeddings (zeros from the
-stub vision tower), and positions count them.  A refilled request is prefilled alone,
+stub vision tower), and positions count them; for whisper each prompt's
+prefill runs the encoder over ``frames`` (zeros from the stub conv
+frontend), whose cross K/V its cache row then holds.  A refilled request is prefilled alone,
 left-padded to exactly the current position, and its batch-1 cache row is
-scattered into its slot (over ``model.cache_axes()``'s batch axis).  A
+scattered into its slot (over ``model.cache_axes()``'s batch axis, so
+cross K/V and recurrent states move with it).  A
 prompt longer than the current position is deferred, never refilled
 mid-stream: it is served once the position has passed its length, or by
 the next generation (a fresh cache) once this one drains or exhausts the
@@ -66,7 +69,7 @@ class EngineConfig:
 
 
 class ServeEngine:
-    """model: a ``DecoderModel`` (``prefill`` + ``decode_step``);
+    """model: any family's model (``prefill`` + ``decode_step``);
     ``params`` must live on ``device`` and, once a graph is captured, must
     not be replaced.  ``capture``: run ``decode_step`` as CUDA graphs
     (``None``: on CUDA)."""
@@ -88,6 +91,11 @@ class ServeEngine:
             capture=capture,
             pool=torch.cuda.graph_pool_handle() if capture else None)
         self._seed = 0
+        # encoder-decoder: every prompt's frame embeddings.  Zeros are the
+        # reference's stub; a caller may write its own encoder input in.
+        self.frames = (torch.zeros(
+            (1, cfg.encoder_frames, cfg.d_model), dtype=torch.bfloat16,
+            device=self.device) if cfg.family == "encdec" else None)
 
     def compile_counts(self) -> Dict[str, int]:
         """Decode shapes specialised: graphs captured (or, when not
@@ -107,6 +115,9 @@ class ServeEngine:
             batch["patches"] = torch.zeros(
                 (len(prompts), self.cfg.num_prefix_tokens, self.cfg.d_model),
                 dtype=torch.bfloat16, device=self.device)
+        if self.frames is not None:     # the stub conv frontend's frames
+            batch["frames"] = self.frames.expand(len(prompts),
+                                                 *self.frames.shape[1:])
         return batch
 
     def _decode_inputs(self, slots: int):

@@ -15,9 +15,11 @@ replayed over static input buffers:
   one memory pool, then replays it; later calls replay.  The outputs are
   the static tensors the capture returned (the logits, and the view the
   model updated in place), valid until the next call of any graph of the
-  pool, so the engine reads them first.  Replaying on a view that the
-  warm-up already wrote gives the same values: a step writes its cache
-  cells before it reads them.
+  pool, so the engine reads them first.  The warm-up writes into the
+  static inputs (the view's cache cells, and a recurrent state such as
+  zamba2's, which a step reads before it writes), so their values are
+  kept before the warm-up and put back before the first replay: the
+  replay starts from what the caller wrote.
 * Without capture (on the CPU, or ``capture=False``, the counterpart of
   ``jax.disable_jit()``) ``entry(key)`` calls the function on the same
   static buffers, so the buffer handling is the same on both devices.
@@ -106,6 +108,8 @@ class GraphedEntry:
 
     def _capture(self, shape: _Shape) -> None:
         t0 = time.perf_counter()
+        static = list(_tensors(shape.inputs))
+        kept = [t.clone() for t in static]
         with metrics.paused():           # the counterpart of a jit trace
             self.fn(*shape.inputs)       # warm-up, eager
             before = collections.Counter(LAUNCHES)
@@ -121,5 +125,19 @@ class GraphedEntry:
         shape.launches = dict(collections.Counter(LAUNCHES) - before)
         LAUNCHES.clear()                 # the capture itself ran nothing
         LAUNCHES.update(before)
+        for t, v in zip(static, kept):   # undo the warm-up's writes
+            t.copy_(v)
         shape.graph = graph
         self.capture_s += time.perf_counter() - t0
+
+
+def _tensors(tree):
+    """The tensors of nested tuples, lists and dicts of static inputs."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)

@@ -5,15 +5,26 @@ slots; each slot holds a block table, the ordered physical block ids
 whose concatenation is its logical cache.  Blocks are reserved at
 admission and returned when the request retires.
 
-Every cache leaf of the decoder has a ``kv_seq`` axis right after its
-``batch`` axis (``cache_axes``); in the pool that pair becomes
-(physical block, offset in block).  For each step the engine *gathers* a
-dense view — ``(rows, V)`` tokens, ``V`` a power-of-two number of
-blocks — runs the model on it, then *commits* only the newly written
-cells.  Rows padded past a slot's table gather block 0, the permanently
-unallocated **null block**: its positions are -1, which the attention
-masks treat as empty, so padding needs no extra masking.  Freed blocks
-are scrubbed back to ``pos = -1``, so reuse needs no reset.
+The layout follows the models' ``cache_axes`` names, whatever the
+family:
+
+* a leaf with a ``kv_seq`` axis right after its ``batch`` axis (K/V
+  codes and scales, MLA latents, per-token positions) is pooled: in the
+  pool that pair becomes (physical block, offset in block);
+* a leaf without one (whisper's cross K/V, zamba2's conv and SSM
+  states) is **dense per slot**: its batch axis is the slot.
+
+For each step the engine *gathers* a dense view — ``(rows, V)`` tokens,
+``V`` a power-of-two number of blocks, and each row's dense leaves —
+runs the model on it, then *commits* only the newly written cells and
+the live rows' dense leaves.  Rows padded past a slot's table gather
+block 0, the permanently unallocated **null block**: its positions are
+-1, which the attention masks treat as empty, so padding needs no extra
+masking.  A padding row of a decode batch gathers slot 0's dense leaves
+and its writes are never committed.  A freed slot is scrubbed: its
+blocks back to ``pos = -1`` and its dense rows to zeros (-1 for int32),
+so reuse needs no reset and a new request never starts from the last
+one's recurrent state.
 
 The pool tensors live on the model's device; gather and commit are
 ``index_select`` / indexed writes there.
@@ -85,23 +96,31 @@ class PagedCache:
         self.allocator = BlockAllocator(num_blocks)
         self.tables: List[List[int]] = [[] for _ in range(slots)]
         axes = dict(tree_leaves(model.cache_axes()))
+        dense = dict(tree_leaves(model.cache_spec(slots, block_size)))
         self.paths = []
         self.pool: List[torch.Tensor] = []
         self._bi: List[int] = []
-        for path, (shape, dtype) in tree_leaves(
+        self._is_kv: List[bool] = []
+        for path, kv_spec in tree_leaves(
                 model.cache_spec(num_blocks, block_size)):
             ax = axes[path]
             bi = ax.index("batch")
-            if ax[bi + 1:bi + 2] != ("kv_seq",):
-                raise NotImplementedError(
-                    f"cache leaf {path} has no kv_seq axis after batch; "
-                    "dense per-slot leaves come with their families")
+            is_kv = "kv_seq" in ax
+            if is_kv and ax.index("kv_seq") != bi + 1:
+                raise ValueError(f"cache leaf {path}: kv_seq must follow "
+                                 f"batch, axes {ax}")
+            shape, dtype = kv_spec if is_kv else dense[path]
             self.paths.append(path)
             self._bi.append(bi)
+            self._is_kv.append(is_kv)
             self.pool.append(
                 torch.full(shape, -1, dtype=dtype, device=self.device)
                 if dtype == torch.int32 else
                 torch.zeros(shape, dtype=dtype, device=self.device))
+
+    def leaves(self):
+        """(path, pool leaf, batch axis, pooled?) of every leaf."""
+        return zip(self.paths, self.pool, self._bi, self._is_kv)
 
     # -- block accounting ----------------------------------------------
 
@@ -115,17 +134,22 @@ class PagedCache:
         self.tables[slot] = self.allocator.alloc(n_blocks)
 
     def free_slot(self, slot: int) -> None:
-        """Return the slot's blocks, scrubbing their positions to -1 (the
-        pool invariant: every free block reads as empty)."""
+        """Return the slot's blocks and scrub the slot: its blocks'
+        positions to -1 (every free block reads as empty) and its dense
+        rows to zeros, -1 for int32 (every free slot reads as fresh)."""
         blocks = self.tables[slot]
         self.tables[slot] = []
-        if not blocks:
-            return
-        barr = torch.as_tensor(blocks, dtype=torch.int64, device=self.device)
-        for leaf, bi in zip(self.pool, self._bi):
-            if leaf.dtype == torch.int32:
-                leaf.index_fill_(bi, barr, -1)
-        self.allocator.free(blocks)
+        if blocks:
+            barr = torch.as_tensor(blocks, dtype=torch.int64,
+                                   device=self.device)
+            for _, leaf, bi, is_kv in self.leaves():
+                if is_kv and leaf.dtype == torch.int32:
+                    leaf.index_fill_(bi, barr, -1)
+            self.allocator.free(blocks)
+        for _, leaf, bi, is_kv in self.leaves():
+            if not is_kv:
+                leaf.select(bi, slot).fill_(
+                    -1 if leaf.dtype == torch.int32 else 0)
 
     # -- gather / commit -----------------------------------------------
 
@@ -137,71 +161,90 @@ class PagedCache:
 
     def empty_view(self, rows: int, view_tokens: int):
         """An uninitialised view of ``rows`` x ``view_tokens``, for
-        ``gather(..., out=)``."""
+        ``gather(..., out=)``: a pooled leaf's (block, offset) axes become
+        (row, token), a dense leaf's slot axis the row."""
         view: dict = {}
-        for path, leaf, bi in zip(self.paths, self.pool, self._bi):
+        for path, leaf, bi, is_kv in self.leaves():
+            tail = leaf.shape[bi + 2:] if is_kv else leaf.shape[bi + 1:]
+            mid = (rows, view_tokens) if is_kv else (rows,)
             _set_path(view, path, torch.empty(
-                leaf.shape[:bi] + (rows, view_tokens) + leaf.shape[bi + 2:],
-                dtype=leaf.dtype, device=self.device))
+                leaf.shape[:bi] + mid + tail, dtype=leaf.dtype,
+                device=self.device))
         return view
 
     def gather(self, slot_ids: Sequence[int], view_tokens: int, out=None):
         """Dense cache view for ``slot_ids`` rows, ``view_tokens`` wide,
         written into every cell of ``out`` (from ``empty_view``) or of a
-        new view."""
+        new view.  Slot ids may repeat (padding rows reuse slot 0 for the
+        dense leaves; their writes are never committed)."""
         nb = view_tokens // self.block_size
         table = np.full((len(slot_ids), nb), NULL_BLOCK, np.int64)
         for r, s in enumerate(slot_ids):
             row = self.tables[s][:nb]
             table[r, :len(row)] = row
         flat = torch.from_numpy(table.reshape(-1)).to(self.device)
+        rows = self._index(slot_ids)
         view = self.empty_view(len(slot_ids), view_tokens) if out is None \
             else out
-        for (path, dst), leaf, bi in zip(tree_leaves(view), self.pool,
-                                         self._bi):
-            want = leaf.shape[:bi] + (len(slot_ids), view_tokens) \
-                + leaf.shape[bi + 2:]
+        for (path, dst), (_, leaf, bi, is_kv) in zip(tree_leaves(view),
+                                                     self.leaves()):
+            if is_kv:
+                want = leaf.shape[:bi] + (len(slot_ids), view_tokens) \
+                    + leaf.shape[bi + 2:]
+            else:
+                want = leaf.shape[:bi] + (len(slot_ids),) \
+                    + leaf.shape[bi + 1:]
             if dst.shape != want:
                 raise ValueError(f"out {path}: {tuple(dst.shape)}, want "
                                  f"{tuple(want)}")
-            # the pool's (block, offset) axes gathered as (row, token)
-            torch.index_select(leaf, bi, flat, out=dst.view(
-                leaf.shape[:bi] + (len(flat), self.block_size)
-                + leaf.shape[bi + 2:]))
+            if is_kv:           # the pool's (block, offset) as (row, token)
+                torch.index_select(leaf, bi, flat, out=dst.view(
+                    leaf.shape[:bi] + (len(flat), self.block_size)
+                    + leaf.shape[bi + 2:]))
+            else:
+                torch.index_select(leaf, bi, rows, out=dst)
         return view
 
-    def _commit(self, view, rows, blocks, offs, positions) -> None:
+    def _commit(self, view, rows, blocks, offs, positions, slots) -> None:
+        """Pooled leaves: view cells (rows, positions) to pool cells
+        (blocks, offs).  Dense leaves: view rows ``rows[:len(slots)]`` to
+        pool slots ``slots``."""
         vleaves = dict(tree_leaves(view))
-        for path, leaf, bi in zip(self.paths, self.pool, self._bi):
+        for path, leaf, bi, is_kv in self.leaves():
             lead = (slice(None),) * bi
-            vals = vleaves[path][lead + (rows, positions)]
-            leaf[lead + (blocks, offs)] = vals.to(leaf.dtype)
+            if is_kv:
+                vals = vleaves[path][lead + (rows, positions)]
+                leaf[lead + (blocks, offs)] = vals.to(leaf.dtype)
+            else:
+                leaf.index_copy_(bi, slots, vleaves[path].index_select(
+                    bi, rows[:len(slots)]))
 
     def _index(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int64),
                                device=self.device)
 
     def commit_prefill(self, view, slot: int, pos0: int, chunk: int) -> None:
-        """Write a slot's prefilled cells ``[pos0, pos0+chunk)`` from a
-        gathered batch-1 view back to the pool."""
+        """Write a slot's prefilled cells ``[pos0, pos0+chunk)``, and its
+        dense leaves, from a gathered batch-1 view back to the pool."""
         offsets = np.arange(pos0, pos0 + chunk)
         table = self.tables[slot]
         blocks = [table[o // self.block_size] for o in offsets]
         self._commit(view, self._index(np.zeros(chunk)),
                      self._index(blocks),
                      self._index(offsets % self.block_size),
-                     self._index(offsets))
+                     self._index(offsets), self._index([slot]))
 
     def commit_decode(self, view, rows: Sequence[int],
                       slot_ids: Sequence[int],
                       positions: Sequence[int]) -> None:
         """Write each live row's newly decoded cell (``positions[j]`` of
-        slot ``slot_ids[j]``, view row ``rows[j]``) back to the pool.
-        Padding rows are simply not listed."""
+        slot ``slot_ids[j]``, view row ``rows[j]``), and its dense leaves,
+        back to the pool.  Padding rows are simply not listed."""
         if not rows:
             return
         pos = np.asarray(positions, np.int64)
         blocks = [self.tables[s][p // self.block_size]
                   for s, p in zip(slot_ids, pos)]
         self._commit(view, self._index(rows), self._index(blocks),
-                     self._index(pos % self.block_size), self._index(pos))
+                     self._index(pos % self.block_size), self._index(pos),
+                     self._index(slot_ids))

@@ -150,7 +150,8 @@ class _Slot:
 
 
 class PagedServeEngine:
-    """model: a ``DecoderModel``; ``params`` must live on ``device`` and,
+    """model: any family's model (``build``); ``params`` must live on
+    ``device`` and,
     once a graph is captured, must not be replaced.  ``capture``: run the
     entry points as CUDA graphs (``None``: on CUDA).  ``obs``: an optional
     ``repro_torch.obs.Observability``."""
@@ -184,9 +185,21 @@ class PagedServeEngine:
                 self.params, tokens, view, pos),
             capture=capture, pool=pool)
         self._prefill = GraphedEntry(
-            lambda tokens, view, pos0: model.prefill_chunk(
-                self.params, {"tokens": tokens}, view, pos0),
+            lambda tokens, view, pos0, *frames: model.prefill_chunk(
+                self.params, dict(tokens=tokens, frames=frames[0]) if frames
+                else {"tokens": tokens}, view, pos0),
             capture=capture, pool=pool)
+        # encoder-decoder: the frame embeddings a request's first chunk
+        # carries, one static buffer that every with-frames graph reads.
+        # Zeros are the reference's stub; a caller may write its own
+        # encoder input into it before serving (a normal tensor, so it
+        # may be written outside inference mode).
+        self.frames = None
+        if cfg.family == "encdec":
+            with torch.inference_mode(False):
+                self.frames = torch.zeros(
+                    (1, cfg.encoder_frames, cfg.d_model),
+                    dtype=torch.bfloat16, device=self.device)
         # what a tick calls: the entries, or the watchdog's wrappers of them
         self._run_decode, self._run_prefill = self._decode, self._prefill
         self.obs = obs
@@ -225,7 +238,8 @@ class PagedServeEngine:
         """The reference's ceiling on compiled shapes per entry point: chunk
         sizes are the powers of two up to ``max_prefill_tokens``, view
         lengths power-of-two block counts up to the pool, the decode batch
-        constant."""
+        constant; an encoder-decoder's first chunks (with frames) double
+        the prefill kinds."""
         chunk_kinds = self.ecfg.max_prefill_tokens.bit_length()
         usable = self.ecfg.num_blocks - 1          # pool minus null block
         view_kinds = (1 << max(usable - 1, 1).bit_length()).bit_length()
@@ -355,12 +369,15 @@ class PagedServeEngine:
             chunk = min(remaining, self.ecfg.max_prefill_tokens)
             chunk = 1 << (chunk.bit_length() - 1)      # largest 2^k <= chunk
             view_tokens = self.cache.view_len(s.pos + chunk)
-            key = (chunk, view_tokens)
-            tokens, view, pos0 = self._prefill.inputs(key, lambda: (
+            # whisper's first chunk carries the frames and runs the encoder
+            has_frames = self.frames is not None and s.pos == 0
+            key = (chunk, view_tokens, has_frames)
+            tokens, view, pos0, *_ = self._prefill.inputs(key, lambda: (
                 torch.empty((1, chunk), dtype=torch.int64,
                             device=self.device),
                 self.cache.empty_view(1, view_tokens),
-                torch.empty((), dtype=torch.int64, device=self.device)))
+                torch.empty((), dtype=torch.int64, device=self.device))
+                + ((self.frames,) if has_frames else ()))
             with record_function("paged.gather"):
                 tokens.copy_(torch.from_numpy(np.ascontiguousarray(
                     s.req.prompt[s.pos:s.pos + chunk], np.int64))[None])
@@ -376,7 +393,7 @@ class PagedServeEngine:
                         logits, view = self._run_prefill(key)
             with record_function("paged.commit"):
                 self.cache.commit_prefill(view, i, s.pos, chunk)
-            self.stats.prefill_shapes.add((chunk, view_tokens, False))
+            self.stats.prefill_shapes.add(key)
             self.stats.prefill_chunks += 1
             if self._registry is not None:
                 self._registry.counter("serve.prefill_tokens", chunk)

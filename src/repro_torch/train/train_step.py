@@ -34,6 +34,15 @@ from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
 NEEDS_DIST = "needs the port's distributed layer (ROADMAP Queue 1 item 5)"
 
 
+def require_trainable(cfg: ModelConfig) -> None:
+    """Refuse the families the port serves but does not train yet: their
+    ``loss`` waits for its own parity tests against ``jax.grad``."""
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) waits for ROADMAP Queue 1 "
+            f"item 8")
+
+
 def bubble_fraction(num_stages: int, num_microbatches: int) -> float:
     """Idle fraction of the pipeline: (S - 1) / (M + S - 1)."""
     if num_stages <= 1:
@@ -122,8 +131,11 @@ class TrainPlan:
 def _layer_param_bytes(cfg: ModelConfig) -> float:
     """bf16 bytes of ONE layer of the pipelined stack (attention + MLP or
     MoE), from the model's schema: the dense first layers run outside
-    it, so they are not counted."""
+    it, so they are not counted; 0 for a family without a ``layers``
+    stack, as the reference's."""
     sch = build(cfg).schema()
+    if "layers" not in sch:            # encoder-decoder, hybrid: no stack
+        return 0.0
     n = sum(math.prod(d.shape) for _, d in tree_leaves(sch["layers"]))
     return n / max(1, cfg.num_layers - cfg.first_dense_layers) * 2.0
 
@@ -132,7 +144,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan,
                     mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
     holds tensors on the state's device; ``state`` is {"params", "opt"}.
-    Without a mesh only: a mesh or a pipelined plan waits for ``dist/``."""
+    Without a mesh only: a mesh or a pipelined plan waits for ``dist/``;
+    the encoder-decoder and hybrid families wait for their loss."""
+    require_trainable(model.cfg)
     if mesh is not None:
         raise NotImplementedError(f"training on a mesh {NEEDS_DIST}")
     if plan.pipeline_stages > 1:

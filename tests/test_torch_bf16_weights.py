@@ -15,7 +15,7 @@ and bitwise for relu; against the port's own f32-cast call, bitwise.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 

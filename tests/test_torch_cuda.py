@@ -19,7 +19,10 @@ at the periphery's widths (16, 64, 256) and 2048, in one launch, and on
 ragged rows at every misalignment.  The paged engine's entry points,
 replayed from CUDA graphs, give the eager calls' logits and caches
 bitwise, and the capturing engine the eager engine's tokens; so does the
-lock-step engine's decode.  Sampling on the card draws the CPU's bits and
+lock-step engine's decode; a captured step that reads a static input
+before writing it (a recurrent state) replays from the caller's values,
+and whisper and zamba2 give the eager engine's tokens captured.
+Sampling on the card draws the CPU's bits and
 uniforms bitwise and its tokens.  The kernel counters count eager calls
 only.  The Gemma family's shapes: decode attention at head_dim 256 (G 2 and
 G 8, a window of 1024 cutting), the fused matmul at K 15360 and 16384 and
@@ -34,7 +37,7 @@ at least 0.999 and its new params within 2.5 learning rates and an ulp.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 from repro_torch.kernels import attention as tattn  # noqa: E402
 from repro_torch.kernels import bp_matmul as tbpm  # noqa: E402
@@ -759,6 +762,62 @@ def test_captured_engine_tokens_equal_eager(cuda, rng):
         assert counts == {"prefill_chunk": snap["prefill_shape_count"],
                           "decode_step": snap["decode_shape_count"]}
         assert (snap["capture_s"] > 0) == (capture is None)
+    assert out[None] == out[False]
+
+
+@pytest.mark.gpu
+def test_capture_keeps_static_inputs_a_step_reads_first(cuda):
+    """A captured entry point whose step reads a static input before it
+    writes it (a recurrent state) replays from the caller's values: the
+    warm-up's write is undone before the first replay."""
+    from repro_torch.serve.graphs import GraphedEntry
+
+    def step(state):
+        out = state * 2.0 + 1.0
+        state.copy_(out)
+        return out
+
+    entry = GraphedEntry(step, capture=True,
+                         pool=torch.cuda.graph_pool_handle())
+    state, = entry.inputs("s", lambda: (torch.zeros(8, device=cuda),))
+    state.fill_(3.0)
+    assert torch.equal(entry("s"), torch.full((8,), 7.0, device=cuda))
+    assert torch.equal(state, torch.full((8,), 7.0, device=cuda))
+    assert torch.equal(entry("s"), torch.full((8,), 15.0, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_base", "zamba2_2p7b"])
+def test_encdec_hybrid_captured_engine_tokens_equal_eager(arch, cuda, rng):
+    """whisper (over seeded frames) and zamba2 on the paged engine: the
+    capturing engine gives the eager engine's tokens with more requests
+    than slots (slot reuse from scrubbed state) and one-token chunks."""
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.paged_engine import (PagedEngineConfig,
+                                                PagedRequest,
+                                                PagedServeEngine)
+    cfg = _smoke(arch)
+    model = build(cfg)
+    params = init_params(model.schema(), seed=0, device=cuda)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 13, 9, 30)]
+    frames = torch.from_numpy(rng.normal(size=(
+        1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    ecfg = PagedEngineConfig(slots=2, block_size=8, num_blocks=32,
+                             max_prefill_tokens=8)
+    out = {}
+    for capture in (None, False):
+        eng = PagedServeEngine(model, params, cfg, ecfg, device=cuda,
+                               capture=capture)
+        if eng.frames is not None:
+            eng.frames.copy_(frames)
+        out[capture] = eng.run([PagedRequest(rid=i, prompt=p,
+                                             max_new_tokens=6)
+                                for i, p in enumerate(prompts)])
+        counts, bounds = eng.compile_counts(), eng.compile_shape_bounds()
+        assert all(0 < counts[k] <= bounds[k] for k in bounds), counts
     assert out[None] == out[False]
 
 

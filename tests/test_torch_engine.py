@@ -22,7 +22,7 @@ The reference is compiled with ``xla_allow_excess_precision`` off (see
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 
@@ -35,7 +35,8 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve import paged_engine as tpe  # noqa: E402
 
-from test_torch_serve import EXACT, configs, to_np  # noqa: E402
+from test_torch_model import ref_jit  # noqa: E402
+from test_torch_serve import configs, to_np  # noqa: E402
 
 
 def stacks(arch, mode="bp8_fused", kvq="bp8"):
@@ -49,9 +50,8 @@ def stacks(arch, mode="bp8_fused", kvq="bp8"):
 def ref_lockstep(stack, **kw):
     cfg, model, params = stack
     eng = jeng.ServeEngine(model, params, cfg, jeng.EngineConfig(**kw))
-    eng._decode = jax.jit(model.decode_step, compiler_options=EXACT)
-    eng._prefill = jax.jit(model.prefill, static_argnums=2,
-                           compiler_options=EXACT)
+    eng._decode = ref_jit(model, "decode_step")
+    eng._prefill = ref_jit(model, "prefill", static_argnums=2)
     return eng
 
 
@@ -59,8 +59,8 @@ def ref_paged(stack, **kw):
     cfg, model, params = stack
     eng = jpe.PagedServeEngine(model, params, cfg, jpe.PagedEngineConfig(
         **{**PAGED, **kw}))
-    eng._decode = jax.jit(model.decode_step, compiler_options=EXACT)
-    eng._prefill_chunk = jax.jit(model.prefill_chunk, compiler_options=EXACT)
+    eng._decode = ref_jit(model, "decode_step")
+    eng._prefill_chunk = ref_jit(model, "prefill_chunk")
     return eng
 
 

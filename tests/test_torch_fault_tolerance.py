@@ -16,7 +16,7 @@ import sys
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 from _compat import given, settings, st  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402

@@ -8,7 +8,7 @@ import sys
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -25,6 +25,20 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        # the encoder-decoder and the hybrid, built and run on the CPU
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import build\n"
+        "from repro_torch.models.params import init_params\n"
+        "for a in ('whisper_base', 'zamba2_2p7b'):\n"
+        "    cfg = get_config(a, smoke=True)\n"
+        "    m = build(cfg)\n"
+        "    p = init_params(m.schema(), seed=0, device='cpu')\n"
+        "    b = {'tokens': torch.ones((1, 4), dtype=torch.long)}\n"
+        "    if cfg.family == 'encdec':\n"
+        "        b['frames'] = torch.zeros((1, cfg.encoder_frames, "
+        "cfg.d_model))\n"
+        "    m.prefill(p, b, 8)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(sys.modules), bad)\n"
@@ -133,6 +147,17 @@ def test_cli_serves_moe_and_mla_on_cpu(arch, capsys):
         out = cli.main(["--arch", arch, "--device", "cpu", "--requests", "2",
                         "--max-new", "3"] + paged)
         assert sorted(out) == [0, 1]
+        assert all(len(v) == 3 for v in out.values())
+    assert "-smoke on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "zamba2_2p7b"])
+def test_cli_serves_encdec_and_hybrid_on_cpu(arch, capsys):
+    from repro_torch.launch import serve as cli
+    for paged in (["--paged"], []):
+        out = cli.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                        "--max-new", "3"] + paged)
+        assert sorted(out) == [0, 1, 2]
         assert all(len(v) == 3 for v in out.values())
     assert "-smoke on cpu" in capsys.readouterr().out
 

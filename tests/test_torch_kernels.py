@@ -18,7 +18,7 @@ the card by ``tests/test_torch_cuda.py`` (marked ``gpu``) and by
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -39,7 +39,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -48,12 +48,13 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.data.pipeline import DataConfig, batch_at  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
-from repro.models.params import init_tree  # noqa: E402
+from repro.models.params import abstract_tree, init_tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.params import (init_params, tree_leaves,  # noqa: E402
+                                       tree_map)
 
 EXACT = {"xla_allow_excess_precision": False}
 #: absolute loss tolerances scale with the loss's magnitude (docstring)
@@ -144,6 +145,34 @@ def test_loss_and_grads_match_reference(arch, mode):
         cos = float(np.dot(got.ravel(), r.ravel())
                     / (np.linalg.norm(got) * np.linalg.norm(r)))
         assert cos >= 0.9998, (path, cos)
+
+
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "qwen2_72b",
+                                  "gemma3_12b", "paligemma_3b",
+                                  "granite_moe_1b", "deepseek_v2_236b",
+                                  "minicpm3_4b"])
+def test_loss_metrics_match_reference(arch):
+    """The metrics carry the reference's keys, shapes and dtypes (its
+    abstract evaluation): ``aux_loss`` too, an f32 0.0 for the archs
+    without experts."""
+    jcfg, tcfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
+    jm, tm = jbuild(jcfg), build(tcfg)
+    batch = batch_at(DataConfig(vocab_size=jcfg.vocab_size, seq_len=16,
+                                global_batch=2), 0)
+    if jcfg.num_prefix_tokens:
+        batch["patches"] = np.zeros((2, jcfg.num_prefix_tokens,
+                                     jcfg.d_model), np.float32)
+    _, want = jax.eval_shape(jm.loss, abstract_tree(jm.schema()),
+                             {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        _, got = tm.loss(init_params(tm.schema(), seed=0, device="cpu"),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        assert tuple(v.shape) == want[k].shape, k
+        assert str(v.dtype).split(".")[-1] == str(np.dtype(want[k].dtype)), k
+    if not tcfg.num_experts:
+        assert float(got["aux_loss"]) == 0.0
 
 
 def tp_leaf(tree, path):

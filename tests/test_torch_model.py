@@ -63,7 +63,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -105,6 +105,19 @@ LOGIT_CASES = [pytest.param(a, *m, id=f"{a}-{m[0]}") for a in ARCHS
 def jjit(fn, **kw):
     """The reference, compiled to round where its code casts."""
     return jax.jit(fn, compiler_options=EXACT, **kw)
+
+
+_JITTED = {}
+
+
+def ref_jit(model, name, **kw):
+    """``jjit`` of the reference model's entry point ``name``, made once
+    per model object: a new jit object compiles every shape again.  The
+    memo keeps the model alive, so its ``id`` is never reused."""
+    key = (id(model), name, tuple(sorted(kw.items())))
+    if key not in _JITTED:
+        _JITTED[key] = (model, jjit(getattr(model, name), **kw))
+    return _JITTED[key][1]
 
 
 def to_np(tree):
@@ -347,4 +360,4 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown matmul mode"):
         tlayers.dense(x, torch.zeros(64, 8), "int4")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper_base")
+        get_config("xlstm_1p3b")

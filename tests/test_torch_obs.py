@@ -15,7 +15,7 @@ import inspect
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 

@@ -16,7 +16,7 @@ import contextlib
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

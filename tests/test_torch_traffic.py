@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 
@@ -38,7 +38,8 @@ from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.serve import paged_engine as tpe  # noqa: E402
 from repro_torch.serve import traffic as ttr  # noqa: E402
 
-from test_torch_serve import EXACT, configs, to_np  # noqa: E402
+from test_torch_model import ref_jit  # noqa: E402
+from test_torch_serve import configs, to_np  # noqa: E402
 
 ECFG = dict(slots=4, block_size=8, num_blocks=64, max_prefill_tokens=16)
 
@@ -88,8 +89,8 @@ def test_run_traffic_matches_reference(stacks, load):
     (jcfg, jm, jp), (tcfg, tm, tp) = stacks
     kw = dict(num_requests=12, offered_load=load, vocab=jcfg.vocab_size)
     je = jpe.PagedServeEngine(jm, jp, jcfg, jpe.PagedEngineConfig(**ECFG))
-    je._decode = jax.jit(jm.decode_step, compiler_options=EXACT)
-    je._prefill_chunk = jax.jit(jm.prefill_chunk, compiler_options=EXACT)
+    je._decode = ref_jit(jm, "decode_step")
+    je._prefill_chunk = ref_jit(jm, "prefill_chunk")
     want = jtr.run_traffic(je, jtr.TrafficConfig(**kw))
     te = tpe.PagedServeEngine(tm, tp, tcfg, tpe.PagedEngineConfig(**ECFG),
                               device="cpu")

@@ -32,7 +32,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from _torch_tests import torch  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
