@@ -133,7 +133,8 @@ prints its wall time):
    matmul bitwise at every projection (K up to 16384, N down to 256) at M
    4 and 64; the gelu MLP within 1e-5; absmax bitwise on the largest
    weights; the ptxas registers and shared memory of the four.  (b) Card
-   vs CPU: gemma3 at full width and 6 layers (5 local, 1 global) on the
+   vs CPU: gemma3 at full width and 3 layers (``reduced``; its window
+   does not cut at these prompts) on the
    paged engine (prompts of 64 and 128 tokens, 4 greedy tokens), and
    paligemma at full width and 2 layers on the lock-step engine (256 zero
    patch tokens, prompts of 20 and 48, 6 tokens): card captured, card
@@ -209,13 +210,45 @@ prints its wall time):
    engine (each alone); peak memory, a slot's dense cache bytes, and a
    short captured profile by kind of kernel with the idle share.
 
+12. xlstm-1.3b (48 layers: 6 groups of 7 mLSTM blocks and 1 sLSTM block;
+   a cache of recurrent states only, dense per slot) in ``bp8_fused``,
+   and ring-buffer KV caches (``ring_cache=True``) on h2o-danube-1.8b.
+   (a) absmax and the fused matmul at a group of an xlstm 4-row decode
+   step (7 x ``up`` 2048 -> 5504 and ``down`` 2752 -> 2048, ``wx`` 2048
+   -> 8192, ``wo_proj`` 2048 -> 2048), bitwise at M 4, 64 and 256 and
+   timed beside their bounds; decode attention over a wrapped ring (S
+   4096, window 4096, positions 4600-8695 at slots pos % 4096, so slot
+   order is not position order) within 1e-5 of its plain version and of
+   the ordered cells, timed; rows 1-3 of the ring path are phase 2's (the
+   same h2o-danube shapes).  (b) Card vs CPU: xlstm at full width and 8
+   layers (one group; ``reduced``) on both engines, prompts of 32 and 64,
+   4 greedy tokens; h2o-danube at full width, 2 layers and a ring of 64
+   on the lock-step engine, prompts of 100 and 150, 12 tokens, max_len
+   256: card captured, card eager and CPU tokens equal.  (c) The full
+   xlstm-1.3b on ``PagedServeEngine`` as phase 4 serves h2o-danube:
+   captured twice and eager, tokens equal; a first chunk (from the zero
+   state), a later chunk and a decode step replayed bitwise equal to
+   eager; a slot's state bytes, peak memory, a captured 4-row decode
+   step against its bytes, a short captured profile; the same requests
+   on the lock-step engine, each alone, its decode replayed bitwise
+   equal to eager.  (d) The full h2o-danube-1.8b on the lock-step engine
+   with a ring of 4096: one prompt of 4600 tokens, 16 new, max_len 8192,
+   captured twice and eager, tokens equal, the decode graph replayed
+   bitwise equal to eager, the prefill logits bitwise those of the same
+   engine without the ring, the decode tokens and largest logit
+   difference against it (reported), a slot's cache bytes ring against
+   full, captured decode steps of both against the bound, peak memory
+   and a profile of the request.
+
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
 1024; rows 1-4 also on the Gemma paths, timed at their decode shapes;
 absmax, the matmul and attention on granite-moe's path and absmax, the
 matmul and the MLP on deepseek-v2's, timed at their decode shapes; rows
 1, 2 and 4 on whisper-base's path and rows 1-4 on zamba2-2.7b's, timed
-at their decode shapes),
+at their decode shapes; rows 1-2 on xlstm-1.3b's path, timed at its
+decode shapes, and rows 1-4 on the ring path, row 4 timed over the
+wrapped ring),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -1161,13 +1194,23 @@ def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
     cut to ``prompt_len`` tokens, ``new`` new tokens each).  The run is
     served once unprofiled first, so that a capturing engine holds every
     graph it needs before the profiled run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cut = [p[:prompt_len] for p in prompts]
     serve(torch, cfg, params, cut, new, "cuda", engine)
+    return profile_run(torch, lambda: serve(torch, cfg, params, cut, new,
+                                            "cuda", engine)[1],
+                       engine.capture)
+
+
+def profile_run(torch, run, capture: bool):
+    """``profile_serving``'s report of one call of ``run`` (which serves
+    and returns its wall seconds) under ``torch.profiler``: device time
+    by kernel and kind, the idle share, and the host's ``paged.*``
+    ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_s, _ = serve(torch, cfg, params, cut, new, "cuda", engine)
+        wall_s = run()
     rows, host = [], {}
     for ev in prof.key_averages():
         if ev.key.startswith("paged."):
@@ -1189,7 +1232,7 @@ def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
         kind = device_kind(k)
         c, t = kinds.get(kind, (0, 0.0))
         kinds[kind] = (c + n, t + us / 1e3)
-    out = {"capture": engine.capture, "wall_s": wall_s,
+    out = {"capture": capture, "wall_s": wall_s,
            "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s,
            "by_kind": {k: {"launches": c, "ms": t} for k, (c, t) in
                        sorted(kinds.items(), key=lambda kv: -kv[1][1])},
@@ -1203,7 +1246,7 @@ def profile_serving(torch, engine, cfg, params, prompts, prompt_len=64,
            # dtype casts and other copies (direct_copy_kernel)
            "copies": [{"name": k[:120], "ms": us / 1e3, "calls": n}
                       for us, k, n in rows if "copy" in k.lower()]}
-    mode = "captured" if engine.capture else "eager"
+    mode = "captured" if capture else "eager"
     print(f"profile ({mode}): wall {wall_s:.3f}s, device busy "
           f"{busy_s:.3f}s, idle share {out['idle_share']:.3f}")
     for r in out["top"][:8]:
@@ -1464,12 +1507,17 @@ def lockstep_replay_vs_eager(torch, engine, params, prompt, rng):
     the contiguous ``max_len`` cache plus any prefix, one scalar position)
     against eager ``decode_step`` calls on the same inputs: logits and
     caches bitwise."""
+    from repro_torch.models.params import tree_leaves
     with torch.inference_mode():        # the engine's buffers are made so
         _replay_vs_eager(torch, engine, params, prompt, rng)
-    n = engine.ecfg.max_len + engine.cfg.num_prefix_tokens
-    print(f"lock-step decode ({engine.cfg.name}, 1 row, {n}-token "
-          f"contiguous cache, scalar position): 2 replayed steps bitwise "
-          f"equal to eager (logits and cache)")
+    _, cache, _ = engine._decode_inputs(1)
+    slots = [t.shape[-1] for path, t in tree_leaves(cache)
+             if path[-1] == "pos"]
+    what = (f"{slots[0]}-slot contiguous cache" if slots
+            else "recurrent state only")
+    print(f"lock-step decode ({engine.cfg.name}, 1 row, {what}, scalar "
+          f"position): 2 replayed steps bitwise equal to eager (logits and "
+          f"cache)")
 
 
 def _replay_vs_eager(torch, engine, params, prompt, rng):
@@ -2375,7 +2423,7 @@ def gemma_kernel_rows(torch, timer, cfg, log: str, dev="cuda"):
     return rows, detail
 
 
-def lockstep_card_vs_cpu(torch, cfg, prompts, max_new):
+def lockstep_card_vs_cpu(torch, cfg, prompts, max_new, max_len=128):
     """The same seeded weights on the card, captured and eager, and on the
     CPU emit the same greedy tokens through the lock-step engine (all
     prompts in one generation)."""
@@ -2387,12 +2435,13 @@ def lockstep_card_vs_cpu(torch, cfg, prompts, max_new):
                                        ("eager", p_gpu, "cuda", False),
                                        ("cpu", p_cpu, "cpu", None)):
         eng = ServeEngine(build_model(cfg), params, cfg, EngineConfig(
-            slots=len(prompts), max_len=128, eos_id=-1), device=dev,
+            slots=len(prompts), max_len=max_len, eos_id=-1), device=dev,
             capture=capture)
         out[what], secs = serve_lockstep(torch, eng, prompts, max_new, 0,
                                          alone=False)
     print(f"card vs cpu ({cfg.name}, lock-step, {cfg.num_layers} layers, "
-          f"full width, {cfg.num_prefix_tokens} zero patch tokens): card, "
+          f"full width, {cfg.num_prefix_tokens} zero patch tokens, ring "
+          f"{cfg.ring_cache}, prompts {[len(p) for p in prompts]}): card, "
           f"captured {out['captured']}; eager {out['eager']}; cpu "
           f"{out['cpu']} ({secs:.1f}s on the CPU)")
     if not out["captured"] == out["eager"] == out["cpu"]:
@@ -2508,6 +2557,15 @@ def serve_paligemma(torch, build, rng):
         "peak_mem_gb": peak}
 
 
+#: 9(b)'s cut of gemma3: 3 of its 48 layers.  At prompts of at most 128
+#: tokens its 1024-token window does not cut, so a global layer would
+#: show nothing that the local ones do not
+GEMMA_CHECK_LAYERS = 3
+GEMMA_REDUCED = {"num_layers": "48 -> 3 (local layers) in 9(b), the "
+                 "card-vs-CPU check only: the CPU's plain path costs tens "
+                 "of seconds a call at full width"}
+
+
 def phase_gemma(torch, timer, build, log: str, rng):
     """Phase 9: the Gemma family on the card.  Returns the kernel rows and
     the launches of each arch's served path, and a report."""
@@ -2522,18 +2580,20 @@ def phase_gemma(torch, timer, build, log: str, rng):
     report["a_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     # prompts of one and two whole chunks: the CPU's plain path costs
-    # ~20 s a call at this width, so (b) makes six calls of the model
-    g3 = gemma_config("gemma3_12b", num_layers=6)
+    # tens of seconds a call at this width, so (b) makes six calls
+    g3 = gemma_config("gemma3_12b", num_layers=GEMMA_CHECK_LAYERS)
     prompts = [rng.integers(3, g3.vocab_size, n).astype(np.int32)
                for n in (64, 128)]
     report["cpu_s"] = {"gemma3_12b": card_vs_cpu(torch, g3, prompts, 4)}
+    report["b_reduced"] = GEMMA_REDUCED
     pali = gemma_config("paligemma_3b", num_layers=2)
     prompts = [rng.integers(3, pali.vocab_size, n).astype(np.int32)
                for n in (20, 48)]
     report["cpu_s"]["paligemma_3b"] = lockstep_card_vs_cpu(torch, pali,
                                                            prompts, 6)
     report["b_s"] = time.perf_counter() - t1
-    print(f"phase 9(b) card vs cpu: {report['b_s']:.1f}s")
+    print(f"phase 9(b) card vs cpu: {report['b_s']:.1f}s (reduced "
+          f"{GEMMA_REDUCED})")
     gc.collect()
     torch.cuda.empty_cache()
     launches["gemma3_12b"], report["gemma3"] = serve_gemma3(
@@ -3215,6 +3275,387 @@ def phase_encdec_hybrid(torch, timer, build, rng):
     return rows, launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 12: xlstm-1.3b (mLSTM and sLSTM), and ring-buffer KV caches
+# ---------------------------------------------------------------------------
+
+#: the two served paths in the kernels line, and their kernels (xlstm has
+#: no attention and no MLP: its projections run through ``dense``)
+XLSTM_PATH, RING_PATH = "serve_xlstm_1p3b", "serve_ring_h2o_danube"
+XLSTM_KERNELS = ("absmax", "fused_matmul")
+RING_KERNELS = ("absmax", "fused_matmul", "fused_mlp", "decode_attention")
+#: 12(b)'s cuts, the card-vs-CPU checks only (the CPU's plain path costs
+#: seconds a call at full width)
+XLSTM_CHECK_LAYERS = 8
+XLSTM_REDUCED = {"num_layers": "48 -> 8 (one group: 7 mLSTM blocks and the "
+                 "sLSTM block) in 12(b), the card-vs-CPU check only"}
+RING_REDUCED = {"num_layers": "24 -> 2 and window_size 4096 -> 64 in 12(b), "
+                "the card-vs-CPU ring check only, so that a 150-token "
+                "prompt wraps the ring"}
+#: 12(b)'s new tokens on the ring: each decode step of the CPU's plain
+#: path quantises every full-width weight again, so the CPU half grows
+#: with the steps
+RING_CHECK_NEW = 12
+#: 12(d): the ring's prompt, new tokens and cache length
+RING_PROMPT, RING_NEW, RING_MAX_LEN = 4600, 16, 8192
+
+
+def xlstm_config(**kw):
+    """xlstm-1.3b in ``bp8_fused`` (no KV cache: its states are f32)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("xlstm_1p3b"),
+                               matmul_mode="bp8_fused", **kw)
+
+
+def ring_config(**kw):
+    """h2o-danube-1.8b in ``bp8_fused`` over a ``bp8`` ring cache."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("h2o_danube_1p8b"),
+                               matmul_mode="bp8_fused", kv_quant="bp8",
+                               ring_cache=True, **kw)
+
+
+def xlstm_step_shapes(cfg):
+    """The (K, N) of the projections one group of xlstm runs in a decode
+    step: 7 x (``up`` d -> 2 x inner, ``down`` inner -> d), then the
+    sLSTM's ``wx`` d -> 4d and ``wo_proj`` d -> d."""
+    from repro_torch.models.ssm import mlstm_inner
+    d, di = cfg.d_model, mlstm_inner(cfg)
+    return ([(d, 2 * di), (di, d)] * (cfg.slstm_every - 1)
+            + [(d, 4 * d), (d, d)])
+
+
+def wrapped_ring_attention(torch, timer, cfg, dev="cuda"):
+    """Row 4 over a wrapped ring: 4 rows, ``window`` slots (h2o-danube's D,
+    KH and G) holding positions 4600 .. 4600 + window - 1 at slots
+    pos % window, so slot order is not position order; queries at the
+    newest position and at three earlier ones (causal masks cut the
+    newer cells).  Within 1e-5 of its plain version, and of itself over
+    the same cells in position order; timed beside its plain version,
+    SDPA on the dequantised ring and its bound.  Returns (row,
+    detail)."""
+    from repro_torch.kernels import attention as ka
+    n, kh = cfg.window_size, cfg.num_kv_heads
+    g, hd = cfg.num_heads // kh, cfg.head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    start, b = 4600, 4
+    k, v = (torch.randn((b, n, kh, hd), generator=gen, device=dev)
+            for _ in range(2))
+    q = torch.randn((b, kh, g, hd), generator=gen, device=dev) / math.sqrt(hd)
+    ordered = torch.arange(start, start + n, dtype=torch.int32,
+                           device=dev).repeat(b, 1)
+    slots = ordered[0].long() % n
+    ring = {}
+    for name, t in (("k", k), ("v", v), ("pos", ordered)):
+        ring[name] = torch.empty_like(t)
+        ring[name][:, slots] = t
+    if torch.equal(ring["pos"], ordered):
+        fail("the ring's slot order equals its position order")
+    top = start + n - 1
+    qp = torch.tensor([top, top - 300, top - n // 2, top - 1100],
+                      dtype=torch.int32, device=dev)
+    out, err = {}, 0.0
+    for what, kk, vv, pp in (("ring", ring["k"], ring["v"], ring["pos"]),
+                             ("ordered", k, v, ordered)):
+        kc, ks = ka.quantize_kv(kk)
+        vc, vs = ka.quantize_kv(vv)
+        args = (q, kc, ks, vc, vs, pp, qp, n)
+        out[what] = ka.bp8_decode_attention(*args)
+        e = (out[what] - ka.bp8_decode_attention_ref(*args)).abs().max()
+        if not math.isfinite(e.item()) or e.item() > 1e-5:
+            fail(f"decode attention over a {what} ring of {n} off by "
+                 f"{e.item():.3g}")
+        err = max(err, e.item())
+        if what == "ring":
+            main = args
+    vs_ordered = (out["ring"] - out["ordered"]).abs().max().item()
+    if vs_ordered > 1e-5:
+        fail(f"decode attention over the wrapped ring differs from the "
+             f"ordered cells by {vs_ordered:.3g}")
+    kc, ks, vc, vs, pos = main[1:6]
+    allowed = (pos >= 0) & (pos <= qp[:, None]) & (qp[:, None] - pos < n)
+    seen = allowed.sum().item()
+    kd, vd = ka.dequantize_kv(kc, ks), ka.dequantize_kv(vc, vs)
+    qs = q.reshape(b, kh * g, 1, hd)
+    kt = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vt = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    F = torch.nn.functional
+    row = dict(
+        max_abs_err=err,
+        ms=timer([lambda: ka.bp8_decode_attention(*main)]),
+        plain_ms=timer([lambda: ka.bp8_decode_attention_ref(*main)]),
+        library_ms=timer([lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=allowed[:, None, None, :], scale=1.0)]),
+        b=[bound(2 * 4 * b * kh * g * hd + seen * kh * (2 * hd + 8)
+                 + 4 * seen + 4 * b, 4 * seen * kh * g * hd,
+                 H100_F32_FLOPS_PER_S)])
+    detail = {"slots": n, "positions": [start, start + n - 1],
+              "q_pos": qp.tolist(), "keys_seen": seen,
+              "max_abs_err": err, "ring_vs_ordered": vs_ordered}
+    print(f"decode attention over a wrapped ring (S {n}, window {n}, "
+          f"positions {start}..{start + n - 1} at slots pos % {n}): within "
+          f"{err:.3g} of its plain version, {vs_ordered:.3g} of the ordered "
+          f"cells; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} SDPA "
+          f"{row['library_ms']:.4f} bound {row['b'][0][0]:.5f}")
+    return row, detail
+
+
+def param_bytes(params) -> int:
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+
+
+def spec_bytes(spec) -> int:
+    """Bytes of a cache spec ({leaf: (shape, dtype)})."""
+    from repro_torch.models.params import tree_leaves
+    return sum(math.prod(shape) * dtype.itemsize
+               for _, (shape, dtype) in tree_leaves(spec))
+
+
+def serve_xlstm(torch, build, timer, rng):
+    """Phase 12(c): the full xlstm-1.3b (48 layers) on the paged engine as
+    phase 4 serves h2o-danube (4 slots, block 16, chunk 64, 8 requests of
+    32-256 tokens, 16 new each), twice captured and once eager, tokens
+    equal; a first chunk (the zero state), a later chunk and a decode step
+    replayed bitwise equal to eager; a slot's dense state bytes, peak
+    memory, a captured 4-row decode step against its bytes (the weights
+    and the states read and written), a short captured profile; then the
+    same requests on the lock-step engine, each alone (prompts of at most
+    256 tokens: a longer one must be a multiple of the mLSTM's chunk)."""
+    import numpy as np
+    from repro_torch.models import build as build_model
+    cfg = xlstm_config()
+    model = build_model(cfg)
+    params, init_s, init_peak, n = seeded_on_card(torch, cfg)
+    lens = [32, 256] + [int(x) for x in rng.integers(32, 257, 6)]
+    prompts = [rng.integers(3, cfg.vocab_size, x).astype(np.int32)
+               for x in lens]
+    rec, engine, eager_engine = serve_captured_and_eager(
+        torch, build, cfg, params, prompts, kernels=XLSTM_KERNELS)
+    del eager_engine
+    rec["prefill_shapes"] = [list(k) for k in
+                             sorted(engine.stats.prefill_shapes)]
+    rec["dense_slot_bytes"] = slot = dense_slot_bytes(engine)
+    spec = model.cache_spec(1, 1)
+    if slot != spec_bytes(spec):
+        fail(f"{cfg.name}: a slot holds {slot} B of state, its spec "
+             f"{spec_bytes(spec)}")
+    rec["graphed_vs_eager"] = graphed_vs_eager(torch, model, params, rng,
+                                               fresh=True)
+    key = max(engine._decode._shapes)
+    with torch.inference_mode():
+        step_ms = timer([lambda: engine._decode(key)], iters=5, clean=True)
+    wbytes = param_bytes(params)
+    step_bytes = wbytes + 2 * engine.ecfg.slots * slot
+    bound_ms = step_bytes / H100_BYTES_PER_S * 1e3
+    rec["decode_step"] = {"view": key, "ms": step_ms,
+                          "weight_bytes": wbytes, "bytes": step_bytes,
+                          "bound_ms": bound_ms}
+    print(f"{cfg.name}: a slot's state {slot / 1e6:.2f} MB (mLSTM "
+          f"{spec_bytes(spec['mlstm']) / 1e6:.2f}, sLSTM "
+          f"{spec_bytes(spec['slstm']) / 1e6:.3f}); peak "
+          f"device memory {rec['peak_mem_gb']:.2f} GB; a captured 4-row "
+          f"decode step (view {key}) {step_ms:.3f} ms against "
+          f"{bound_ms:.3f} ms to read {wbytes / 1e9:.2f} GB of weights and "
+          f"read and write 4 slots' state (share {bound_ms / step_ms:.3f})")
+    prof = profile_serving(torch, engine, cfg, params, prompts[:2], 32, 4)
+    ran = set(prof["served_kernels"])
+    if not set(XLSTM_KERNELS) <= ran:
+        fail(f"{cfg.name}: kernels missing from the captured profile (ran: "
+             f"{sorted(ran)})")
+    del engine
+    lock = lockstep_engine(cfg, params, "cuda", temperature=0.0)
+    serve_lockstep(torch, lock, prompts[:1], 2, 0, alone=True)   # warm
+    out, secs = serve_lockstep(torch, lock, prompts, 16, 0, alone=True)
+    n_tok = sum(len(v) for v in out.values())
+    for rid, toks in out.items():
+        if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{cfg.name} lock-step request {rid}: bad output {toks}")
+    lockstep_replay_vs_eager(torch, lock, params, prompts[0], rng)
+    rec["lockstep"] = {"seconds": secs, "tokens_per_s": n_tok / secs,
+                       "graphs": lock.compile_counts()}
+    print(f"{cfg.name} on the lock-step engine (each request alone, "
+          f"captured decode): {n_tok} tokens in {secs:.3f}s = "
+          f"{n_tok / secs:.2f} tok/s, graphs {lock.compile_counts()}")
+    del lock
+    return rec["launches"], dict(rec, params=n, init_s=init_s,
+                                 init_peak_mem_gb=init_peak, profile=prof)
+
+
+def serve_ring(torch, build, timer, rng):
+    """Phase 12(d): the full h2o-danube-1.8b on the lock-step engine with
+    ``ring_cache=True`` (window 4096): one prompt of 4600 tokens, 16 new,
+    max_len 8192, twice on a capturing engine (the second timed, its
+    launches zeroed just before and read just after) and once eager,
+    tokens equal; the decode graph replayed bitwise equal to eager; the
+    prefill logits bitwise those of the same engine without the ring
+    (prefill attends the whole prompt either way); the decode tokens and
+    the largest logit difference against it (reported: the softmax sums
+    another number of cells); a slot's cache bytes, ring against full; a
+    captured decode step against its bytes; peak memory; a profile of
+    the request."""
+    import numpy as np
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    ring = ring_config()
+    full = dataclasses.replace(ring, ring_cache=False)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(build_model(full).schema(), seed=0, device="cuda")
+    prompt = rng.integers(3, ring.vocab_size, RING_PROMPT).astype(np.int32)
+    ecfg = EngineConfig(slots=1, max_len=RING_MAX_LEN, eos_id=-1)
+    engines, runs = {}, {}
+    for what, cfg, capture in (("ring", ring, None),
+                               ("ring_eager", ring, False),
+                               ("full", full, None)):
+        eng = ServeEngine(build_model(cfg), params, cfg, ecfg,
+                          device="cuda", capture=capture)
+        logits = []
+        sample = eng._sample
+
+        def recording(lg, slots, sample=sample, logits=logits):
+            logits.append(lg.float().clone())
+            return sample(lg, slots)
+
+        eng._sample = recording
+        out, secs = serve_lockstep(torch, eng, [prompt], RING_NEW, 0, True)
+        runs[what] = {"tokens": out[0], "first_s": secs,
+                      "logits": list(logits)}
+        if capture is None:
+            logits.clear()
+            if what == "ring":
+                build.reset_launches()
+            again, secs = serve_lockstep(torch, eng, [prompt], RING_NEW, 0,
+                                         True)
+            if what == "ring":
+                runs[what]["launches"] = dict(build.LAUNCHES)
+            if again != out:
+                fail(f"{cfg.name} ({what}): a second captured run's tokens "
+                     f"differ from the first's")
+        runs[what]["seconds"] = secs
+        engines[what] = eng
+        if len(out[0]) != RING_NEW or not all(
+                0 <= t < ring.vocab_size for t in out[0]):
+            fail(f"{cfg.name} ({what}): bad output {out[0]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    r, e, f = runs["ring"], runs["ring_eager"], runs["full"]
+    if r["tokens"] != e["tokens"]:
+        fail(f"ring: captured tokens {r['tokens']} differ from eager "
+             f"{e['tokens']}")
+    if not torch.equal(r["logits"][0], f["logits"][0]):
+        fail(f"ring: prefill logits differ from the full cache's by "
+             f"{(r['logits'][0] - f['logits'][0]).abs().max().item()}")
+    diffs = [(a - b).abs().max().item()
+             for a, b in zip(r["logits"][1:], f["logits"][1:])]
+    launches = r["launches"]
+    for name in RING_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"ring: kernel {name} was not launched")
+    lockstep_replay_vs_eager(torch, engines["ring"], params, prompt, rng)
+    step = {}
+    for what in ("ring", "full"):
+        eng = engines[what]
+        with torch.inference_mode():
+            step[what] = timer([lambda eng=eng: eng._decode(
+                (1, RING_MAX_LEN))], iters=5, clean=True)
+    ring_b = spec_bytes(build_model(ring).cache_spec(1, RING_MAX_LEN))
+    full_b = spec_bytes(build_model(full).cache_spec(1, RING_MAX_LEN))
+    wbytes = param_bytes(params)
+    bound_ms = (wbytes + ring_b) / H100_BYTES_PER_S * 1e3
+    eng = engines["ring"]
+    prof = profile_run(torch, lambda: serve_lockstep(
+        torch, eng, [prompt], RING_NEW, 0, True)[1], True)
+    for k in list(engines):
+        del engines[k]
+    del eng
+    rec = {"model": ring.name, "layers": ring.num_layers,
+           "window": ring.window_size, "prompt_tokens": RING_PROMPT,
+           "new_tokens": RING_NEW, "max_len": RING_MAX_LEN,
+           "tokens": r["tokens"], "full_tokens": f["tokens"],
+           "tokens_equal_full": r["tokens"] == f["tokens"],
+           "decode_logit_max_abs_diff_vs_full": diffs,
+           "seconds": r["seconds"], "tokens_per_s": RING_NEW / r["seconds"],
+           "eager_seconds": e["seconds"],
+           "eager_tokens_per_s": RING_NEW / e["seconds"],
+           "full_seconds": f["seconds"],
+           "full_tokens_per_s": RING_NEW / f["seconds"],
+           "first_run_seconds": r["first_s"], "launches": launches,
+           "cache_bytes_per_slot": {"ring": ring_b, "full": full_b},
+           "decode_step_ms": step, "weight_bytes": wbytes,
+           "decode_step_bound_ms": bound_ms, "peak_mem_gb": peak,
+           "profile": prof}
+    print(f"ring ({ring.name}, window {ring.window_size}, lock-step, one "
+          f"prompt of {RING_PROMPT}, {RING_NEW} new, max_len "
+          f"{RING_MAX_LEN}): captured {r['seconds']:.3f}s = "
+          f"{RING_NEW / r['seconds']:.2f} tok/s (first run "
+          f"{r['first_s']:.3f}s), eager {e['seconds']:.3f}s, full cache "
+          f"captured {f['seconds']:.3f}s; tokens {r['tokens']}, full cache "
+          f"{f['tokens']} (equal {r['tokens'] == f['tokens']}); decode "
+          f"logits against the full cache differ by at most "
+          f"{max(diffs):.3g}; prefill logits bitwise equal")
+    print(f"ring: a slot's cache {ring_b / 1e6:.2f} MB, full "
+          f"{full_b / 1e6:.2f} MB; a captured decode step ring "
+          f"{step['ring']:.3f} ms, full {step['full']:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({wbytes / 1e9:.2f} GB of weights and the "
+          f"ring); peak device memory {peak:.2f} GB; launches {launches}")
+    return launches, rec
+
+
+def phase_xlstm_ring(torch, timer, build, rows2, rng):
+    """Phase 12: xlstm-1.3b and the ring cache on the card.  ``rows2``:
+    phase 2's rows, which hold rows 1-3 at h2o-danube's shapes, the ring
+    path's.  Returns the kernel rows and the launches of each path, and
+    a report."""
+    import numpy as np
+    report, rows, launches = {}, {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    xcfg = xlstm_config()
+    rows[XLSTM_PATH], report["kernels_xlstm"] = served_kernel_rows(
+        torch, timer, xcfg, xlstm_step_shapes(xcfg), mlp=False,
+        big_m=(256,))
+    ring_row, report["ring_attention"] = wrapped_ring_attention(
+        torch, timer, ring_config())
+    rows[RING_PATH] = {n: rows2[n] for n in RING_KERNELS[:3]}
+    rows[RING_PATH]["decode_attention"] = ring_row
+    report["a_s"] = time.perf_counter() - t0
+    print(f"phase 12(a) kernels at the new shapes: {report['a_s']:.1f}s")
+
+    t1 = time.perf_counter()
+    x8 = xlstm_config(num_layers=XLSTM_CHECK_LAYERS)
+    prompts = [rng.integers(3, x8.vocab_size, n).astype(np.int32)
+               for n in (32, 64)]
+    report["cpu_s"] = {"xlstm_paged": card_vs_cpu(torch, x8, prompts, 4),
+                       "xlstm_lockstep": lockstep_card_vs_cpu(
+                           torch, x8, prompts, 4)}
+    gc.collect()
+    r2 = ring_config(num_layers=2, window_size=64)
+    prompts = [rng.integers(3, r2.vocab_size, n).astype(np.int32)
+               for n in (100, 150)]
+    report["cpu_s"]["ring_lockstep"] = lockstep_card_vs_cpu(
+        torch, r2, prompts, RING_CHECK_NEW, max_len=256)
+    report["b_reduced"] = {"xlstm": XLSTM_REDUCED, "ring": RING_REDUCED}
+    report["b_s"] = time.perf_counter() - t1
+    print(f"phase 12(b) card vs cpu: {report['b_s']:.1f}s (reduced "
+          f"{report['b_reduced']})")
+
+    for what, part, fn in (("xlstm_1p3b", "c", serve_xlstm),
+                           ("ring", "d", serve_ring)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        path = XLSTM_PATH if part == "c" else RING_PATH
+        launches[path], report[what] = fn(torch, build, timer, rng)
+        report[f"{part}_s"] = time.perf_counter() - t2
+        print(f"phase 12({part}) {what}: {report[f'{part}_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches"] = launches
+    return rows, launches, report
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -3311,14 +3752,16 @@ def expand_rows(model, cache, rows: int):
     return out
 
 
-def graphed_vs_eager(torch, model, params, rng, frames=None):
+def graphed_vs_eager(torch, model, params, rng, frames=None, fresh=False):
     """A prefill chunk (64 tokens at position 64) and a decode step (4 rows)
     at full width, replayed from graphs, against the eager calls on the
     same inputs: the caches bitwise equal, and the logits bitwise equal
     (or, if the f32 logits matmul alone differs under capture, that is
     printed with its largest difference).  With ``frames`` (an
     encoder-decoder) the first chunk, which carries them and runs the
-    encoder, is replayed from its own graph and checked too."""
+    encoder, is replayed from its own graph and checked too; with
+    ``fresh`` (a recurrent model) the first chunk, from the zero state,
+    is replayed from the later chunk's graph and checked."""
     from repro_torch.models.params import tree_leaves
     from repro_torch.serve.graphs import GraphedEntry
     cfg = model.cfg
@@ -3340,7 +3783,16 @@ def graphed_vs_eager(torch, model, params, rng, frames=None):
     t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 64)),
                         device="cuda")
     result = {}
-    if frames is None:
+    if fresh:
+        prefill.inputs("p", lambda: (t.clone(), clone(cache),
+                                     torch.zeros((), dtype=torch.int64,
+                                                 device="cuda")))
+        want, cache = model.prefill_chunk(params, {"tokens": t},
+                                          clone(cache), 0)
+        got, got_cache = prefill("p")
+        result["prefill chunk 64 from the zero state"] = (
+            got.clone(), want, clone(got_cache), cache)
+    elif frames is None:
         model.prefill_chunk(params, {"tokens": t}, cache, 0)
     else:
         first = GraphedEntry(lambda t, v, p0, f: model.prefill_chunk(
@@ -3357,8 +3809,12 @@ def graphed_vs_eager(torch, model, params, rng, frames=None):
                                                   got_cache, cache)
     t = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 64)),
                         device="cuda")
-    prefill.inputs("p", lambda: (t.clone(), clone(cache),
-                                 torch.full((), 64, device="cuda")))
+    tok_s, view_s, p0_s = prefill.inputs("p", lambda: (
+        t.clone(), clone(cache), torch.full((), 64, device="cuda")))
+    tok_s.copy_(t)
+    p0_s.fill_(64)
+    for (_, leaf), (_, src) in zip(tree_leaves(view_s), tree_leaves(cache)):
+        leaf.copy_(src)
     want, want_cache = model.prefill_chunk(params, {"tokens": t},
                                            clone(cache), 64)
     got, got_cache = prefill("p")
@@ -3603,6 +4059,11 @@ def main() -> None:
         eh_rows, eh_launches, report["phase11"] = phase_encdec_hybrid(
             torch, timer, build, rng)
 
+    # ---- phase 12: xlstm and the ring cache ----
+    with Phase("12 xlstm-1.3b and the ring cache", report):
+        xr_rows, xr_launches, report["phase12"] = phase_xlstm_ring(
+            torch, timer, build, rows, rng)
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches}
     for arch, path in GEMMA_PATHS.items():
@@ -3611,6 +4072,7 @@ def main() -> None:
         path_launches[path] = moe_launches[arch]
     for arch, path in EH_PATHS.items():
         path_launches[path] = eh_launches[arch]
+    path_launches.update(xr_launches)
     kernels = []
     for name, path, r in ([(n, PATHS[n], rows[n]) for n in SOURCES]
                           + [(n, "train_bp8_fused", r)
@@ -3623,7 +4085,10 @@ def main() -> None:
                              for n, r in arch_rows.items()]
                           + [(n, EH_PATHS[arch], r)
                              for arch, arch_rows in eh_rows.items()
-                             for n, r in arch_rows.items()]):
+                             for n, r in arch_rows.items()]
+                          + [(n, path, r)
+                             for path, path_rows in xr_rows.items()
+                             for n, r in path_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)
         t_ops = sum(x[2] for x in b)

@@ -1,8 +1,8 @@
 """Model configuration: the fields the ported families read.
 
 Field names, defaults and meanings follow the reference's
-``ModelConfig``; fields of families and modes not yet ported (xLSTM,
-ring caches, pipeline stages) are left out until their slice.
+``ModelConfig``; the fields of what is not ported yet (pipeline stages)
+are left out until their slice.
 """
 from __future__ import annotations
 
@@ -12,13 +12,13 @@ from typing import Optional
 
 ARCH_IDS = ("gemma3_12b", "h2o_danube_1p8b", "qwen2_72b", "paligemma_3b",
             "granite_moe_1b", "deepseek_v2_236b", "minicpm3_4b",
-            "whisper_base", "zamba2_2p7b")
+            "whisper_base", "zamba2_2p7b", "xlstm_1p3b")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # decoder | encdec | hybrid
+    family: str                  # decoder | encdec | hybrid | xlstm
     num_layers: int
     d_model: int
     num_heads: int
@@ -55,10 +55,11 @@ class ModelConfig:
     ssm_headdim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
-    ssm_chunk: int = 256         # SSD chunk length
+    ssm_chunk: int = 256         # SSD / mLSTM chunk length
     ssm_decay_bf16: bool = False # store intra-chunk decay matrices in bf16
     attn_every: int = 0          # zamba2: one shared attn block per N mamba
     lora_rank: int = 0           # zamba2 shared-block adapters
+    slstm_every: int = 0         # xlstm: one sLSTM per N blocks
     # encoder-decoder (whisper)
     encoder_layers: int = 0
     encoder_frames: int = 1500
@@ -75,6 +76,11 @@ class ModelConfig:
     # training: recompute each layer's activations in the backward
     # (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
     remat: bool = True
+    # ring-buffer KV caches: keep only ``window_size`` slots per layer,
+    # addressed pos % window.  Valid only where every layer is windowed
+    # (a uniform window); the lock-step engine serves it, the paged
+    # engine refuses it.
+    ring_cache: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,7 @@
   python -m repro_torch.launch.serve --arch granite_moe_1b --paged --full-config
   python -m repro_torch.launch.serve --arch whisper_base --paged --full-config
   python -m repro_torch.launch.serve --arch zamba2_2p7b --paged --full-config
+  python -m repro_torch.launch.serve --arch xlstm_1p3b --paged --full-config
 
 Flags follow the reference CLI, plus ``--device`` (default ``cuda``;
 without CUDA the run stops unless ``--device cpu`` is given).  ``--paged``
@@ -18,7 +19,8 @@ the reference.  The archs are ``repro_torch.configs.base.ARCH_IDS``;
 paligemma (a prefix of zero patch embeddings) serves on the lock-step
 engine only, and ``--paged`` refuses it; whisper's encoder runs over the
 engines' stub frames (zeros), as the reference's; zamba2 keeps its Mamba2
-states per slot.  The model runs the paper's path,
+states per slot, and xlstm its mLSTM and sLSTM states (its only cache).
+The model runs the paper's path,
 ``matmul_mode="bp8_fused"`` with a ``bp8`` KV cache (the MLA archs,
 deepseek-v2 and minicpm3, keep their bf16 latent cache: the reference
 refuses a ``bp8`` one).

@@ -147,9 +147,13 @@ def kv_quantized(cfg: ModelConfig) -> bool:
     return True
 
 
-def kv_cache_spec(cfg: ModelConfig, batch: int,
-                  length: int) -> Dict[str, tuple]:
-    """One attention layer's cache: {leaf: (shape, dtype)}."""
+def kv_cache_spec(cfg: ModelConfig, batch: int, length: int,
+                  ring: bool = False) -> Dict[str, tuple]:
+    """One attention layer's cache: {leaf: (shape, dtype)}.  A ``ring``
+    cache of a windowed layer keeps ``min(length, window)`` slots,
+    addressed pos % slots."""
+    if ring and cfg.window_size:
+        length = min(length, cfg.window_size)
     kh, d = cfg.num_kv_heads, cfg.head_dim
     quant = kv_quantized(cfg)       # raises for mla + kv_quant='bp8'
     if cfg.attention_type == "mla":
@@ -271,8 +275,10 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
          the fused kernel when the cache is BP8 and there is no
          ``prefix_len`` (with one, over the dequantised cache);
        * chunked prefill (``append``): append the Sq tokens at slots
-         [p0, p0+Sq) and attend over the whole cache;
-       * prefill: write the cache densely from slot 0.
+         [p0, p0+Sq) and attend over the whole cache (refused for a ring
+         cache, ``cfg.ring_cache``);
+       * prefill: write the cache densely from slot 0; a cache of n < Sq
+         slots (a ring) keeps the last n tokens, at slots pos % n.
     A quantised cache is attended as the values it stores (dequantised
     codes), so decode over it reproduces prefill's logits.  ``rope=False``
     skips the rotary embedding (whisper's learned positions).
@@ -333,6 +339,8 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         else:
             k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
     elif append:
+        if cfg.ring_cache:
+            raise ValueError("chunked prefill cannot append to a ring cache")
         _cache_append(cache, updates, q_pos)
         if quant:
             k_all = kq.dequantize_kv(cache["k_codes"], cache["k_scale"])
@@ -341,9 +349,16 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             k_all, v_all = cache["k"], cache["v"]
         kv_pos = cache["pos"]
     else:
-        for key, val in updates.items():
-            cache[key][:, :sq] = val.to(cache[key].dtype)
-        cache["pos"][:, :sq] = q_pos.to(torch.int32)
+        n = cache["pos"].shape[1]
+        if n < sq:      # a ring keeps the last n tokens at slots pos % n
+            slots = torch.arange(sq - n, sq, device=x.device) % n
+            for key, val in updates.items():
+                cache[key][:, slots] = val[:, sq - n:].to(cache[key].dtype)
+            cache["pos"][:, slots] = q_pos[:, sq - n:].to(torch.int32)
+        else:
+            for key, val in updates.items():
+                cache[key][:, :sq] = val.to(cache[key].dtype)
+            cache["pos"][:, :sq] = q_pos.to(torch.int32)
         if quant:
             k_all, v_all = kq.dequantize_kv(kc, ks), kq.dequantize_kv(vc, vs)
         else:

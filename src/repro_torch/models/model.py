@@ -1,9 +1,10 @@
 """The model families' serving entry points, and the decoder's training
-loss (the other two families do not train yet): ``DecoderModel`` (the
+loss (the other families do not train yet): ``DecoderModel`` (the
 decoders), ``EncDecModel`` (whisper: an encoder over stub frame
-embeddings, a causal decoder with cross attention) and ``HybridModel``
+embeddings, a causal decoder with cross attention), ``HybridModel``
 (zamba2: a Mamba2 backbone with one shared attention block every
-``attn_every`` layers, per-group LoRA).
+``attn_every`` layers, per-group LoRA) and ``XLSTMModel`` (xlstm:
+groups of mLSTM blocks closed by one sLSTM block, recurrent state only).
 
 Functional like the reference: parameters are a nested dict of tensors
 (layer parameters stacked on a leading ``L`` axis) passed to every call,
@@ -157,8 +158,16 @@ class DecoderModel:
             ("layers", cfg.num_layers - n_dense)]
 
     def cache_spec(self, batch: int, length: int):
-        """{stack: {leaf: ((L, batch, length, ...), dtype)}}."""
-        one = attn.kv_cache_spec(self.cfg, batch, length)
+        """{stack: {leaf: ((L, batch, length, ...), dtype)}}.  With
+        ``cfg.ring_cache`` a layer keeps ``min(length, window)`` slots,
+        which needs every layer windowed (a uniform window)."""
+        cfg = self.cfg
+        if cfg.ring_cache and (not cfg.window_size
+                               or cfg.local_global_pattern):
+            raise ValueError(f"{cfg.name}: a ring cache needs every layer "
+                             f"windowed (window_size set and no "
+                             f"local_global_pattern)")
+        one = attn.kv_cache_spec(cfg, batch, length, ring=cfg.ring_cache)
         return {name: {k: ((n,) + shape, dtype)
                        for k, (shape, dtype) in one.items()}
                 for name, n in self._stacks()}
@@ -617,8 +626,131 @@ class HybridModel(_TiedLogits):
         return self._logits(params, h[:, 0]), cache
 
 
+# =============================================================================
+# xLSTM family
+# =============================================================================
+
+@dataclasses.dataclass
+class XLSTMModel(_TiedLogits):
+    """xlstm: ``num_layers / slstm_every`` groups, each ``slstm_every - 1``
+    mLSTM blocks then one sLSTM block (RMSNorm, block, residual).  No
+    attention and no positions: the cache is each block's recurrent
+    state, dense per row, and starts as zeros (``init_cache``): a
+    prefill's first mLSTM chunk starts from m = 0 and its sLSTM from
+    n = 0, as the reference's prefill does."""
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if cfg.family != "xlstm":
+            raise NotImplementedError(f"{cfg.name}: XLSTMModel is the xlstm "
+                                      "family")
+        if not cfg.slstm_every or cfg.num_layers % cfg.slstm_every:
+            raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} is "
+                             f"not a multiple of slstm_every "
+                             f"{cfg.slstm_every}")
+
+    def _group_dims(self):
+        cfg = self.cfg
+        return cfg.num_layers // cfg.slstm_every, cfg.slstm_every
+
+    def schema(self):
+        cfg = self.cfg
+        n_groups, per = self._group_dims()
+        return {
+            "embed": embed_def(cfg.vocab_size, cfg.d_model),
+            "final_norm": norm_def(cfg.d_model),
+            "mlstm": stack(stack({"ln": norm_def(cfg.d_model),
+                                  "block": ssm_mod.mlstm_defs(cfg)},
+                                 per - 1), n_groups),
+            "slstm": stack({"ln": norm_def(cfg.d_model),
+                            "block": ssm_mod.slstm_defs(cfg)}, n_groups),
+        }
+
+    def cache_spec(self, batch: int, length: int):
+        """The states of every block; ``length`` is unused (no sequence
+        axis)."""
+        cfg = self.cfg
+        n_groups, per = self._group_dims()
+        return {"mlstm": _stacked(ssm_mod.mlstm_state_spec(cfg, batch),
+                                  n_groups, per - 1),
+                "slstm": _stacked(ssm_mod.slstm_state_spec(cfg, batch),
+                                  n_groups)}
+
+    def cache_axes(self):
+        m = {"C": ("stack", "stack2", "batch", "heads", None, None),
+             "n": ("stack", "stack2", "batch", "heads", None),
+             "m": ("stack", "stack2", "batch", "heads")}
+        s = {"c": ("stack", "batch", "heads", None),
+             "n": ("stack", "batch", "heads", None),
+             "h": ("stack", "batch", "heads", None),
+             "m": ("stack", "batch", "heads")}
+        return {"mlstm": m, "slstm": s}
+
+    def init_cache(self, batch: int, length: int, device):
+        """The zero state (every leaf is f32)."""
+        return _init_cache(self.cache_spec(batch, length), device)
+
+    def _forward(self, params, x, cache):
+        """The groups in turn; the states are read from ``cache`` and
+        written back into it in place (None: from the fresh start)."""
+        cfg = self.cfg
+        n_groups, per = self._group_dims()
+
+        def block(apply, bp, x, state):
+            h = rms_norm(x, bp["ln"], cfg.norm_eps)
+            y, new = apply(bp["block"], cfg, h, state=state)
+            if state is not None:
+                for k, v in new.items():
+                    state[k].copy_(v)
+            return x + y
+
+        for g in range(n_groups):
+            for j in range(per - 1):
+                x = block(ssm_mod.mlstm_apply,
+                          tree_map(lambda t: t[g, j], params["mlstm"]), x,
+                          None if cache is None else
+                          {k: v[g, j] for k, v in cache["mlstm"].items()})
+            x = block(ssm_mod.slstm_apply, _layer(params["slstm"], g), x,
+                      None if cache is None else _layer(cache["slstm"], g))
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch):
+        raise NotImplementedError(
+            f"training {self.cfg.name} (xlstm) waits for ROADMAP Queue 1 "
+            f"item 8")
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, cache_len: int):
+        """From the zero state; returns (last-position logits, cache)."""
+        tokens = batch["tokens"]
+        cache = self.init_cache(tokens.shape[0], cache_len, tokens.device)
+        x = embed_lookup(params["embed"], tokens)
+        h = self._forward(params, x, cache)
+        return self._logits(params, h[:, -1]), cache
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params, batch, cache, pos0):
+        """A chunk continues from the states in ``cache`` (a one-token
+        chunk takes the recurrent steps).  ``pos0`` (an int or a
+        one-element tensor) is ignored: xLSTM has no positions, so one
+        graph serves every chunk of a shape."""
+        del pos0
+        x = embed_lookup(params["embed"], batch["tokens"])
+        h = self._forward(params, x, cache)
+        return self._logits(params, h[:, -1]), cache
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, cache, pos):
+        """One token per row; ``pos`` is ignored (no positions)."""
+        del pos
+        x = embed_lookup(params["embed"], tokens)
+        h = self._forward(params, x, cache)
+        return self._logits(params, h[:, 0]), cache
+
+
 FAMILIES = {"decoder": DecoderModel, "encdec": EncDecModel,
-            "hybrid": HybridModel}
+            "hybrid": HybridModel, "xlstm": XLSTMModel}
 
 
 def build(cfg: ModelConfig):

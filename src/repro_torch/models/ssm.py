@@ -1,21 +1,22 @@
-"""Mamba2 (SSD): the zamba2 backbone's state-space block.
+"""The recurrent blocks: Mamba2 (SSD, zamba2's backbone) and xLSTM's
+mLSTM (chunkwise parallel) and sLSTM (sequential).
 
-The chunked SSD formulation: quadratic only within a chunk, linear
-across chunks, for prefill and training; an O(1)-state recurrence for
-decode.  The reference writes it in plain JAX (``repro/models/ssm.py``),
-so it is plain torch here: no kernel of its own.  ``in_proj`` and
-``out_proj`` go through ``dense``, so in ``bp8_fused`` they are absmax
-and the fused BP matmul.
+Mamba2's chunked SSD and the chunked mLSTM are quadratic only within a
+chunk and linear across chunks, for prefill and training; both have an
+O(1)-state recurrence for decode.  The reference writes all three in
+plain JAX (``repro/models/ssm.py``), so they are plain torch here: no
+kernel of their own.  Their projections go through ``dense``, so in
+``bp8_fused`` they are absmax and the fused BP matmul.
 
-The SSD's multi-operand einsums are written as the pairwise
-contractions XLA runs for the reference (the order ``jnp.einsum``'s
-path search picks at every chunk shape of the served and tested
-paths), each an elementwise product or one contraction.  A contraction
-still sums in another order than XLA's, so the outputs agree to f32
-rounding, not bit for bit.
+The multi-operand einsums are written as the pairwise contractions XLA
+runs for the reference (the order ``jnp.einsum``'s path search picks at
+every chunk shape of the served and tested paths), each an elementwise
+product or one contraction.  A contraction still sums in another order
+than XLA's, so the outputs agree to f32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -187,3 +188,239 @@ def mamba2_state_spec(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
         "conv": ((batch, cfg.ssm_conv - 1, conv_dim), torch.float32),
         "ssm": ((batch, nheads, cfg.ssm_headdim, n), torch.float32),
     }
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (chunkwise parallel) and sLSTM (sequential)
+# ---------------------------------------------------------------------------
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -_softplus(-x)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it: ``1 / (1 + exp(-x))``."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def mlstm_inner(cfg: ModelConfig) -> int:
+    """mLSTM up-projection width: 4/3 * d_model, rounded up to a multiple
+    of 8 * num_heads (the xLSTM paper's proj_factor with block-diagonal
+    heads)."""
+    mult = 8 * cfg.num_heads
+    return ((int(cfg.d_model * 4 / 3) + mult - 1) // mult) * mult
+
+
+def mlstm_defs(cfg: ModelConfig, dtype=torch.bfloat16):
+    d, h = cfg.d_model, cfg.num_heads
+    d_inner = mlstm_inner(cfg)
+    dk = d_inner // h
+    return {
+        "up": linear_def(d, 2 * d_inner, "d_model", "ffn", dtype),
+        # block-diagonal per-head projections (xLSTM paper)
+        "wq": ParamDef((h, dk, dk), ("heads", None, None), dtype),
+        "wk": ParamDef((h, dk, dk), ("heads", None, None), dtype),
+        "wv": ParamDef((h, dk, dk), ("heads", None, None), dtype),
+        "wi": linear_def(d_inner, h, "ffn", "heads", torch.float32),
+        "wf": linear_def(d_inner, h, "ffn", "heads", torch.float32),
+        "norm": ParamDef((d_inner,), (None,), torch.float32, "zeros"),
+        "down": linear_def(d_inner, d, "ffn", "d_model", dtype),
+    }
+
+
+def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int, state=None):
+    """Chunkwise mLSTM.  q, k, v: (B,S,H,D) f32; log_i, log_f: (B,S,H).
+
+    Recurrence: C_t = f_t C_{t-1} + i_t k_t v_t^T ; n_t = f_t n_{t-1} +
+    i_t k_t ; y_t = (q C_t) / max(|q n_t|, exp(-m_t)) with a running
+    log-stabiliser m.  Quadratic inside a chunk, a loop over chunks.
+    Without a state the start is C = 0, n = 0, m = -1e30.  Returns (y,
+    {"C", "n", "m"}).  A length that is not a multiple of the chunk
+    (``min(chunk, S)``) is refused, as the reference refuses it."""
+    bs, s, h, d = q.shape
+    qc = min(chunk, s)
+    if s % qc:
+        raise ValueError(f"mLSTM: sequence length {s} is not a multiple of "
+                         f"its chunk {qc}")
+    nc = s // qc
+    rd = math.sqrt(d)
+    qr = q.reshape(bs, nc, qc, h, d)
+    kr = k.reshape(bs, nc, qc, h, d) / rd
+    vr = v.reshape(bs, nc, qc, h, d)
+    li = log_i.reshape(bs, nc, qc, h).permute(0, 3, 1, 2)    # (B,H,Nc,Q)
+    lf = log_f.reshape(bs, nc, qc, h).permute(0, 3, 1, 2)
+    csf = torch.cumsum(lf, dim=-1)                 # cumulative log-forget
+
+    # intra-chunk decay matrix: D[l,s] = csf[l]-csf[s]+li[s] for l>=s
+    decay = _segsum(lf) + li[..., None, :]         # (B,H,Nc,Q,Q)
+    m_intra = decay.amax(-1)                       # (B,H,Nc,Q) finite (diag)
+
+    if state is None:
+        C = torch.zeros((bs, h, d, d), dtype=torch.float32, device=q.device)
+        n = torch.zeros((bs, h, d), dtype=torch.float32, device=q.device)
+        m = torch.full((bs, h), -1e30, dtype=torch.float32, device=q.device)
+    else:
+        C, n, m = state["C"], state["n"], state["m"]
+
+    # per-chunk end states (log-weight of position s into the chunk end)
+    dec_state = csf[..., -1:] - csf + li           # (B,H,Nc,Q)
+    chunk_tot = csf[..., -1]                       # (B,H,Nc)
+    m_state = dec_state.amax(-1)                   # (B,H,Nc)
+    w_s = torch.exp(dec_state - m_state[..., None]).permute(0, 2, 3, 1)
+    kw = kr * w_s[..., None]                       # (B,Nc,Q,H,D)
+    Cc = torch.einsum("bcshd,bcshe->bchde", kw, vr)   # (B,Nc,H,D,D)
+    ncs = kw.sum(2)                                # (B,Nc,H,D)
+
+    # the reference's lax.scan over chunks: each chunk starts from the
+    # state before it (Cp, np_, mp)
+    Cp, np_, mp = [], [], []
+    for i in range(nc):
+        Cp.append(C)
+        np_.append(n)
+        mp.append(m)
+        tot, mi = chunk_tot[:, :, i], m_state[:, :, i]
+        m_new = torch.maximum(m + tot, mi)
+        a1 = torch.exp(m + tot - m_new)
+        a2 = torch.exp(mi - m_new)
+        C = C * a1[..., None, None] + Cc[:, i] * a2[..., None, None]
+        n = n * a1[..., None] + ncs[:, i] * a2[..., None]
+        m = m_new
+    Cp = torch.stack(Cp)                           # (Nc,B,H,D,D)
+    np_ = torch.stack(np_)                         # (Nc,B,H,D)
+    mp = torch.stack(mp)                           # (Nc,B,H)
+
+    # combine intra + inter contributions
+    m_inter = csf + mp.permute(1, 2, 0)[..., None]     # (B,H,Nc,Q)
+    m_tot = torch.maximum(m_intra, m_inter)
+    w_intra = torch.exp(decay - m_tot[..., None])  # (B,H,Nc,Q,Q)
+    w_inter = torch.exp(m_inter - m_tot).permute(0, 2, 3, 1)  # (B,Nc,Q,H)
+    scores = torch.einsum("bclhd,bcshd->bhcls", qr, kr) * w_intra
+    y_intra = torch.einsum("bhcls,bcshe->bclhe", scores, vr)
+    # "bclhd,cbhde,bclh->bclhe" and "bclhd,cbhd,bclh->bclh": q with the
+    # carried state first, then the weight, as XLA contracts them
+    y_inter = torch.einsum("bclhd,cbhde->bclhe", qr, Cp) * w_inter[..., None]
+    qn = scores.sum(-1).permute(0, 2, 3, 1) + torch.einsum(
+        "bclhd,cbhd->bclh", qr, np_) * w_inter
+    y = (y_intra + y_inter) / torch.maximum(
+        qn.abs(), torch.exp(-m_tot.permute(0, 2, 3, 1)))[..., None]
+    return y.reshape(bs, s, h, d), {"C": C, "n": n, "m": m}
+
+
+def mlstm_apply(p, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[Dict] = None, chunk: int = 256):
+    """x: (B,S,D); state: {'C': (B,H,dk,dk), 'n': (B,H,dk), 'm': (B,H)},
+    f32.  Returns (y, new_state).  With a state and S == 1 the step is
+    the recurrence (decode, or a one-token prefill chunk); otherwise the
+    chunked form continues from the state.  ``new_state`` is None
+    without a state."""
+    bs, s, _ = x.shape
+    h = cfg.num_heads
+    d_inner = mlstm_inner(cfg)
+    dk = d_inner // h
+    up = dense(x, p["up"], cfg.matmul_mode)
+    xi, zg = torch.split(up, d_inner, dim=-1)
+    xh = xi.reshape(bs, s, h, dk)
+    q, k, v = (torch.einsum("bshd,hde->bshe", xh, p[w].to(xh.dtype)).to(
+        torch.float32) for w in ("wq", "wk", "wv"))
+    log_i = dense(xi, p["wi"], "bf16").to(torch.float32)   # pre-activation
+    log_f = _log_sigmoid(dense(xi, p["wf"], "bf16").to(torch.float32))
+
+    if state is not None and s == 1:
+        # recurrent step
+        C, n, m = state["C"], state["n"], state["m"]
+        li, lf = log_i[:, 0], log_f[:, 0]
+        m_new = torch.maximum(lf + m, li)
+        i_ = torch.exp(li - m_new)
+        f_ = torch.exp(lf + m - m_new)
+        ks = k[:, 0] / math.sqrt(dk)
+        kv = ks[..., :, None] * v[:, 0, :, None, :]    # (B,H,dk,dk)
+        C_new = C * f_[..., None, None] + kv * i_[..., None, None]
+        n_new = n * f_[..., None] + ks * i_[..., None]
+        num = torch.einsum("bhd,bhde->bhe", q[:, 0], C_new)
+        den = torch.einsum("bhd,bhd->bh", q[:, 0], n_new).abs()
+        y = (num / torch.maximum(den, torch.exp(-m_new))[..., None])[:, None]
+        new_state = {"C": C_new, "n": n_new, "m": m_new}
+    else:
+        y, new_state = _mlstm_chunked(q, k, v, log_i, log_f, chunk, state)
+        if state is None:
+            new_state = None
+    y = y.reshape(bs, s, d_inner)
+    y = rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
+    y = y * activation(zg.to(y.dtype), "silu")
+    return dense(y, p["down"], cfg.matmul_mode), new_state
+
+
+def mlstm_state_spec(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
+    """One mLSTM layer's recurrent state: {leaf: (shape, dtype)}."""
+    h = cfg.num_heads
+    dk = mlstm_inner(cfg) // h
+    return {"C": ((batch, h, dk, dk), torch.float32),
+            "n": ((batch, h, dk), torch.float32),
+            "m": ((batch, h), torch.float32)}
+
+
+def slstm_defs(cfg: ModelConfig, dtype=torch.bfloat16):
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    return {
+        "wx": linear_def(d, 4 * d, "d_model", "ffn", dtype),   # i,f,z,o
+        "r": ParamDef((4, h, hd, hd), (None, "heads", None, None), dtype),
+        "norm": ParamDef((d,), (None,), torch.float32, "zeros"),
+        "wo_proj": linear_def(d, d, "d_model", "d_model", dtype),
+    }
+
+
+def slstm_apply(p, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[Dict] = None):
+    """Sequential sLSTM.  x: (B,S,D); state: {'c','n','h'} each (B,H,hd)
+    and 'm' (B,H), f32.  Without a state the start is c = h = m = 0 and
+    n = 1.  Returns (y, new_state); ``new_state`` is None without a
+    state."""
+    bs, s, d = x.shape
+    h = cfg.num_heads
+    hd = d // h
+    gx = dense(x, p["wx"], cfg.matmul_mode).to(torch.float32)
+    gx = gx.reshape(bs, s, 4, h, hd)
+    r = p["r"].to(torch.float32)
+
+    if state is None:
+        c = torch.zeros((bs, h, hd), dtype=torch.float32, device=x.device)
+        n = torch.ones((bs, h, hd), dtype=torch.float32, device=x.device)
+        hprev = torch.zeros((bs, h, hd), dtype=torch.float32,
+                            device=x.device)
+        m = torch.zeros((bs, h), dtype=torch.float32, device=x.device)
+    else:
+        c, n, hprev, m = state["c"], state["n"], state["h"], state["m"]
+
+    ys = []
+    for t in range(s):              # the reference's lax.scan over time
+        rec = torch.einsum("ghde,bhd->bghe", r, hprev)     # (B,4,H,hd)
+        gi, gf, gz, go = (gx[:, t, i] + rec[:, i] for i in range(4))
+        log_i = gi.mean(-1)                        # head-wise stabiliser
+        log_f = _log_sigmoid(gf.mean(-1))
+        m_new = torch.maximum(log_f + m, log_i)
+        i_ = torch.exp(gi - m_new[..., None])
+        f_ = torch.exp(_log_sigmoid(gf) + (m - m_new)[..., None])
+        z = torch.tanh(gz)
+        o = _sigmoid(go)
+        c = f_ * c + i_ * z
+        n = f_ * n + i_
+        hprev = o * c / torch.clamp_min(n.abs(), 1.0)
+        m = m_new
+        ys.append(hprev)
+    y = torch.stack(ys, dim=1).reshape(bs, s, d)
+    y = rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
+    out = dense(y, p["wo_proj"], cfg.matmul_mode)
+    new_state = ({"c": c, "n": n, "h": hprev, "m": m}
+                 if state is not None else None)
+    return out, new_state
+
+
+def slstm_state_spec(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
+    """One sLSTM layer's recurrent state: {leaf: (shape, dtype)}."""
+    h = cfg.num_heads
+    hd = cfg.d_model // h
+    f32 = torch.float32
+    return {"c": ((batch, h, hd), f32), "n": ((batch, h, hd), f32),
+            "h": ((batch, h, hd), f32), "m": ((batch, h), f32)}

@@ -8,7 +8,10 @@ with no wave barrier.
 
 Prompts are left-padded (with id 1), so every live slot shares one cache
 write position: decode runs with one scalar position for every row over a
-contiguous ``max_len`` cache, plus the prefix: for paligemma each
+contiguous ``max_len`` cache (the model's ``cache_spec``: with
+``ring_cache`` a ring of ``min(max_len, window)`` slots written at
+pos % slots; xlstm's recurrent states have no length), plus the prefix:
+for paligemma each
 prompt follows ``num_prefix_tokens`` patch embeddings (zeros from the
 stub vision tower), and positions count them; for whisper each prompt's
 prefill runs the encoder over ``frames`` (zeros from the stub conv

@@ -12,7 +12,8 @@ family:
   codes and scales, MLA latents, per-token positions) is pooled: in the
   pool that pair becomes (physical block, offset in block);
 * a leaf without one (whisper's cross K/V, zamba2's conv and SSM
-  states) is **dense per slot**: its batch axis is the slot.
+  states, every leaf of xlstm's cache) is **dense per slot**: its batch
+  axis is the slot.
 
 For each step the engine *gathers* a dense view — ``(rows, V)`` tokens,
 ``V`` a power-of-two number of blocks, and each row's dense leaves —
@@ -86,6 +87,9 @@ class PagedCache:
 
     def __init__(self, model, *, slots: int, num_blocks: int,
                  block_size: int, device):
+        if model.cfg.ring_cache:
+            raise ValueError("paged cache: no ring cache (the pool pages "
+                             "the sequence itself)")
         if block_size & (block_size - 1):
             raise ValueError("block_size must be a power of two")
         if num_blocks < 2:

@@ -134,7 +134,7 @@ def _layer_param_bytes(cfg: ModelConfig) -> float:
     it, so they are not counted; 0 for a family without a ``layers``
     stack, as the reference's."""
     sch = build(cfg).schema()
-    if "layers" not in sch:            # encoder-decoder, hybrid: no stack
+    if "layers" not in sch:       # encoder-decoder, hybrid, xlstm: none
         return 0.0
     n = sum(math.prod(d.shape) for _, d in tree_leaves(sch["layers"]))
     return n / max(1, cfg.num_layers - cfg.first_dense_layers) * 2.0
@@ -145,7 +145,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan,
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
     holds tensors on the state's device; ``state`` is {"params", "opt"}.
     Without a mesh only: a mesh or a pipelined plan waits for ``dist/``;
-    the encoder-decoder and hybrid families wait for their loss."""
+    the encoder-decoder, hybrid and xlstm families wait for their loss."""
     require_trainable(model.cfg)
     if mesh is not None:
         raise NotImplementedError(f"training on a mesh {NEEDS_DIST}")

@@ -21,7 +21,10 @@ replayed from CUDA graphs, give the eager calls' logits and caches
 bitwise, and the capturing engine the eager engine's tokens; so does the
 lock-step engine's decode; a captured step that reads a static input
 before writing it (a recurrent state) replays from the caller's values,
-and whisper and zamba2 give the eager engine's tokens captured.
+and whisper, zamba2 and xlstm give the eager engine's tokens captured;
+xlstm's chunks (from the zero state and from a state) and decode steps
+replay bitwise.  Decode attention over a wrapped ring (slot order not
+position order) within 1e-5 of its plain version.
 Sampling on the card draws the CPU's bits and
 uniforms bitwise and its tokens.  The kernel counters count eager calls
 only.  The Gemma family's shapes: decode attention at head_dim 256 (G 2 and
@@ -787,11 +790,13 @@ def test_capture_keeps_static_inputs_a_step_reads_first(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["whisper_base", "zamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["whisper_base", "zamba2_2p7b",
+                                  "xlstm_1p3b"])
 def test_encdec_hybrid_captured_engine_tokens_equal_eager(arch, cuda, rng):
-    """whisper (over seeded frames) and zamba2 on the paged engine: the
-    capturing engine gives the eager engine's tokens with more requests
-    than slots (slot reuse from scrubbed state) and one-token chunks."""
+    """whisper (over seeded frames), zamba2 and xlstm on the paged engine:
+    the capturing engine gives the eager engine's tokens with more
+    requests than slots (slot reuse from scrubbed state) and one-token
+    chunks."""
     from repro_torch.models import build
     from repro_torch.models.params import init_params
     from repro_torch.serve.paged_engine import (PagedEngineConfig,
@@ -819,6 +824,107 @@ def test_encdec_hybrid_captured_engine_tokens_equal_eager(arch, cuda, rng):
         counts, bounds = eng.compile_counts(), eng.compile_shape_bounds()
         assert all(0 < counts[k] <= bounds[k] for k in bounds), counts
     assert out[None] == out[False]
+
+
+@pytest.mark.gpu
+def test_xlstm_replayed_chunk_and_step_bitwise_equal_eager(cuda, rng):
+    """xlstm's states are read before they are written: a prefill chunk
+    from the zero state, the next chunk from the state it left, and two
+    decode steps of 4 rows, replayed from their graphs, give the eager
+    calls' logits and states bitwise."""
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.graphs import GraphedEntry
+    cfg = _smoke("xlstm_1p3b")
+    model = build(cfg)
+    params = init_params(model.schema(), seed=0, device=cuda)
+    pool = torch.cuda.graph_pool_handle()
+    prefill = GraphedEntry(lambda t, v, p0: model.prefill_chunk(
+        params, {"tokens": t}, v, p0), capture=True, pool=pool)
+    decode = GraphedEntry(lambda t, v, p: model.decode_step(params, t, v, p),
+                          capture=True, pool=pool)
+    from repro_torch.models.params import tree_leaves
+    state = model.init_cache(1, 16, cuda)
+    tok, view, pos0 = prefill.inputs("p", lambda: (
+        torch.empty((1, 8), dtype=torch.int64, device=cuda),
+        _clone(state), torch.empty((), dtype=torch.int64, device=cuda)))
+    with torch.inference_mode():
+        for p0 in (0, 8):
+            t = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                              (1, 8))).to(cuda)
+            want, eager = model.prefill_chunk(params, {"tokens": t},
+                                              _clone(state), p0)
+            tok.copy_(t)
+            pos0.fill_(p0)
+            for (_, leaf), (_, src) in zip(tree_leaves(view),
+                                           tree_leaves(state)):
+                leaf.copy_(src)
+            got, got_state = prefill("p")
+            assert torch.equal(got, want), (got - want).abs().max()
+            assert _trees_equal(got_state, eager)
+            state = eager
+        axes = model.cache_axes()
+
+        def widen(v, bi):                 # the batch-1 state on 4 rows
+            shape = list(v.shape)
+            shape[bi] = 4
+            return v.expand(*shape).contiguous()
+
+        full = {k: {n: widen(v, axes[k][n].index("batch"))
+                    for n, v in leaves.items()}
+                for k, leaves in state.items()}
+        tok, view, pos = decode.inputs(8, lambda: (
+            torch.empty((4, 1), dtype=torch.int64, device=cuda),
+            _clone(full), torch.empty((4,), dtype=torch.int32,
+                                      device=cuda)))
+        for step in range(2):
+            t = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                              (4, 1))).to(cuda)
+            p = torch.full((4,), 16 + step, dtype=torch.int32, device=cuda)
+            want, eager = model.decode_step(params, t, _clone(full), p)
+            tok.copy_(t)
+            pos.copy_(p)
+            for (_, leaf), (_, src) in zip(tree_leaves(view),
+                                           tree_leaves(full)):
+                leaf.copy_(src)
+            got, got_state = decode(8)
+            assert torch.equal(got, want), (got - want).abs().max()
+            assert _trees_equal(got_state, eager)
+            full = eager
+    assert prefill.count == 1 and decode.count == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [300, 700])
+def test_decode_attention_over_a_wrapped_ring(start, cuda, rng):
+    """A ring of 256 slots holding positions start..start+255 at slots
+    pos % 256 (slot order is not position order), a window of 256: the
+    kernel within 1e-5 of its plain version, and of itself over the same
+    cells in position order."""
+    b, kh, g, d, n = 4, 8, 4, 80, 256
+    k = _randn(rng, (b, n, kh, d), cuda, 1.0)
+    v = _randn(rng, (b, n, kh, d), cuda, 1.0)
+    q = _randn(rng, (b, kh, g, d), cuda, 1.0) / d ** 0.5
+    ordered = torch.arange(start, start + n, dtype=torch.int32,
+                           device=cuda).repeat(b, 1)
+    slots = (ordered[0].long() % n)
+    ring_k, ring_v = torch.empty_like(k), torch.empty_like(v)
+    ring_pos = torch.empty_like(ordered)
+    ring_k[:, slots], ring_v[:, slots] = k, v
+    ring_pos[:, slots] = ordered
+    assert not torch.equal(ring_pos, ordered)
+    qp = torch.tensor([start + n - 1, start + n - 1, start + 200,
+                       start + n - 30], dtype=torch.int32, device=cuda)
+    for kk, vv, pp in ((ring_k, ring_v, ring_pos), (k, v, ordered)):
+        kc, ks = tattn.quantize_kv(kk)
+        vc, vs = tattn.quantize_kv(vv)
+        args = (q, kc, ks, vc, vs, pp, qp, n)
+        got = tattn.bp8_decode_attention(*args)
+        torch.testing.assert_close(
+            got, tattn.bp8_decode_attention_ref(*args), rtol=0, atol=1e-5)
+        if pp is ring_pos:
+            ring_out = got
+    torch.testing.assert_close(ring_out, got, rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu

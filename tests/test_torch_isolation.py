@@ -25,12 +25,12 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        # the encoder-decoder and the hybrid, built and run on the CPU
+        # the encoder-decoder, the hybrid and xlstm, built and run on the CPU
         "import torch\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build\n"
         "from repro_torch.models.params import init_params\n"
-        "for a in ('whisper_base', 'zamba2_2p7b'):\n"
+        "for a in ('whisper_base', 'zamba2_2p7b', 'xlstm_1p3b'):\n"
         "    cfg = get_config(a, smoke=True)\n"
         "    m = build(cfg)\n"
         "    p = init_params(m.schema(), seed=0, device='cpu')\n"
@@ -160,6 +160,21 @@ def test_cli_serves_encdec_and_hybrid_on_cpu(arch, capsys):
         assert sorted(out) == [0, 1, 2]
         assert all(len(v) == 3 for v in out.values())
     assert "-smoke on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_xlstm_on_cpu(capsys):
+    """Each request ends at its 3 new tokens or at the EOS id (1), which
+    the smoke model's seeded weights emit for one request on the
+    lock-step engine."""
+    from repro_torch.launch import serve as cli
+    for paged in (["--paged"], []):
+        out = cli.main(["--arch", "xlstm_1p3b", "--device", "cpu",
+                        "--requests", "3", "--max-new", "3"] + paged)
+        assert sorted(out) == [0, 1, 2]
+        for v in out.values():
+            assert 1 not in v[:-1]
+            assert len(v) == 3 or (len(v) < 3 and v[-1] == 1)
+    assert "xlstm-smoke on cpu" in capsys.readouterr().out
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

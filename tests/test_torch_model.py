@@ -360,4 +360,4 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown matmul mode"):
         tlayers.dense(x, torch.zeros(64, 8), "int4")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("xlstm_1p3b")
+        get_config("mamba_2p8b")        # an arch neither package has
