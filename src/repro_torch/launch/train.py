@@ -3,12 +3,16 @@
   python -m repro_torch.launch.train --steps 100 --ckpt-dir /tmp/ckpt
   python -m repro_torch.launch.train --full-config --steps 4
   python -m repro_torch.launch.train --device cpu --matmul-mode bp8
+  python -m repro_torch.launch.train --arch xlstm_1p3b --device cpu
 
 Flags follow the reference CLI (``repro.launch.train``), the
 ``--matmul-mode`` choices too, plus ``--device`` (default ``cuda``;
 without CUDA the run stops unless ``--device cpu`` is given).
 ``--model-shards`` above 1 needs the port's distributed layer and
-raises.
+raises.  Every arch trains from the data pipeline but whisper
+(``whisper_base``), whose loss needs frame embeddings the pipeline does
+not make: it fails at the first step with the loss's ``KeyError``, as
+the reference's launcher does.
 """
 from __future__ import annotations
 

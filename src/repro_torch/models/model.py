@@ -1,10 +1,10 @@
-"""The model families' serving entry points, and the decoder's training
-loss (the other families do not train yet): ``DecoderModel`` (the
-decoders), ``EncDecModel`` (whisper: an encoder over stub frame
-embeddings, a causal decoder with cross attention), ``HybridModel``
-(zamba2: a Mamba2 backbone with one shared attention block every
-``attn_every`` layers, per-group LoRA) and ``XLSTMModel`` (xlstm:
-groups of mLSTM blocks closed by one sLSTM block, recurrent state only).
+"""The model families' serving entry points and training losses:
+``DecoderModel`` (the decoders), ``EncDecModel`` (whisper: an encoder
+over stub frame embeddings, a causal decoder with cross attention),
+``HybridModel`` (zamba2: a Mamba2 backbone with one shared attention
+block every ``attn_every`` layers, per-group LoRA) and ``XLSTMModel``
+(xlstm: groups of mLSTM blocks closed by one sLSTM block, recurrent
+state only).
 
 Functional like the reference: parameters are a nested dict of tensors
 (layer parameters stacked on a leading ``L`` axis) passed to every call,
@@ -12,7 +12,10 @@ and a Python loop over the layers takes the place of ``lax.scan``.
 Caches are nested dicts of stacked tensors, updated in place layer by
 layer.  The model runs wherever its parameters live; the three serving
 entry points run under ``torch.inference_mode()``, and ``loss`` under
-autograd, each layer recomputed in the backward when ``cfg.remat``.
+autograd, with the reference's recomputation when ``cfg.remat``: each
+decoder layer, each whisper decoder layer (not its encoder layers), each
+zamba2 Mamba2 layer (not the shared block) and each xlstm mLSTM block
+(not the sLSTM block) is run again in the backward.
 """
 from __future__ import annotations
 
@@ -102,9 +105,40 @@ def _stacked(spec: Dict[str, tuple], *lead: int) -> Dict[str, tuple]:
             for k, (shape, dtype) in spec.items()}
 
 
+def _unstacked(stacked, n: int):
+    """The ``n`` layers of a stacked tree, each a tree of views: one
+    ``unbind`` a leaf, so that under autograd the layers' gradients are
+    stacked in one pass (indexing layer by layer would add each into a
+    zero tensor of the whole stack)."""
+    parts = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def _xent_loss(h, embed, batch):
+    """The reference's tied-embedding loss of the encoder-decoder, hybrid
+    and xlstm families: mean next-token cross-entropy over the mask (all
+    ones without ``loss_mask``); returns (loss, {"loss"})."""
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    total, denom = chunked_softmax_xent(h, embed, labels, mask)
+    loss = total / torch.clamp_min(denom, 1.0)
+    return loss, {"loss": loss}
+
+
+def _run_layer(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` in a training forward: recomputed in the backward
+    when ``cfg.remat`` (the reference's ``jax.checkpoint``)."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class _TiedLogits:
-    """``_logits``: f32 logits against the tied embedding (whisper and
-    zamba2 always tie it)."""
+    """``_logits``: f32 logits against the tied embedding (whisper, zamba2
+    and xlstm always tie it)."""
 
     def _logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., V)."""
@@ -196,18 +230,10 @@ class DecoderModel:
 
         i0 = 0
         for name, n in self._stacks():
-            # one view per layer; under autograd, unbind's backward stacks
-            # the layers' gradients in one pass
-            layers = tree_map(lambda t: t.unbind(0), params[name])
-            for i in range(n):
-                lp = tree_map(lambda t: t[i], layers)
+            for i, lp in enumerate(_unstacked(params[name], n)):
                 window = int(windows[i0 + i])
                 if mode == "train":
-                    if cfg.remat:
-                        x, aux = checkpoint(layer_fn, x, lp, window,
-                                            use_reentrant=False)
-                    else:
-                        x, aux = layer_fn(x, lp, window)
+                    x, aux = _run_layer(cfg, layer_fn, x, lp, window)
                 else:
                     lc = (None if caches is None else
                           {k: v[i] for k, v in caches[name].items()})
@@ -406,8 +432,7 @@ class EncDecModel(_TiedLogits):
         cfg = self.cfg
         x = frames.to(torch.bfloat16) + params["enc_pos_embed"][None]
         positions = attn._frame_positions(x.shape[0], x.shape[1], x.device)
-        for i in range(cfg.encoder_layers):
-            lp = _layer(params["enc_layers"], i)
+        for lp in _unstacked(params["enc_layers"], cfg.encoder_layers):
             h = _ln(x, lp["ln1"], cfg.norm_eps)
             a, _ = attn.gqa_apply(lp["attn"], cfg, h, positions, window=None,
                                   causal=False, rope=False)
@@ -419,11 +444,13 @@ class EncDecModel(_TiedLogits):
     def _decode_stack(self, params, x, positions, enc_out, cache, mode):
         """The decoder layers.  With ``enc_out`` each layer projects its
         cross K/V from it (and stores them in ``cache`` if there is one);
-        without, it reads them from ``cache``."""
+        without, it reads them from ``cache``.  ``mode == "train"`` (no
+        cache) recomputes each layer, the cross K/V projections included,
+        in the backward when ``cfg.remat``."""
         cfg = self.cfg
         b, kh, hd = x.shape[0], cfg.num_kv_heads, cfg.head_dim
-        for i in range(cfg.num_layers):
-            lp = _layer(params["dec_layers"], i)
+
+        def layer(x, lp, enc_out, i):
             lc = None if cache is None else _layer(cache["self"], i)
             h = _ln(x, lp["ln1"], cfg.norm_eps)
             a, _ = attn.gqa_apply(lp["self_attn"], cfg, h, positions,
@@ -446,8 +473,36 @@ class EncDecModel(_TiedLogits):
                                   window=None, cross_kv=(ck, cv), rope=False)
             x = x + a
             h = _ln(x, lp["ln2"], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, "gelu", False, cfg.matmul_mode)
+            return x + mlp_apply(lp["mlp"], h, "gelu", False,
+                                 cfg.matmul_mode)
+
+        for i, lp in enumerate(_unstacked(params["dec_layers"],
+                                          cfg.num_layers)):
+            x = (_run_layer(cfg, layer, x, lp, enc_out, i)
+                 if mode == "train" else layer(x, lp, enc_out, i))
         return _ln(x, params["dec_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of the decoder over ``batch``
+        ("frames" (B, F, d_model), "tokens" and "labels" (B, S), optional
+        "loss_mask"); returns (loss, metrics).  The encoder runs once (not
+        recomputed, as the reference's encoder scan has no checkpoint);
+        each decoder layer projects its cross K/V from its output."""
+        if "frames" not in batch:
+            raise KeyError(
+                f"frames: {self.cfg.name}'s loss needs the batch's frame "
+                f"embeddings (B, {self.cfg.encoder_frames}, "
+                f"{self.cfg.d_model}), as the reference's does; the data "
+                f"pipeline's batches (batch_at) carry none: "
+                f"launch.inputs.demo_batch makes a batch with them")
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed_lookup(params["embed"], tokens) + \
+            params["pos_embed"][None, :s]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h = self._decode_stack(params, x, positions, enc_out, None, "train")
+        return _xent_loss(h, params["embed"], batch)
 
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
@@ -565,33 +620,54 @@ class HybridModel(_TiedLogits):
         return _init_cache(self.cache_spec(batch, length), device)
 
     def _forward(self, params, x, positions, cache, mode):
+        """The groups in turn.  ``mode == "train"`` (no cache) recomputes
+        each Mamba2 layer in the backward when ``cfg.remat``, as the
+        reference checkpoints its Mamba2 scan body; the shared block is
+        not recomputed."""
         cfg = self.cfg
         n_groups, per = self._group_dims()
         shared = params["shared"]
-        for g in range(n_groups):
-            for j in range(per):
-                mp = tree_map(lambda t: t[g, j], params["mamba"])
-                state = (None if cache is None else
-                         {k: v[g, j] for k, v in cache["mamba"].items()})
-                h = rms_norm(x, mp["ln"], cfg.norm_eps)
-                y, new = ssm_mod.mamba2_apply(mp["block"], cfg, h,
-                                              state=state)
-                if state is not None:       # the states, in place
-                    for k, v in new.items():
-                        state[k].copy_(v)
-                x = x + y
+
+        def mamba(x, mp, state):
+            h = rms_norm(x, mp["ln"], cfg.norm_eps)
+            y, new = ssm_mod.mamba2_apply(mp["block"], cfg, h, state=state)
+            if state is not None:           # the states, in place
+                for k, v in new.items():
+                    state[k].copy_(v)
+            return x + y
+
+        loras = _unstacked(params["lora"], n_groups)
+        for g, gp in enumerate(_unstacked(params["mamba"], n_groups)):
+            for j, mp in enumerate(_unstacked(gp, per)):
+                if mode == "train":
+                    x = _run_layer(cfg, mamba, x, mp, None)
+                    continue
+                x = mamba(x, mp, None if cache is None else
+                          {k: v[g, j] for k, v in cache["mamba"].items()})
             h = rms_norm(x, shared["ln1"], cfg.norm_eps)
             ac = None if cache is None else _layer(cache["attn"], g)
             a, _ = attn.gqa_apply(shared["attn"], cfg, h, positions,
                                   window=None, cache=ac,
                                   append=mode == "prefill_chunk")
-            lora = _layer(params["lora"], g)
+            lora = loras[g]
             a = a + dense(dense(h, lora["a_q"], "bf16"), lora["b_q"], "bf16")
             x = x + a
             h = rms_norm(x, shared["ln2"], cfg.norm_eps)
             x = x + mlp_apply(shared["mlp"], h, cfg.act, True,
                               cfg.matmul_mode)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy over ``batch`` ("tokens" and
+        "labels" (B, S), optional "loss_mask"): the Mamba2 layers from
+        the zero state, the shared attention full causal over S; returns
+        (loss, metrics)."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed_lookup(params["embed"], tokens)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h = self._forward(params, x, positions, None, "train")
+        return _xent_loss(h, params["embed"], batch)
 
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
@@ -691,9 +767,13 @@ class XLSTMModel(_TiedLogits):
         """The zero state (every leaf is f32)."""
         return _init_cache(self.cache_spec(batch, length), device)
 
-    def _forward(self, params, x, cache):
+    def _forward(self, params, x, cache, train=False):
         """The groups in turn; the states are read from ``cache`` and
-        written back into it in place (None: from the fresh start)."""
+        written back into it in place (None: from the reference's fresh
+        start, m = -1e30 and n = 1).  ``train`` (no cache) recomputes
+        each mLSTM block in the backward when ``cfg.remat``, as the
+        reference checkpoints its mLSTM scan body; the sLSTM block is not
+        recomputed."""
         cfg = self.cfg
         n_groups, per = self._group_dims()
 
@@ -705,20 +785,28 @@ class XLSTMModel(_TiedLogits):
                     state[k].copy_(v)
             return x + y
 
-        for g in range(n_groups):
-            for j in range(per - 1):
-                x = block(ssm_mod.mlstm_apply,
-                          tree_map(lambda t: t[g, j], params["mlstm"]), x,
+        slstm = _unstacked(params["slstm"], n_groups)
+        for g, gp in enumerate(_unstacked(params["mlstm"], n_groups)):
+            for j, mp in enumerate(_unstacked(gp, per - 1)):
+                if train:
+                    x = _run_layer(cfg, block, ssm_mod.mlstm_apply, mp, x,
+                                   None)
+                    continue
+                x = block(ssm_mod.mlstm_apply, mp, x,
                           None if cache is None else
                           {k: v[g, j] for k, v in cache["mlstm"].items()})
-            x = block(ssm_mod.slstm_apply, _layer(params["slstm"], g), x,
+            x = block(ssm_mod.slstm_apply, slstm[g], x,
                       None if cache is None else _layer(cache["slstm"], g))
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            f"training {self.cfg.name} (xlstm) waits for ROADMAP Queue 1 "
-            f"item 8")
+        """Mean next-token cross-entropy over ``batch`` ("tokens" and
+        "labels" (B, S), optional "loss_mask"), every block from the
+        reference's fresh start (not the prefill's zero state); returns
+        (loss, metrics)."""
+        x = embed_lookup(params["embed"], batch["tokens"])
+        h = self._forward(params, x, None, train=True)
+        return _xent_loss(h, params["embed"], batch)
 
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):

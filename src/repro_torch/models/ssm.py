@@ -60,8 +60,10 @@ def mamba2_defs(cfg: ModelConfig, dtype=torch.bfloat16):
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) +
-    log1p(exp(-|x|))."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    log1p(exp(-|x|)), and its gradient ``exp(x - out)``: 0.5 at x = 0,
+    where a BP matmul's output often lands (the same expression written
+    out would pass 1 there, ``clamp_min``'s and ``abs``' subgradients)."""
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def _ssd_chunked(x, dt, a, b, c, chunk: int, h0=None, decay_bf16=False):
@@ -385,16 +387,30 @@ def slstm_apply(p, cfg: ModelConfig, x: torch.Tensor,
     r = p["r"].to(torch.float32)
 
     if state is None:
-        c = torch.zeros((bs, h, hd), dtype=torch.float32, device=x.device)
-        n = torch.ones((bs, h, hd), dtype=torch.float32, device=x.device)
-        hprev = torch.zeros((bs, h, hd), dtype=torch.float32,
-                            device=x.device)
-        m = torch.zeros((bs, h), dtype=torch.float32, device=x.device)
+        start = {"c": torch.zeros((bs, h, hd), dtype=torch.float32,
+                                  device=x.device),
+                 "n": torch.ones((bs, h, hd), dtype=torch.float32,
+                                 device=x.device),
+                 "h": torch.zeros((bs, h, hd), dtype=torch.float32,
+                                  device=x.device),
+                 "m": torch.zeros((bs, h), dtype=torch.float32,
+                                  device=x.device)}
     else:
-        c, n, hprev, m = state["c"], state["n"], state["h"], state["m"]
+        start = state
+    y, last = _slstm_scan(gx, r, start)
+    y = rms_norm(y.reshape(bs, s, d).to(x.dtype), p["norm"], cfg.norm_eps)
+    out = dense(y, p["wo_proj"], cfg.matmul_mode)
+    return out, (last if state is not None else None)
 
+
+def _slstm_scan(gx: torch.Tensor, r: torch.Tensor, state: Dict):
+    """The sLSTM recurrence over time (the reference's ``lax.scan``): gx
+    (B,S,4,H,hd) the input gates' pre-activations, r (4,H,hd,hd) f32,
+    ``state`` {'c','n','h','m'}.  Returns (h of every step (B,S,H,hd),
+    the last state)."""
+    c, n, hprev, m = state["c"], state["n"], state["h"], state["m"]
     ys = []
-    for t in range(s):              # the reference's lax.scan over time
+    for t in range(gx.shape[1]):
         rec = torch.einsum("ghde,bhd->bghe", r, hprev)     # (B,4,H,hd)
         gi, gf, gz, go = (gx[:, t, i] + rec[:, i] for i in range(4))
         log_i = gi.mean(-1)                        # head-wise stabiliser
@@ -409,12 +425,7 @@ def slstm_apply(p, cfg: ModelConfig, x: torch.Tensor,
         hprev = o * c / torch.clamp_min(n.abs(), 1.0)
         m = m_new
         ys.append(hprev)
-    y = torch.stack(ys, dim=1).reshape(bs, s, d)
-    y = rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
-    out = dense(y, p["wo_proj"], cfg.matmul_mode)
-    new_state = ({"c": c, "n": n, "h": hprev, "m": m}
-                 if state is not None else None)
-    return out, new_state
+    return torch.stack(ys, dim=1), {"c": c, "n": n, "h": hprev, "m": m}
 
 
 def slstm_state_spec(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:

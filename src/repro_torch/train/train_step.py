@@ -34,15 +34,6 @@ from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
 NEEDS_DIST = "needs the port's distributed layer (ROADMAP Queue 1 item 5)"
 
 
-def require_trainable(cfg: ModelConfig) -> None:
-    """Refuse the families the port serves but does not train yet: their
-    ``loss`` waits for its own parity tests against ``jax.grad``."""
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) waits for ROADMAP Queue 1 "
-            f"item 8")
-
-
 def bubble_fraction(num_stages: int, num_microbatches: int) -> float:
     """Idle fraction of the pipeline: (S - 1) / (M + S - 1)."""
     if num_stages <= 1:
@@ -144,9 +135,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan,
                     mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
     holds tensors on the state's device; ``state`` is {"params", "opt"}.
-    Without a mesh only: a mesh or a pipelined plan waits for ``dist/``;
-    the encoder-decoder, hybrid and xlstm families wait for their loss."""
-    require_trainable(model.cfg)
+    Every family trains (whisper's batches carry "frames", which the
+    split into micro-batches cuts along the batch as every leaf).
+    Without a mesh only: a mesh or a pipelined plan waits for ``dist/``."""
     if mesh is not None:
         raise NotImplementedError(f"training on a mesh {NEEDS_DIST}")
     if plan.pipeline_stages > 1:

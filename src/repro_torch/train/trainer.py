@@ -36,7 +36,6 @@ from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                  StragglerMonitor)
 from repro_torch.serve.sampling import seed_key
 from repro_torch.train.train_step import (NEEDS_DIST, TrainPlan, init_state,
-                                          require_trainable,
                                           make_train_step)
 
 @dataclasses.dataclass
@@ -74,10 +73,10 @@ def train(model, cfg: ModelConfig, shape: ShapeConfig,
 
     ``device`` defaults to ``"cuda"`` and raises without CUDA unless
     ``"cpu"`` is asked for.  A ``mesh`` raises: sharded training waits
-    for the port's ``dist/``; so do the families without a ported loss
-    (encoder-decoder, hybrid).
+    for the port's ``dist/``.  The data pipeline's batches carry tokens
+    only, so whisper's loss raises its ``KeyError`` for the missing
+    "frames" at the first step, as the reference's trainer fails.
     """
-    require_trainable(cfg)
     if mesh is not None:
         raise NotImplementedError(f"training on a mesh {NEEDS_DIST}")
     dev = resolve_device(device)

@@ -36,6 +36,10 @@ gradients (f32 within 1e-5 of the largest, the MLP's 1e-4; bf16 within
 one bf16 ulp); one train step of the 2-layer smoke model gives the CPU's
 loss within 1e-4, its gradients (AdamW's first moments) with a cosine of
 at least 0.999 and its new params within 2.5 learning rates and an ulp.
+The trained families (whisper, zamba2, xlstm): absmax and the matmul
+bitwise at their training projections, zamba2's silu MLP within 1e-5,
+and one smoke train step each on the card against the CPU (the loss
+within 1e-3, the same moment and param rules).
 """
 import numpy as np
 import pytest
@@ -1133,3 +1137,91 @@ def test_train_step_on_card_matches_cpu(cuda):
                          - bits)
         assert ((a.cpu().float() - b).abs() <= 2.5 * lr + ulp).all()
 
+
+
+#: (M, K, N) of one forward layer of each family at the launcher's 8 x 128
+#: training tokens (whisper's cross K/V and encoder at one clip's 1500
+#: frames): whisper-base's decoder and encoder projections, zamba2-2.7b's
+#: ``in_proj``, ``out_proj``, shared attention and MLP down, xlstm-1.3b's
+#: ``up``, ``down``, ``wx`` and ``wo_proj``
+FAMILY_TRAIN_SHAPES = {
+    "whisper_base": [(1024, 512, 512), (1500, 512, 512), (1024, 512, 2048),
+                     (1024, 2048, 512), (1500, 2048, 512)],
+    "zamba2_2p7b": [(1024, 2560, 10448), (1024, 5120, 2560),
+                    (1024, 2560, 2560), (1024, 10240, 2560)],
+    "xlstm_1p3b": [(1024, 2048, 5504), (1024, 2752, 2048),
+                   (1024, 2048, 8192), (1024, 2048, 2048)]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(FAMILY_TRAIN_SHAPES))
+def test_train_kernels_at_family_shapes(arch, cuda, rng):
+    """absmax and the fused matmul bitwise their plain versions at the
+    three trained families' projections (bf16 weights, as held); zamba2's
+    silu MLP 2560 -> 10240 at 1024 rows within 1e-5."""
+    for m, k, n in FAMILY_TRAIN_SHAPES[arch]:
+        x = _randn(rng, (m, k), cuda)
+        w = (_randn(rng, (k, n), cuda) * k ** -0.5).to(torch.bfloat16)
+        sx, sy = tfused.absmax(x, TINY), tfused.absmax(w, TINY)
+        assert torch.equal(sx, tref.absmax_ref(x, TINY))
+        assert torch.equal(sy, tref.absmax_ref(w, TINY))
+        assert torch.equal(tfused.fused_bp_matmul(x, w, sx, sy),
+                           tref.fused_matmul_ref(x, w, sx, sy)), (m, k, n)
+    if arch == "zamba2_2p7b":
+        x = _randn(rng, (1024, 2560), cuda)
+        up, gate = ((_randn(rng, (2560, 10240), cuda) * 2560 ** -0.5)
+                    .to(torch.bfloat16) for _ in range(2))
+        sc = [tfused.absmax(t, TINY) for t in (x, up, gate)]
+        got = tfused.fused_mlp(x, up, gate, *sc, "silu")
+        want = tref.fused_mlp_ref(x, up, gate, "silu", *sc)
+        assert ((got - want).abs().max()
+                <= 1e-5 * want.abs().max().clamp_min(1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_base", "zamba2_2p7b",
+                                  "xlstm_1p3b"])
+def test_family_train_step_on_card_matches_cpu(arch, cuda):
+    """One ``bp8_fused`` train step of the smoke model over ``demo_batch``
+    (4 x 32 tokens; whisper's frames) on the card against the CPU's plain
+    path: the loss within 1e-3 (the tied std-1 embedding's losses are
+    ~30, five times the danube smoke's), AdamW's first moments with a
+    cosine of at least 0.999 a leaf (a leaf without gradient, zamba2's
+    LoRA ``a_q`` while ``b_q`` is 0, zero on both), and the new params
+    within 2.5 learning rates and one ulp of their dtype."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.inputs import demo_batch
+    from repro_torch.models import build
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim.optimizer import OptimizerConfig, lr_at
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              matmul_mode="bp8_fused")
+    model = build(cfg)
+    opt = OptimizerConfig(learning_rate=3e-3, warmup_steps=5, total_steps=8)
+    step = make_train_step(model, opt, TrainPlan(1, 4))
+    batch = demo_batch(cfg, ShapeConfig("t", "train", 32, 4), device="cpu")
+    cpu = init_state(model, 0, opt, "cpu")
+    new_c, mc = step(cpu, batch)
+    new_g, mg = step(tree_map(lambda t: t.to(cuda), cpu),
+                     {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-3
+    for (path, a), (_, b) in zip(tree_leaves(new_g["opt"]["m"]),
+                                 tree_leaves(new_c["opt"]["m"])):
+        a = a.cpu().float()
+        if float(b.abs().max()) == 0.0:
+            assert float(a.abs().max()) == 0.0, path
+            continue
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        assert cos >= 0.999, (path, cos)
+    lr = float(lr_at(opt, torch.tensor(1)))
+    for (path, a), (_, b) in zip(tree_leaves(new_g["params"]),
+                                 tree_leaves(new_c["params"])):
+        bits = 7 if b.dtype == torch.bfloat16 else 23
+        b = b.float()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30)))
+                         - bits)
+        assert ((a.cpu().float() - b).abs() <= 2.5 * lr + ulp).all(), path

@@ -356,7 +356,7 @@ def test_engines_match_reference(arch, mode, kvq, tol):
 
 # ---------------------------------------------------------------------------
 # the port alone: chunked == one-shot prefill, slot reuse scrubbed, the
-# paged cache's dense leaves, the training refusal
+# paged cache's dense leaves, training
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -456,14 +456,33 @@ def test_paged_cache_dense_leaves():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_refuses_encdec_and_hybrid(arch):
+def test_training_runs_encdec_and_hybrid(arch):
+    """Both families train (``tests/test_torch_train_families.py`` holds
+    them to the reference): a step over ``demo_batch`` moves the
+    params; ``train`` trains zamba2 from the data pipeline, and fails
+    for whisper, whose pipeline batches carry no frames, as the
+    reference's does."""
+    import math
+    from repro_torch.launch.inputs import demo_batch
     from repro_torch.optim.optimizer import OptimizerConfig
-    from repro_torch.train.train_step import TrainPlan, make_train_step
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
     from repro_torch.train.trainer import TrainerConfig, train
     cfg = get_config(arch, smoke=True)
     model = build(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        make_train_step(model, OptimizerConfig(), TrainPlan(1, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train(model, cfg, ShapeConfig("t", "train", 8, 1),
-              TrainerConfig(total_steps=1), device="cpu")
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=0, total_steps=2)
+    shape = ShapeConfig("t", "train", 8, 2)
+    state = init_state(model, 0, opt, "cpu")
+    new, m = make_train_step(model, opt, TrainPlan(1, 2))(
+        state, demo_batch(cfg, shape, device="cpu"))
+    assert math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    assert not torch.equal(new["params"]["embed"], state["params"]["embed"])
+    if cfg.family == "encdec":
+        with pytest.raises(KeyError, match="frames"):
+            train(model, cfg, shape, TrainerConfig(total_steps=1),
+                  device="cpu")
+        return
+    _, hist = train(model, cfg, shape, TrainerConfig(total_steps=1),
+                    device="cpu")
+    assert [h["step"] for h in hist] == [1]
+    assert math.isfinite(hist[0]["loss"])

@@ -564,16 +564,30 @@ def test_paged_cache_holds_only_dense_leaves():
     assert te.compile_shape_bounds() == je.compile_shape_bounds()
 
 
-def test_training_refuses_xlstm():
+def test_training_runs_xlstm():
+    """xlstm trains (``tests/test_torch_train_families.py`` holds it to
+    the reference): ``loss`` from the reference's fresh start, a step
+    over ``demo_batch`` that moves the params, and ``train`` from the
+    data pipeline."""
+    import math
+    from repro_torch.launch.inputs import demo_batch
     from repro_torch.optim.optimizer import OptimizerConfig
-    from repro_torch.train.train_step import TrainPlan, make_train_step
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
     from repro_torch.train.trainer import TrainerConfig, train
     cfg = get_config(ARCH, smoke=True)
     model = build(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        make_train_step(model, OptimizerConfig(), TrainPlan(1, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train(model, cfg, ShapeConfig("t", "train", 8, 1),
-              TrainerConfig(total_steps=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        model.loss({}, {})
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=0, total_steps=2)
+    shape = ShapeConfig("t", "train", 8, 2)
+    state = init_state(model, 0, opt, "cpu")
+    batch = demo_batch(cfg, shape, device="cpu")
+    with torch.no_grad():
+        loss, metrics = model.loss(state["params"], batch)
+    assert sorted(metrics) == ["loss"] and math.isfinite(float(loss))
+    new, m = make_train_step(model, opt, TrainPlan(1, 2))(state, batch)
+    assert float(m["loss"]) == float(loss) and float(m["grad_norm"]) > 0
+    assert not torch.equal(new["params"]["embed"], state["params"]["embed"])
+    _, hist = train(model, cfg, shape, TrainerConfig(total_steps=1),
+                    device="cpu")
+    assert [h["step"] for h in hist] == [1]
+    assert math.isfinite(hist[0]["loss"])
