@@ -41,7 +41,7 @@ prints its wall time):
    redesigned kernels' times print beside the earlier designs'
    (EARLIER_MS), and the build's ptxas registers and spills beside their
    dynamic shared memory.
-3. Card vs CPU: h2o-danube at full width, 2 layers, the same seeded
+3. Card vs CPU: h2o-danube at full width, 1 layer, the same seeded
    weights on both devices, 3 prompts, 8 greedy tokens each through the
    paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
    cache); the card's path captured (the engine's default), the card's
@@ -87,8 +87,8 @@ prints its wall time):
    of 32-200 tokens, 16 new tokens, seed 7, T 0.8) through the capturing
    paged engine and through the lock-step engine serving each alone
    (max_len 512, one decode graph, its launches counted): tokens/s of
-   both, the lock-step decode replayed bitwise equal to eager, and at 2
-   layers the card's tokens equal to the CPU's on both engines; a
+   both, the lock-step decode replayed bitwise equal to eager, and at 1
+   layer the card's tokens equal to the CPU's on both engines; a
    captured profile at T 0.8 (``paged.sample``'s share); ``run_traffic``
    (32 requests, offered load 0.2) on a capturing paged engine with a
    registry, a tracer and a watchdog: the record, tokens/s, the watchdog
@@ -101,7 +101,7 @@ prints its wall time):
    at the training path's rows (M 1024 = 8 x 128 tokens, and a ragged
    1000) and every projection shape of the full model against their
    plain versions (bitwise; the MLP within 1e-5), one layer's forward
-   timed beside its bound; one train step at full width and 2 layers on
+   timed beside its bound; one train step at full width and 1 layer on
    the card against the CPU from the same seeded state (2 x 32 tokens:
    the loss within 1e-3, the grad norm within 1e-2 relative, each leaf's
    gradient through AdamW's first moment within 5e-2 of its max with a
@@ -138,10 +138,10 @@ prints its wall time):
    matmul bitwise at every projection (K up to 16384, N down to 256) at M
    4 and 64; the gelu MLP within 1e-5; absmax bitwise on the largest
    weights; the ptxas registers and shared memory of the four.  (b) Card
-   vs CPU: gemma3 at full width and 2 layers (``reduced``; its window
+   vs CPU: gemma3 at full width and 1 layer (``reduced``; its window
    does not cut at these prompts) on the
    paged engine (prompts of 64 and 128 tokens, 4 greedy tokens), and
-   paligemma at full width and 2 layers on the lock-step engine (256 zero
+   paligemma at full width and 1 layer on the lock-step engine (256 zero
    patch tokens, prompts of 20 and 48, 6 tokens): card captured, card
    eager and CPU tokens equal.  (c) The full 48-layer gemma3-12b, seeded
    on the card (init time and peak printed), on ``PagedServeEngine`` (4
@@ -164,8 +164,9 @@ prints its wall time):
    projections) at M 4 and 64; absmax bitwise on their weights; the silu
    MLP at 5120 -> 12288 and 2560 -> 6400 within 1e-5; decode attention
    at D 64, KH 8, G 2 within 1e-5 (S 1-4096, full and a 1024 window).
-   (b) Card vs CPU: the three archs at full width and 2 layers
-   (deepseek: its dense first layer and one MoE layer) on the paged
+   (b) Card vs CPU: the three archs at full width, granite-moe and
+   minicpm3 at 1 layer, deepseek at 2 (its dense first layer and one MoE
+   layer) on the paged
    engine, prompts of 32 and 64 tokens (one chunk), 4 greedy tokens (3
    for deepseek): card captured, card eager and CPU tokens equal; where
    they part, the step, the CPU's top-2 logit margin and the largest
@@ -227,7 +228,7 @@ prints its wall time):
    the ordered cells, timed; rows 1-3 of the ring path are phase 2's (the
    same h2o-danube shapes).  (b) Card vs CPU: xlstm at full width and 8
    layers (one group; ``reduced``) on both engines, prompts of 32 and 64,
-   4 greedy tokens; h2o-danube at full width, 2 layers and a ring of 64
+   4 greedy tokens; h2o-danube at full width, 1 layer and a ring of 64
    on the lock-step engine, prompts of 100 and 150, 12 tokens, max_len
    256: card captured, card eager and CPU tokens equal.  (c) The full
    xlstm-1.3b on ``PagedServeEngine`` as phase 4 serves h2o-danube:
@@ -264,7 +265,7 @@ prints its wall time):
    output gradient), failing if an op the step must reach was never
    replayed; phase 8's whole-step rules (``compare_train_step``, the
    loss within 1e-5 of it) gate every step.  whisper at 1 + 1 layers
-   and zamba2's group meet them against the plain CPU; whisper whole
+   and zamba2's group meet them against the plain CPU; whisper at 3 + 3
    and xlstm's group against the CPU following the card's forward layer
    by layer (``card_layers``: each layer's output swapped for the
    card's on the same inputs, which must agree within ``FOLLOW_TOL``),
@@ -282,6 +283,36 @@ prints its wall time):
    seed; step seconds, training tokens/s, peak memory, and a profile of
    one more step by the step's ``train.*`` ranges.
 
+14. The distributed layer (``dist/``, ``launch/mesh.py``): (a) absmax and
+   the fused matmul bitwise, the fused MLP within 1e-5, of their plain
+   versions at a TP-2 rank's shard shapes of h2o-danube-1.8b (wq 2560 ->
+   1280, wk/wv 2560 -> 320, wo 1280 -> 2560 and down 3456 -> 2560
+   row-parallel, up/gate 2560 -> 3456) at 256 rows (8 x 128 tokens in
+   ``TrainPlan.for_shape``'s 4 microbatches), timed beside their bound;
+   (b) 8 ranks started here (``launch_ranks``, gloo): 4 processes on
+   cuda:0 and their 4 twins on the CPU.  At full width and 2 layers (2 x
+   32 tokens), the pipelined step (stage 2, GPipe and 1F1B, bf16), the
+   data-parallel one (data 2) and the stage-free TP one (model 2; both
+   bp8_fused) and TP inside 2 stages (bf16, 4 layers) against the
+   single-process card step, with f32 weights gated (the loss within
+   1e-5 relative, every leaf's gradient within 1e-4 of its largest: for
+   the stage-free steps, the reduced scales) and with bf16 weights
+   reported (the loss, every leaf's cosine); and one ``bp8_fused`` train
+   step of h2o-danube, granite-moe-1b (experts over 2) and minicpm3-4b
+   (MLA heads over 2) at 2 layers on (stage 2, model 2) against the same
+   mesh on the CPU twins (each card rank's pieces sent to its twin, phase
+   13(b)'s whole-step rules on their sums); which transport each op
+   used, and the world's timeline; (c)
+   h2o-danube-1.8b whole (24 layers) on (stage 2, data 1, model 2)
+   through ``trainer.train(mesh=)``, 3 steps of 8 x 128 tokens, lr 3e-5:
+   step times, tokens/s, each rank's peak and their sum, each rank's
+   share of the steps spent waiting in sends, receives and all-reduces,
+   each stage's idle share against the plan's bubble, each rank's
+   launches of rows 1-3 (counted from just before to just after), every
+   piece moved, finite grad norms above 0; its checkpoint (whole leaves,
+   bf16 moments, written by rank 0) restored in this process without a
+   mesh, every rank's pieces bitwise, and ``train()`` continuing from it.
+
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
 1024; rows 1-4 also on the Gemma paths, timed at their decode shapes;
@@ -291,7 +322,9 @@ matmul and the MLP on deepseek-v2's, timed at their decode shapes; rows
 at their decode shapes; rows 1-2 on xlstm-1.3b's path, timed at its
 decode shapes, and rows 1-4 on the ring path, row 4 timed over the
 wrapped ring; rows 1-2 on whisper-base's and xlstm-1.3b's training paths
-and rows 1-3 on zamba2-2.7b's, timed at one forward layer at M 1024),
+and rows 1-3 on zamba2-2.7b's, timed at one forward layer at M 1024;
+rows 1-3 on the mesh's training path, timed at a TP-2 rank's layer at M
+256, their launches summed over the 4 ranks),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -341,6 +374,10 @@ EARLIER = "earlier design"
 PTXAS_SHOWN = ("bp_mma_kernel", "absmax_kernel", "decode_partial_kernel",
                "decode_combine_kernel", "bp_quantize_kernel")
 TINY = 1.1754943508222875e-38     # f32 tiny: the scales' floor
+#: the depth of the h2o-danube card-vs-CPU checks of phases 3, 7, 8 and
+#: 12(b) (the ring): one layer, so that the CPU's plain path leaves the
+#: script's time to phase 14
+CPU_CHECK_LAYERS = 1
 # h2o-danube-1.8b: d_model, q/o width, k/v width, d_ff
 D, HD, KVD, FF = 2560, 2560, 640, 6912
 #: (K, N) of one layer's projections: wq, wk, wv, wo, up, gate, down
@@ -1602,7 +1639,7 @@ def engines_at_temperature(torch, build, full, params, rng, dev="cuda"):
     on the capturing paged engine (slots 4) and on the lock-step engine,
     each request served alone (slots 1, max_len 512): tokens/s of both
     (second runs), the lock-step engine's graph count and launches; the
-    lock-step replay bitwise equal to eager; and at 2 layers, the card's
+    lock-step replay bitwise equal to eager; and at one layer, the card's
     tokens equal the CPU's for requests 0 and 2 (32 and 40 tokens) on the
     paged engine and for request 0 served alone on the lock-step engine,
     4 new tokens each (the CPU's plain path costs seconds a call)."""
@@ -1646,8 +1683,8 @@ def engines_at_temperature(torch, build, full, params, rng, dev="cuda"):
           f"on its batch and prefill chunks, in the reference too)")
     lockstep_replay_vs_eager(torch, lock, params, prompts[1], rng)
     del paged, lock
-    # the card against the CPU at 2 layers, both engines
-    cfg2 = dataclasses.replace(full, num_layers=2)
+    # the card against the CPU at CPU_CHECK_LAYERS, both engines
+    cfg2 = dataclasses.replace(full, num_layers=CPU_CHECK_LAYERS)
     p_cpu, p_gpu = seeded_pair(cfg2)
     two = [prompts[0], prompts[2]]
     t0 = time.perf_counter()
@@ -1659,7 +1696,8 @@ def engines_at_temperature(torch, build, full, params, rng, dev="cuda"):
             torch, lockstep_engine(cfg2, p, d), two[:1], 4, 7,
             alone=True)[0]
     cpu_s = time.perf_counter() - t0
-    print(f"  card vs cpu at T 0.8 (2 layers, full width, prompts "
+    print(f"  card vs cpu at T 0.8 ({CPU_CHECK_LAYERS} layer, full width, "
+          f"prompts "
           f"{[len(p) for p in two]}, 4 tokens): paged card "
           f"{outs['card', 'paged']}, cpu {outs['cpu', 'paged']}; lock-step "
           f"card {outs['card', 'lock']}, cpu {outs['cpu', 'lock']} "
@@ -2212,6 +2250,146 @@ class card_layers(jitter_ops):
         return self
 
 
+def leaf_stats(torch, which: str, g, c, old=None) -> dict:
+    """What the whole-step rules read of one piece of a leaf (the whole
+    leaf, or a rank's piece: ``merge_stats`` adds pieces up): for a first
+    moment ("m") the largest |c|, the largest |g - c| and the f64 sums
+    g.c, g.g, c.c; for a new param the counts of its elements, of those
+    the CPU's step moved from ``old``, of those whose step agrees in sign,
+    of equal ones, and whether every step on the card and every old
+    value is 0."""
+    bf16 = c.dtype == torch.bfloat16
+    g, c = g.float(), c.float()
+    n = c.numel()
+    st = {"bf16": bf16, "diff": float((g - c).abs().max()) if n else 0.0}
+    if which == "m":
+        g64, c64 = g.double(), c.double()   # f32 products of small moments
+        st.update(big=float(c.abs().max()) if n else 0.0,  # underflow
+                  dot=float((g64 * c64).sum()), gg=float((g64 * g64).sum()),
+                  cc=float((c64 * c64).sum()))
+        return st
+    old = old.detach().float()
+    dg, dc = g - old, c - old
+    on = dc != 0
+    st.update(n=n, on=int(on.sum()),
+              agree=int((torch.sign(dg[on]) == torch.sign(dc[on])).sum()),
+              equal=int((g == c).sum()), dg_zero=bool((dg == 0).all()),
+              old_zero=bool((old == 0).all()))
+    return st
+
+
+def merge_stats(a: dict, b: dict) -> dict:
+    """Two pieces' ``leaf_stats`` as one."""
+    out = dict(a)
+    for k in ("dot", "gg", "cc", "n", "on", "agree", "equal"):
+        if k in a:
+            out[k] = a[k] + b[k]
+    for k in ("diff", "big"):
+        if k in a:
+            out[k] = max(a[k], b[k])
+    for k in ("dg_zero", "old_zero"):
+        if k in a:
+            out[k] = a[k] and b[k]
+    return out
+
+
+def whole_step_stats(torch, new_gpu, new_cpu, old_params) -> dict:
+    """``leaf_stats`` of every whole leaf of two new states (``{"params",
+    "opt": {"m"}}``) from ``old_params``, keyed "m/..." and "params/..."."""
+    stats = {}
+    for which in ("m", "params"):
+        src_g = new_gpu["opt"]["m"] if which == "m" else new_gpu["params"]
+        src_c = new_cpu["opt"]["m"] if which == "m" else new_cpu["params"]
+        for (path, g), (_, c) in zip(_leaves(torch, src_g),
+                                     _leaves(torch, src_c)):
+            stats[f"{which}/{'/'.join(path)}"] = leaf_stats(
+                torch, which, g, c, None if which == "m"
+                else _leaf(old_params, path))
+    return stats
+
+
+def step_faults(torch, out, stats: dict, side: str, ref: str, what: str,
+                loss_tol: float) -> list:
+    """The whole-step rules of ``compare_train_step`` on ``stats`` (each
+    leaf's ``leaf_stats``, merged over its pieces): the loss within
+    ``loss_tol`` and the grad norm within 1e-2 relative (``out``'s
+    ``loss_card``/``loss_cpu``, ``grad_norm_card``/``grad_norm_cpu``),
+    each leaf's first moment within 5e-2 of its largest with a cosine of
+    0.999, each new leaf's step of the CPU's sign on 90% of the elements
+    the CPU's moved, a bf16 leaf 99% equal.  Fills ``out["leaves"]``,
+    prints a line, returns the faults."""
+    faults = []
+    if abs(out["loss_card"] - out["loss_cpu"]) > loss_tol:
+        faults.append(f"train step: loss on {side} {out['loss_card']} vs "
+                      f"the CPU {out['loss_cpu']} ({loss_tol:.3g})")
+    if abs(out["grad_norm_card"] / out["grad_norm_cpu"] - 1) > 1e-2:
+        faults.append(f"train step: grad norm {out['grad_norm_card']} vs "
+                      f"{out['grad_norm_cpu']} (1e-2 relative)")
+    for key, st in stats.items():
+        diff = st["diff"]
+        if key.startswith("m/"):
+            big = st["big"]
+            if big == 0.0:    # no gradient (zamba2's LoRA a_q, b_q 0)
+                out["leaves"][key] = {"max_diff_of_max": diff,
+                                      "cosine": None}
+                if diff:
+                    faults.append(f"train step: gradient of {key} is "
+                                  f"0 on the CPU, not on {side}")
+                continue
+            cos = st["dot"] / (math.sqrt(st["gg"]) * math.sqrt(st["cc"]))
+            out["leaves"][key] = {"max_diff_of_max": diff / big,
+                                  "cosine": cos}
+            if diff > 5e-2 * big or cos < 0.999:
+                faults.append(f"train step: gradient of {key} on "
+                              f"{side} vs the "
+                              f"CPU: max diff {diff / big:.3g} of its "
+                              f"max, cosine {cos:.6f} (5e-2, 0.999)")
+            continue
+        # the step each side took: a wrong or dropped update moves a
+        # weight the other way, or not at all, where the CPU's moved it
+        # (Adam's first step is about lr either way, so a bound on the
+        # difference could not tell); a leaf the CPU left as it was
+        # stays so
+        agree = st["agree"] / st["on"] if st["on"] else float(st["dg_zero"])
+        same = st["equal"] / st["n"]
+        bf16 = st["bf16"]
+        out["leaves"][key] = {"max_diff": diff, "equal_share": same,
+                              "moved_share": st["on"] / st["n"],
+                              "sign_agreement": agree, "bf16": bf16}
+        # a bf16 leaf rounds the small differences away; an f32 leaf (the
+        # norms' gains) keeps them in its last bits.  A bf16 leaf that
+        # starts at 0 (zamba2's conv_b and LoRA b_q) steps to -lr * (+-1
+        # in its last f32 bits) everywhere: one value, so a bf16 rounding
+        # boundary next to lr flips a share of it at once, and only the
+        # sign rule holds it
+        zero = st["old_zero"]
+        out["leaves"][key]["from_zero"] = zero
+        if agree < 0.9 or (bf16 and not zero and same < 0.99):
+            faults.append(f"train step: new {key} on {side} vs "
+                          f"the CPU: the step's sign agrees on "
+                          f"{agree:.5f} of the elements the CPU "
+                          f"moved (0.9), {same:.5f} of elements "
+                          f"equal (0.99 of a bf16 leaf)")
+    worst = max(v.get("max_diff_of_max", 0) for v in out["leaves"].values())
+    least = min(v["equal_share"] for v in out["leaves"].values()
+                if v.get("bf16") and not v["from_zero"])
+    signs = min(v["sign_agreement"] for v in out["leaves"].values()
+                if "sign_agreement" in v)
+    cosine = min(v["cosine"] for v in out["leaves"].values()
+                 if v.get("cosine") is not None)
+    if not any(v.get("moved_share") for v in out["leaves"].values()):
+        faults.append("train step: the CPU's step moved no weight")
+    print(f"train step on {side} vs {ref} ({what}): loss "
+          f"{out['loss_card']:.6f} vs "
+          f"{out['loss_cpu']:.6f}, grad norm {out['grad_norm_card']:.6f} "
+          f"vs {out['grad_norm_cpu']:.6f}; gradients' largest difference "
+          f"{worst:.3g} of a leaf's max, least cosine {cosine:.6f}; new "
+          f"bf16 params' least equal share "
+          f"{least:.5f}; the step's sign agrees on at least {signs:.5f} of a "
+          f"leaf's moved elements; the CPU step {out['cpu_step_s']:.1f}s")
+    return faults
+
+
 def compare_train_step(torch, model, opt, host_batch, label: str,
                        dev="cuda", loss_tol=1e-3, loss_rtol=0.0, gate=True,
                        control=None, follow_card=False):
@@ -2292,92 +2470,12 @@ def compare_train_step(torch, model, opt, host_batch, label: str,
               f"the same inputs (calls, worst share of the largest): "
               + ", ".join(f"{k} {n} {w:.3g}"
                           for k, (n, w) in sorted(rp.stats.items())))
-    faults = []
     loss_tol = max(loss_tol, loss_rtol * abs(out["loss_cpu"]))
-    if abs(out["loss_card"] - out["loss_cpu"]) > loss_tol:
-        faults.append(f"train step: loss on {side} {out['loss_card']} vs "
-                      f"the CPU {out['loss_cpu']} ({loss_tol:.3g})")
-    if abs(out["grad_norm_card"] / out["grad_norm_cpu"] - 1) > 1e-2:
-        faults.append(f"train step: grad norm {out['grad_norm_card']} vs "
-                      f"{out['grad_norm_cpu']} (1e-2 relative)")
-    for which in ("m", "params"):
-        src_g = new_gpu["opt"]["m"] if which == "m" else new_gpu["params"]
-        src_c = new_cpu["opt"]["m"] if which == "m" else new_cpu["params"]
-        for (path, g), (_, c) in zip(_leaves(torch, src_g),
-                                     _leaves(torch, src_c)):
-            key = f"{which}/{'/'.join(path)}"
-            bf16 = c.dtype == torch.bfloat16
-            g, c = g.float(), c.float()
-            diff = (g - c).abs().max().item()
-            if which == "m":
-                big = c.abs().max().item()
-                if big == 0.0:    # no gradient (zamba2's LoRA a_q, b_q 0)
-                    out["leaves"][key] = {"max_diff_of_max": diff,
-                                          "cosine": None}
-                    if diff:
-                        faults.append(f"train step: gradient of {key} is "
-                                      f"0 on the CPU, not on {side}")
-                    continue
-                g64, c64 = g.double(), c.double()   # f32 products of small
-                cos = float((g64 * c64).sum()       # moments underflow
-                            / (g64.norm() * c64.norm()))
-                out["leaves"][key] = {"max_diff_of_max": diff / big,
-                                      "cosine": cos}
-                if diff > 5e-2 * big or cos < 0.999:
-                    faults.append(f"train step: gradient of {key} on "
-                                  f"{side} vs the "
-                                  f"CPU: max diff {diff / big:.3g} of its "
-                                  f"max, cosine {cos:.6f} (5e-2, 0.999)")
-            else:
-                # the step each side took: a wrong or dropped update moves
-                # a weight the other way, or not at all, where the CPU's
-                # moved it (Adam's first step is about lr either way, so a
-                # bound on the difference could not tell)
-                old = _leaf(cpu_state["params"], path).detach().float()
-                dg, dc = g - old, c - old
-                on = dc != 0
-                if bool(on.any()):
-                    agree = float((torch.sign(dg[on]) == torch.sign(dc[on]))
-                                  .float().mean())
-                else:     # a leaf the CPU left as it was stays so
-                    agree = float(bool((dg == 0).all()))
-                same = float((g == c).float().mean())
-                out["leaves"][key] = {"max_diff": diff, "equal_share": same,
-                                      "moved_share": float(on.float().mean()),
-                                      "sign_agreement": agree,
-                                      "bf16": bf16}
-                # a bf16 leaf rounds the small differences away; an f32
-                # leaf (the norms' gains) keeps them in its last bits.  A
-                # bf16 leaf that starts at 0 (zamba2's conv_b and LoRA b_q)
-                # steps to -lr * (+-1 in its last f32 bits) everywhere: one
-                # value, so a bf16 rounding boundary next to lr flips a
-                # share of it at once, and only the sign rule holds it
-                zero = bool((old == 0).all())
-                out["leaves"][key]["from_zero"] = zero
-                if agree < 0.9 or (bf16 and not zero and same < 0.99):
-                    faults.append(f"train step: new {key} on {side} vs "
-                                  f"the CPU: the step's sign agrees on "
-                                  f"{agree:.5f} of the elements the CPU "
-                                  f"moved (0.9), {same:.5f} of elements "
-                                  f"equal (0.99 of a bf16 leaf)")
-    worst = max(v.get("max_diff_of_max", 0) for v in out["leaves"].values())
-    least = min(v["equal_share"] for v in out["leaves"].values()
-                if v.get("bf16") and not v["from_zero"])
-    signs = min(v["sign_agreement"] for v in out["leaves"].values()
-                if "sign_agreement" in v)
-    cosine = min(v["cosine"] for v in out["leaves"].values()
-                 if v.get("cosine") is not None)
-    if not any(v.get("moved_share") for v in out["leaves"].values()):
-        faults.append("train step: the CPU's step moved no weight")
-    ref = "the CPU on the card's layer outputs" if follow else "the CPU"
-    print(f"train step on {side} vs {ref} ({cfg.name}, {label}, "
-          f"{cfg.matmul_mode}): loss {out['loss_card']:.6f} vs "
-          f"{out['loss_cpu']:.6f}, grad norm {out['grad_norm_card']:.6f} "
-          f"vs {out['grad_norm_cpu']:.6f}; gradients' largest difference "
-          f"{worst:.3g} of a leaf's max, least cosine {cosine:.6f}; new "
-          f"bf16 params' least equal share "
-          f"{least:.5f}; the step's sign agrees on at least {signs:.5f} of a "
-          f"leaf's moved elements; the CPU step {cpu_s:.1f}s")
+    faults = step_faults(
+        torch, out, whole_step_stats(torch, new_gpu, new_cpu,
+                                     cpu_state["params"]), side,
+        "the CPU on the card's layer outputs" if follow else "the CPU",
+        f"{cfg.name}, {label}, {cfg.matmul_mode}", loss_tol)
     out["faults"] = faults
     if faults and gate:
         fail("; ".join(faults))
@@ -2388,7 +2486,7 @@ def compare_train_step(torch, model, opt, host_batch, label: str,
 
 
 def train_card_vs_cpu(torch, full, dev="cuda"):
-    """One ``bp8_fused`` train step at full width and 2 layers on the card
+    """One ``bp8_fused`` train step at full width and one layer on the card
     and on the CPU from the same seeded state (2 x 32 tokens,
     ``compare_train_step``); then a checkpoint written on the card that
     restores bitwise, and ``train()`` resuming from it."""
@@ -2399,14 +2497,15 @@ def train_card_vs_cpu(torch, full, dev="cuda"):
     from repro_torch.models import build as build_model
     from repro_torch.optim.optimizer import OptimizerConfig
     from repro_torch.train import trainer as tr
-    cfg = dataclasses.replace(full, num_layers=2)
+    cfg = dataclasses.replace(full, num_layers=CPU_CHECK_LAYERS)
     model = build_model(cfg)
     opt = OptimizerConfig(warmup_steps=5, total_steps=8)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)
     host_batch = {k: torch.from_numpy(v)
                   for k, v in batch_at(dcfg, 0).items()}
     out = compare_train_step(torch, model, opt, host_batch,
-                             "full width, 2 layers, 2 x 32 tokens", dev)
+                             f"full width, {CPU_CHECK_LAYERS} layer, 2 x 32 "
+                             "tokens", dev)
 
     # a checkpoint written on the card, restored bitwise, and resumed
     shape = ShapeConfig("t", "train", 32, 2)
@@ -2442,7 +2541,8 @@ def train_card_vs_cpu(torch, full, dev="cuda"):
         fail(f"train() did not resume at step 3: {resumed}")
     gaps = [abs(a["loss"] - b["loss"])
             for a, b in zip(hist + resumed, straight)]
-    print(f"checkpoint at full width (2 layers) written on the card and "
+    print(f"checkpoint at full width ({CPU_CHECK_LAYERS} layer) written on "
+          f"the card and "
           f"restored bitwise; resumed losses {[h['loss'] for h in hist]} + "
           f"{resumed[0]['loss']} vs uninterrupted "
           f"{[h['loss'] for h in straight]} (largest gap {max(gaps):.3g}); "
@@ -3013,8 +3113,9 @@ def serve_paligemma(torch, build, rng):
 #: at 700 W).  At prompts of at most
 #: 128 tokens its 1024-token window does not cut, so a global layer, or a
 #: third local one, would show nothing that the two local ones do not
-GEMMA_CHECK_LAYERS = 2
-GEMMA_REDUCED = {"num_layers": "48 -> 2 (local layers) in 9(b), the "
+GEMMA_CHECK_LAYERS = 1
+GEMMA_REDUCED = {"num_layers": "48 -> 1 (a local layer; paligemma 18 -> 1) "
+                 "in 9(b), the "
                  "card-vs-CPU check only: the CPU's plain path costs tens "
                  "of seconds a call at full width"}
 
@@ -3039,7 +3140,7 @@ def phase_gemma(torch, timer, build, log: str, rng):
                for n in (64, 128)]
     report["cpu_s"] = {"gemma3_12b": card_vs_cpu(torch, g3, prompts, 4)}
     report["b_reduced"] = GEMMA_REDUCED
-    pali = gemma_config("paligemma_3b", num_layers=2)
+    pali = gemma_config("paligemma_3b", num_layers=GEMMA_CHECK_LAYERS)
     prompts = [rng.integers(3, pali.vocab_size, n).astype(np.int32)
                for n in (20, 48)]
     report["cpu_s"]["paligemma_3b"] = lockstep_card_vs_cpu(torch, pali,
@@ -3504,7 +3605,9 @@ def phase_moe(torch, timer, build, log: str, rng):
     for arch, lens, new in (("granite_moe_1b", (32, 64), 4),
                             ("minicpm3_4b", (32, 64), 4),
                             ("deepseek_v2_236b", (32, 64), 3)):
-        cfg = moe_config(arch, num_layers=2)
+        # deepseek's dense first layer and one MoE layer; one layer else
+        cfg = moe_config(arch, num_layers=2 if arch == "deepseek_v2_236b"
+                         else 1)
         prompts = [rng.integers(3, cfg.vocab_size, x).astype(np.int32)
                    for x in lens]
         report["cpu_s"][arch] = card_vs_cpu(torch, cfg, prompts, new)
@@ -3742,7 +3845,7 @@ RING_KERNELS = ("absmax", "fused_matmul", "fused_mlp", "decode_attention")
 XLSTM_CHECK_LAYERS = 8
 XLSTM_REDUCED = {"num_layers": "48 -> 8 (one group: 7 mLSTM blocks and the "
                  "sLSTM block) in 12(b), the card-vs-CPU check only"}
-RING_REDUCED = {"num_layers": "24 -> 2 and window_size 4096 -> 64 in 12(b), "
+RING_REDUCED = {"num_layers": "24 -> 1 and window_size 4096 -> 64 in 12(b), "
                 "the card-vs-CPU ring check only, so that a 150-token "
                 "prompt wraps the ring"}
 #: 12(b)'s new tokens on the ring: each decode step of the CPU's plain
@@ -4084,7 +4187,7 @@ def phase_xlstm_ring(torch, timer, build, rows2, rng):
                        "xlstm_lockstep": lockstep_card_vs_cpu(
                            torch, x8, prompts, 4)}
     gc.collect()
-    r2 = ring_config(num_layers=2, window_size=64)
+    r2 = ring_config(num_layers=CPU_CHECK_LAYERS, window_size=64)
     prompts = [rng.integers(3, r2.vocab_size, n).astype(np.int32)
                for n in (100, 150)]
     report["cpu_s"]["ring_lockstep"] = lockstep_card_vs_cpu(
@@ -4124,23 +4227,24 @@ FT_SEQ, FT_BATCH, FT_STEPS = 128, 8, 3
 #: 13(b)'s steps: (depth overrides, the CPU following the card's layer
 #: outputs), each gated by ``compare_train_step``'s whole-step rules.  Each
 #: CPU step also runs under ``replay_ops`` (each block and kernel held to
-#: the card on the CPU's inputs, forward and backward).  whisper whole and
-#: xlstm's one group (8 layers) compound the layers' forward rounding (a
-#: bf16 flip before a BP quantise moves a whole level) past those rules in
+#: the card on the CPU's inputs, forward and backward).  whisper at depth
+#: (3 + 3 layers) and xlstm's one group (8 layers) compound the layers'
+#: forward rounding (a bf16 flip before a BP quantise moves a whole
+#: level) past those rules in
 #: ``bf16`` as in ``bp8_fused``: the CPU following the card's layer
 #: outputs parts from the CPU as far as the card does (PERF.md,
 #: Findings).  So there the CPU follows the card's layers (held to the
 #: CPU's within ``FOLLOW_TOL``) and the rules hold the rest of the step;
 #: whisper at 1 + 1 layers and zamba2's group hold them plain
-FT_CHECKS = {"whisper_base": (({}, True),
+FT_CHECKS = {"whisper_base": (({"encoder_layers": 3, "num_layers": 3}, True),
                               ({"encoder_layers": 1, "num_layers": 1},
                                False)),
              "zamba2_2p7b": (({"num_layers": 6}, False),),
              "xlstm_1p3b": (({"num_layers": 8}, True),)}
 FT_REDUCED = {
     "whisper_base": "encoder_layers 6 -> 1 and num_layers 6 -> 1 for the "
-                    "plain whole-step comparison of 13(b) (the whole model "
-                    "against the CPU following its layer outputs)",
+                    "plain whole-step comparison of 13(b); 6 -> 3 and 6 -> 3 "
+                    "against the CPU following its layer outputs",
     "zamba2_2p7b": "num_layers 54 -> 6 (one group: 6 Mamba2 layers and the "
                    "shared block) in 13(b), the card-vs-CPU step only",
     "xlstm_1p3b": "num_layers 48 -> 8 (one group: 7 mLSTM blocks and 1 "
@@ -4472,6 +4576,743 @@ def phase_train_families(torch, timer, build):
     return rows, launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the distributed layer (mesh, sharding, TP, GPipe and 1F1B)
+# ---------------------------------------------------------------------------
+
+DIST_PATH = "train_mesh_bp8_fused"
+#: (c): h2o-danube-1.8b whole on (stage 2, data 1, model 2), 3 steps
+DIST_SHAPE = {"stage": 2, "data": 1, "model": 2}
+DIST_STEPS, DIST_SEQ, DIST_BATCH = 3, 128, 8
+#: (b)'s depths, and the batch of its steps (2 x 32 tokens, 2 microbatches
+#: on 2 stages: ``TrainPlan.for_shape``'s)
+DIST_LAYERS, DIST_STAGE_TP_LAYERS = 2, 4
+DIST_CHECK_SEQ, DIST_CHECK_BATCH = 32, 2
+DIST_REDUCED = {"num_layers": "24 -> 2 in 14(b) (4 for the bf16 stage x "
+                "TP case); granite-moe-1b 24 -> 2, minicpm3-4b 62 -> 2"}
+#: the whole-step cases held to the same mesh on the CPU (4 gloo ranks)
+DIST_CPU_CASES = ("h2o_danube_1p8b", "granite_moe_1b", "minicpm3_4b")
+#: the limit on a world of ranks (spawn, the kernels' load, the cases)
+DIST_TIMEOUT = 600
+
+
+def dist_config(arch, mode="bp8_fused", layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, matmul_mode=mode, kv_quant="none",
+                               num_layers=layers or cfg.num_layers)
+
+
+def dist_kernel_rows(torch, timer, m, dev="cuda"):
+    """Phase 14(a): absmax and the fused matmul bitwise, and the fused MLP
+    within 1e-5, of their plain versions at a rank's shard shapes of
+    h2o-danube-1.8b under TP 2 at ``m`` rows a microbatch (wq 2560 ->
+    1280, wk/wv 2560 -> 320, wo 1280 -> 2560 and down 3456 -> 2560
+    row-parallel, the MLP's up/gate 2560 -> 3456), each timed (phase 2's
+    timer) beside its bound over one layer's calls."""
+    from repro_torch.kernels import fused as kf
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    tp = DIST_SHAPE["model"]
+    shapes = [(m, D, HD // tp), (m, D, KVD // tp), (m, D, KVD // tp),
+              (m, HD // tp, D), (m, FF // tp, D)]
+    xs = {(mm, k): randn(mm, k) for mm, k, _ in shapes}
+    ws = {(k, n): randn(k, n, std=k ** -0.5).to(torch.bfloat16)
+          for _, k, n in shapes}
+    for t in list(xs.values()) + list(ws.values()):
+        if not torch.equal(kf.absmax(t, TINY), ref.absmax_ref(t, TINY)):
+            fail(f"phase 14(a): absmax differs at {tuple(t.shape)}")
+    sc = {id(t): kf.absmax(t, TINY)
+          for t in list(xs.values()) + list(ws.values())}
+    args = [(xs[(mm, k)], ws[(k, n)], sc[id(xs[(mm, k)])],
+             sc[id(ws[(k, n)])]) for mm, k, n in shapes]
+    for shp, a in zip(shapes, args):
+        got, want = kf.fused_bp_matmul(*a), ref.fused_matmul_ref(*a)
+        if not torch.equal(got, want):
+            fail(f"phase 14(a): fused matmul differs at {shp}: max "
+                 f"{(got - want).abs().max().item()}")
+    x = randn(m, D)
+    up, gate = (randn(D, FF // tp, std=D ** -0.5).to(torch.bfloat16)
+                for _ in range(2))
+    margs = (x, up, gate) + tuple(kf.absmax(t, TINY) for t in (x, up, gate))
+    got = kf.fused_mlp(*margs, "silu")
+    want = ref.fused_mlp_ref(x, up, gate, "silu", *margs[3:])
+    e = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+    if not math.isfinite(e) or e > 1e-5:
+        fail(f"phase 14(a): fused MLP off by {e:.3g} at M {m}")
+    am_in = [a[0] for a in args] + [a[1] for a in args] + [x, up, gate]
+    rows = {
+        "absmax": dict(
+            max_abs_err=0.0,
+            ms=timer([lambda t=t: kf.absmax(t, TINY) for t in am_in]),
+            plain_ms=timer([lambda t=t: ref.absmax_ref(t, TINY)
+                            for t in am_in]),
+            library_ms=timer([lambda t=t: torch.amax(t.abs())
+                              for t in am_in]),
+            b=[bound(nbytes(t) + 4, t.numel(), H100_F32_FLOPS_PER_S)
+               for t in am_in]),
+        "fused_matmul": dict(
+            max_abs_err=0.0,
+            ms=timer([lambda a=a: kf.fused_bp_matmul(*a) for a in args]),
+            plain_ms=timer([lambda a=a: ref.fused_matmul_ref(*a)
+                            for a in args], iters=3),
+            library_ms=None,
+            b=[bound(4 * mm * k + 2 * k * n + 8 + 4 * mm * n,
+                     2 * mm * n * 8 * k, H100_INT8_OPS_PER_S)
+               for mm, k, n in shapes]),
+        "fused_mlp": dict(
+            max_abs_err=(got - want).abs().max().item(),
+            ms=timer([lambda: kf.fused_mlp(*margs, "silu")]),
+            plain_ms=timer([lambda: ref.fused_mlp_ref(
+                x, up, gate, "silu", *margs[3:])], iters=3),
+            library_ms=None,
+            b=[bound(4 * m * D + nbytes(up) + nbytes(gate) + 12
+                     + 4 * m * (FF // tp), 2 * 2 * m * (FF // tp) * 8 * D,
+                     H100_INT8_OPS_PER_S)])}
+    print(f"phase 14(a): absmax and the fused matmul bitwise at a TP-{tp} "
+          f"rank's (M, K, N) {shapes}, the silu MLP {D} -> {FF // tp} within "
+          f"1e-5 ({e:.3g})")
+    for name, r in rows.items():
+        print(f"mesh train kernel {name} (a rank's layer at M {m}): ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms']} bound_ms {sum(x[0] for x in r['b']):.4f} "
+              f"max_abs_err {r['max_abs_err']}")
+    return rows
+
+
+# -- the ranks' side (a spawned process each; nothing here runs at import) --
+
+def _bits_digest(torch, t) -> tuple:
+    """Two int64 sums over a tensor's bits (as stored): equal digests of
+    equal-shaped tensors mean equal bits but for a vanishing chance."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view(width[flat.element_size()]) if flat.is_floating_point() \
+        else flat
+    s1 = s2 = 0
+    step = 1 << 26
+    for lo in range(0, bits.numel(), step):
+        v = bits[lo:lo + step].to(torch.int64)
+        w = torch.arange(lo, lo + v.numel(), device=v.device) % 65521 + 1
+        s1 += int(v.sum())
+        s2 += int((v * w).sum())
+    return (tuple(t.shape), s1, s2)
+
+
+def _rank_batch(torch, cfg, seq, batch, step=0, dev="cpu"):
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in batch_at(dcfg, step).items()}
+
+
+def _piece_places(model, mesh_shape, coords):
+    """Per leaf of ``model``'s params, the (dim, lo, hi) cuts of the piece
+    the rank at ``coords`` holds on a mesh of ``mesh_shape``, the number
+    of ranks holding the same piece, and whether this rank is the first
+    of them (at index 0 on every axis that does not split the leaf)."""
+    from repro_torch.dist.sharding import _cut
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import param_placements
+    sizes = dict(mesh_shape)
+    out = {}
+    for (path, d), (_, pl) in zip(
+            tree_leaves(model.schema()),
+            tree_leaves(param_placements(model, _Shape(mesh_shape)))):
+        cuts, split, used = [], 1, set()
+        for dim, entry in enumerate(pl):
+            axes = [a for a in ((entry,) if isinstance(entry, str)
+                                else (entry or ())) if sizes.get(a, 1) > 1]
+            if axes:
+                i = 0
+                for a in axes:
+                    i = i * sizes[a] + coords[a]
+                n = math.prod(sizes[a] for a in axes)
+                cuts.append((dim,) + _cut(d.shape[dim], n, i))
+                split *= n
+                used.update(axes)
+        first = all(coords[a] == 0 for a in sizes if a not in used)
+        out["/".join(path)] = (cuts, math.prod(sizes.values()) // split,
+                               first)
+    return out
+
+
+def _cut_piece(t, cuts):
+    for dim, lo, hi in cuts:
+        t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def _case_vs_single(torch, build, mesh, dev, case):
+    """A (b) case against the single-process step: the mesh's step in each
+    schedule, with the weights in f32 and as held (bf16), from one seeded
+    init.  Every member rank also runs the single-process step (2 layers:
+    cheap) and holds its pieces of the mesh's gradients to the same cuts
+    of the single-process ones; the per-leaf sums are reduced over the
+    mesh (each piece counted once), so nothing whole is gathered."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.train.train_step import param_placements
+    cfg = dist_config("h2o_danube_1p8b", case["mode"], case["layers"])
+    model = build_model(cfg)
+    batch = _rank_batch(torch, cfg, DIST_CHECK_SEQ, DIST_CHECK_BATCH,
+                        dev=dev)
+    whole = init_params(model.schema(), seed=0, device=dev)
+    places = _piece_places(model, mesh.shape, mesh.coords)
+    pls = param_placements(model, mesh)
+    out = {}
+    for f32 in (True, False):
+        src = tree_map(lambda t: t.float() if f32 else t, whole)
+        live = tree_map(lambda t: t.clone().requires_grad_(), src)
+        flat = tree_leaves(live)
+        wl, _ = model.loss(live, batch)
+        want = dict(zip(("/".join(p) for p, _ in flat), torch.autograd.grad(
+            wl, [t for _, t in flat])))
+        del live, flat
+        for sched in case.get("schedules", ("1f1b",)):
+            mine = tree_map(lambda t, pl: shd.local_shard(t, pl, mesh)
+                            .clone().requires_grad_(), src, pls)
+            gl, _, grads = model.pipeline_loss(
+                mine, batch, mesh=mesh, num_microbatches=case.get("M", 1),
+                schedule=sched)
+            sums = torch.zeros((len(want), 3), dtype=torch.float64,
+                               device=dev)
+            diff = torch.zeros((len(want), 2), dtype=torch.float64,
+                               device=dev)
+            for i, (path, g) in enumerate(tree_leaves(grads)):
+                key = "/".join(path)
+                cuts, reps, _ = places[key]
+                w = _cut_piece(want[key], cuts).double()
+                g = g.double()
+                sums[i] = torch.stack([(g * w).sum(), (g * g).sum(),
+                                       (w * w).sum()]) / reps
+                diff[i] = torch.stack([(g - w).abs().max(), w.abs().max()])
+            mesh.all_reduce(sums, mesh.axis_names)
+            mesh.all_reduce(diff, mesh.axis_names, "max")
+            cos = sums[:, 0] / (sums[:, 1].sqrt() * sums[:, 2].sqrt())
+            worst = diff[:, 0] / diff[:, 1].clamp_min(1e-300)
+            gl, wl_ = float(gl), float(wl.detach())
+            rel = abs(gl - wl_) / abs(wl_)
+            least, top = float(cos.min()), float(worst.max())
+            # bf16 weights: a backward in another order rounds bf16
+            # gradients apart (cosines 0.99993-0.99999 on the card)
+            ok = (rel <= 1e-5 and top <= 1e-4) if f32 else \
+                (rel <= 1e-4 and least > 0.9999)
+            out[f"{sched}, {'f32' if f32 else 'bf16'} weights"] = {
+                "loss": gl, "loss_single": wl_, "loss_rel": rel,
+                "least_cosine": least, "worst_of_max": top, "ok": ok,
+                "rule": ("loss 1e-5 relative, every leaf within 1e-4 of "
+                         "its largest" if f32 else "loss 1e-4 relative, "
+                         "every leaf's cosine > 0.9999")}
+            del mine, grads
+        del want
+        gc.collect()
+    return out
+
+
+def _case_step_pair(torch, mesh, dev, case, twin: bool, pending: list):
+    """One ``make_train_step(mesh=)`` step of a (b) whole-step case from
+    the CPU's seeded state, on the card's mesh and on its twin on the CPU
+    (ranks 0-3 and 4-7: the rank at a position on one holds the same
+    pieces as its twin on the other).  A card rank sends each piece it is
+    the first holder of (the new params and first moments) to its twin,
+    which returns ``leaf_stats`` of them against its own, from the old
+    params: no whole leaf leaves a rank.  The twin posts its receives
+    before its step, and the card's sends go into ``pending`` (waited at
+    the end of the world), so the card goes on while its twin computes."""
+    import torch.distributed as tdist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
+    cfg = dist_config(case["arch"], "bp8_fused", DIST_LAYERS)
+    model = build_model(cfg)
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1,
+                          total_steps=1)
+    plan = TrainPlan.for_shape(
+        cfg, ShapeConfig("t", "train", DIST_CHECK_SEQ, DIST_CHECK_BATCH),
+        data_shards=1, pipeline_stages=mesh.shape["stage"])
+    state = init_state(model, 0, opt, "cpu", mesh=mesh)
+    places = _piece_places(model, mesh.shape, mesh.coords)
+    old = {"/".join(p): t.clone() for p, t in tree_leaves(state["params"])
+           if places["/".join(p)][2]}
+    n = len(mesh.ranks)
+    recvs = []
+    if twin:      # the card's pieces: the params' dtypes, f32 moments
+        for which in ("params", "m"):
+            for key, t in old.items():
+                buf = torch.empty(t.shape, dtype=t.dtype if which ==
+                                  "params" else opt.moment_dtype)
+                recvs.append((which, key, buf,
+                              tdist.irecv(buf, mesh.rank - n, tag=7)))
+    state = tree_map(lambda t: t.to(dev), state)
+    step = make_train_step(model, opt, plan, mesh=mesh)
+    t0 = time.perf_counter()
+    new, m = step(state, _rank_batch(torch, cfg, DIST_CHECK_SEQ,
+                                     DIST_CHECK_BATCH, dev=dev))
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "step_s": time.perf_counter() - t0,
+           "plan": dataclasses.asdict(plan)}
+    mine = {(which, "/".join(p)): t
+            for which, tree in (("params", new["params"]),
+                                ("m", new["opt"]["m"]))
+            for p, t in tree_leaves(tree) if places["/".join(p)][2]}
+    if not twin:                         # to the twin on the CPU
+        for which in ("params", "m"):
+            for key in old:
+                buf = mine[which, key].detach().cpu().contiguous()
+                pending.append((buf, tdist.isend(buf, mesh.rank + n, tag=7)))
+        return out
+    stats = {}
+    for which, key, g, work in recvs:
+        work.wait()
+        stats[f"{which}/{key}"] = leaf_stats(
+            torch, which, g, mine[which, key],
+            old[key] if which == "params" else None)
+    return out | {"stats": stats}
+
+
+def _case_full(torch, build, mesh, dev, ckpt_dir, quiet):
+    """Phase 14(c) on one rank: h2o-danube-1.8b whole in ``bp8_fused``
+    through ``trainer.train(mesh=)``, ``DIST_STEPS`` steps of 8 x 128
+    tokens at lr 3e-5 with ``TrainPlan.for_shape``'s microbatches and
+    bf16 moments (the checkpoint of the whole state is 10.8 GB, not 18),
+    a checkpoint at the end; launches counted from just before to just
+    after, the peak, the transport and its seconds, the stages' times,
+    the pieces' digests (the checkpoint's proof) and whether each of this
+    rank's pieces moved.  ``quiet()`` is called after the last step, before
+    the checkpoint: the steps run on a quiet host, the twins' CPU steps
+    after them."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.obs import Observability
+    from repro_torch.train.train_step import (TrainPlan, init_state,
+                                              make_train_step)
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = dist_config("h2o_danube_1p8b")
+    model = build_model(cfg)
+    shape = ShapeConfig("train", "train", DIST_SEQ, DIST_BATCH)
+    opt = dist_full_opt()
+    plan = TrainPlan.for_shape(cfg, shape, data_shards=1,
+                               pipeline_stages=mesh.shape["stage"])
+    inner = make_train_step(model, opt, plan, mesh=mesh)
+    norms, stage_times = [], []
+
+    def step_fn(state, batch):
+        new, m = inner(state, batch)
+        norms.append(float(m["grad_norm"]))
+        stage_times.extend(dataclasses.asdict(t) for t in m["stage_times"])
+        if len(norms) == DIST_STEPS:
+            quiet()
+        return new, m
+
+    state = init_state(model, 0, opt, dev, mesh=mesh)
+    init = tree_map(lambda t: t.cpu(), state["params"])
+    gc.collect()
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    mesh.reset_stats()
+    build.reset_launches()
+    obs = Observability.make()
+    t0 = time.perf_counter()
+    # one checkpoint, the final one (a save every DIST_STEPS would write
+    # the last step twice)
+    state, hist = train(model, cfg, shape, TrainerConfig(
+        total_steps=DIST_STEPS, ckpt_every=DIST_STEPS + 1,
+        ckpt_dir=ckpt_dir, ckpt_async=False, ckpt_compress_opt=False),
+        opt_cfg=opt, step_fn=step_fn, state=state, mesh=mesh, obs=obs,
+        device=dev)
+    wall = time.perf_counter() - t0
+    ckpt_s = {r["name"]: r["sum"] for r in obs.registry.snapshot()
+              if r["name"] in ("ckpt.snapshot_s", "ckpt.write_s")}
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    moved = {"/".join(p): float((a != b.cpu()).float().mean())
+             for (p, a), (_, b) in zip(tree_leaves(init),
+                                       tree_leaves(state["params"]))}
+    stats = {f"{op} ({tr})": {"calls": s.calls, "s": s.seconds,
+                             "bytes": s.bytes}
+             for (op, tr), s in mesh.stats.items()}
+    digests = {"/".join(p): _bits_digest(torch, t)
+               for p, t in tree_leaves(state)}
+    return {"losses": [h["loss"] for h in hist],
+            "step_s": [h["dt"] for h in hist], "wall_s": wall,
+            "grad_norms": norms, "stage_times": stage_times,
+            "layers_per_stage": cfg.num_layers // mesh.shape["stage"],
+            "launches": launches, "ckpt_s": ckpt_s,
+            "peak_gb": peak, "transport": stats, "moved": moved,
+            "digests": digests, "coords": mesh.coords}
+
+
+def dist_full_opt():
+    """(c)'s optimizer: lr 3e-5, warmup over its steps, bf16 moments."""
+    import torch
+    from repro_torch.optim.optimizer import OptimizerConfig
+    return OptimizerConfig(learning_rate=3e-5, warmup_steps=DIST_STEPS,
+                           total_steps=DIST_STEPS + 1,
+                           moment_dtype=torch.bfloat16)
+
+
+def dist_rank(dev, cases, ckpt_dir):
+    """One rank of phase 14's world (ranks 0-3 on the card, 4-7 on the
+    CPU): every case in order, each on the meshes over its rank sets
+    (built by every rank; the 2-rank cases on {0, 1} and {2, 3} at once,
+    a whole-step case on 0-3 and 4-7 at once).  (c) comes first, and its
+    steps run on a quiet host: the twins wait at a barrier over all 8
+    ranks that the card's ranks reach after their last step.  Returns this
+    rank's results."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Mesh
+    res, pending = {}, []
+    # every mesh first: making one is collective, and a card rank must not
+    # wait there for a twin still in an earlier case's CPU step
+    built = [[Mesh(case["mesh"], device=dev, ranks=r) for r in case["ranks"]]
+             for _, case in cases]
+    for (name, case), meshes in zip(cases, built):
+        t0 = time.perf_counter()
+        side = next((i for i, m in enumerate(meshes) if m.member), None)
+        if side is None:
+            if case["kind"] == "full":      # a twin waits out (c)'s steps
+                tdist.barrier()
+                res[name] = {"result": None, "s": time.perf_counter() - t0,
+                             "lead": False, "transport": []}
+            continue
+        mesh = meshes[side]
+        if case["kind"] == "vs_single":
+            res[name] = _case_vs_single(torch, build, mesh, dev, case)
+        elif case["kind"] == "step_pair":
+            res[name] = _case_step_pair(torch, mesh, dev, case, side == 1,
+                                        pending)
+        else:
+            res[name] = _case_full(torch, build, mesh, dev, ckpt_dir,
+                                   tdist.barrier)
+        res[name] = {"result": res[name], "s": time.perf_counter() - t0,
+                     "lead": mesh.position == 0,
+                     "transport": sorted({tr for _, tr in mesh.stats})}
+        gc.collect()
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    for _, work in pending:     # the card's pieces, received by the twins
+        work.wait()
+    return res
+
+
+# -- the parent's side -------------------------------------------------------
+
+CARD, TWINS = (0, 1, 2, 3), (4, 5, 6, 7)
+
+
+def _world_cases():
+    """(c), then (b), with the rank sets of their meshes."""
+    pipe = {"kind": "vs_single", "mode": "bf16", "layers": DIST_LAYERS,
+            "M": 2, "schedules": ("gpipe", "1f1b")}
+    free = {"kind": "vs_single", "mode": "bp8_fused", "layers": DIST_LAYERS}
+    return [
+        ("full", {"kind": "full", "mesh": DIST_SHAPE, "ranks": [CARD]}),
+        ("stage2", {**pipe, "mesh": {"stage": 2}, "ranks": [(0, 1)]}),
+        ("data2", {**free, "mesh": {"data": 2}, "ranks": [(2, 3)]}),
+        ("model2", {**free, "mesh": {"data": 1, "model": 2},
+                    "ranks": [(0, 1)]}),
+        ("stage2_model2", {**pipe, "layers": DIST_STAGE_TP_LAYERS,
+                           "mesh": DIST_SHAPE, "schedules": ("1f1b",),
+                           "ranks": [CARD]}),
+    ] + [(f"step_{a}", {"kind": "step_pair", "arch": a, "mesh": DIST_SHAPE,
+                        "ranks": [CARD, TWINS]}) for a in DIST_CPU_CASES]
+
+
+def _step_vs_cpu(torch, arch, card, twins):
+    """(b)'s whole-step rules (``step_faults``) on a case's twin ranks'
+    ``leaf_stats``, merged over the pieces."""
+    cfg = dist_config(arch, "bp8_fused", DIST_LAYERS)
+    stats = {}
+    for r in twins:
+        for key, st in r["stats"].items():
+            stats[key] = merge_stats(stats[key], st) if key in stats else st
+    lead_card, lead_cpu = card[0], twins[0]
+    out = {"loss_card": lead_card["loss"], "loss_cpu": lead_cpu["loss"],
+           "grad_norm_card": lead_card["grad_norm"],
+           "grad_norm_cpu": lead_cpu["grad_norm"],
+           "cpu_step_s": lead_cpu["step_s"],
+           "card_step_s": lead_card["step_s"], "plan": lead_card["plan"],
+           "leaves": {}}
+    # the loss within 1e-3, or 1e-5 of it (the tied std-1 embeddings of
+    # granite-moe and minicpm3 give losses of hundreds at full width)
+    faults = step_faults(torch, out, dict(sorted(stats.items())),
+                         "the card's mesh", "the same mesh on the CPU",
+                         f"{cfg.name}, {DIST_LAYERS} layers, (stage 2, "
+                         f"model 2)", max(1e-3, 1e-5 * abs(lead_cpu["loss"])))
+    if faults:
+        fail(f"phase 14(b) {arch}: " + "; ".join(faults))
+    return {k: v for k, v in out.items() if k != "leaves"} | {
+        "least_cosine": min(v["cosine"] for v in out["leaves"].values()
+                            if v.get("cosine") is not None)}
+
+
+def phase_dist(torch, timer, build):
+    """Phase 14: the distributed layer.  (a) the kernels at a rank's shard
+    shapes; (b) the mesh steps at full width and 2 layers (4 for the
+    stage x TP case) against the single-process card step and, on (stage
+    2, model 2) in ``bp8_fused``, against the same mesh on 4 gloo CPU
+    ranks; (c) h2o-danube-1.8b whole on (stage 2, model 2), its
+    checkpoint restored bitwise and resumed in this process without a
+    mesh.  The card's ranks are 4 processes on cuda:0 over gloo, started
+    here with their 4 twins on the CPU; (c)'s steps run first, while the
+    twins wait at a barrier, so that no CPU step of a twin loads the host
+    under them.  Returns the kernel rows,
+    the launches of (c) summed over the ranks, and a report."""
+    import shutil
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.train.train_step import TrainPlan
+    report = {}
+    plan = TrainPlan.for_shape(
+        dist_config("h2o_danube_1p8b"),
+        ShapeConfig("t", "train", DIST_SEQ, DIST_BATCH), data_shards=1,
+        pipeline_stages=DIST_SHAPE["stage"])
+    m = DIST_SEQ * DIST_BATCH // plan.pipeline_microbatches
+    t0 = time.perf_counter()
+    rows = dist_kernel_rows(torch, timer, m)
+    report["a_s"] = time.perf_counter() - t0
+    print(f"phase 14(a) kernels at a rank's shard shapes: "
+          f"{report['a_s']:.1f}s")
+
+    ckpt_dir = ROOT / "build" / "phase14_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    tm = {}
+    ranks = launch_ranks(dist_rank, len(CARD + TWINS), _world_cases(),
+                         str(ckpt_dir), device=["cuda"] * len(CARD)
+                         + ["cpu"] * len(TWINS), timeout=DIST_TIMEOUT,
+                         threads=[1] * len(CARD) + [2] * len(TWINS),
+                         timings=tm)
+    card, twins = ranks[:len(CARD)], ranks[len(CARD):]
+    report["world_s"] = time.perf_counter() - t1
+    print(f"phase 14 world (4 card ranks and their 4 CPU twins): "
+          f"{report['world_s']:.1f}s; per case on the card's rank 0: "
+          + ", ".join(f"{k} {v['s']:.1f}s" for k, v in card[0].items())
+          + "; on its twin: " + ", ".join(
+              f"{k} {v['s']:.1f}s" for k, v in twins[0].items()))
+    b = tm["began"]
+    span = {k: (min(r[k] for r in tm["ranks"]) - b,
+                max(r[k] for r in tm["ranks"]) - b)
+            for k in ("started", "ready", "done", "arrived")}
+    report["world_timeline"] = span | {"joined": tm["joined"] - b}
+    print("phase 14 world's timeline (s from the launch, first and last "
+          "rank): " + ", ".join(f"{k} {a:.1f}-{z:.1f}"
+                                for k, (a, z) in span.items())
+          + f", joined {tm['joined'] - b:.1f}")
+    transports = sorted({t for r in ranks for v in r.values()
+                         for t in v["transport"]})
+    print(f"phase 14 transports: {transports} (backend gloo: the 4 card "
+          f"ranks share one card; CUDA tensors through pinned host copies)")
+    report["transports"] = transports
+
+    # (b) against the single-process card step
+    cases = _world_cases()
+    held = {name: r[name]["result"] for name, c in cases
+            if c["kind"] == "vs_single" for r in card
+            if name in r and r[name]["lead"]}
+    for name, res in held.items():
+        for run, h in res.items():
+            print(f"phase 14(b) {name} ({run}) vs the single-process card "
+                  f"step: loss {h['loss']:.6f} vs {h['loss_single']:.6f} "
+                  f"({h['loss_rel']:.3g} relative), least cosine "
+                  f"{h['least_cosine']:.7f}, largest difference "
+                  f"{h['worst_of_max']:.3g} of a leaf's largest "
+                  f"({h['rule']}): {'held' if h['ok'] else 'PAST'}")
+            if not h["ok"]:
+                fail(f"phase 14(b) {name} ({run}): {h}")
+    if len(held) != 4:
+        fail(f"phase 14(b): {sorted(held)} held, not the 4 cases")
+    report["vs_single"] = held
+    # (b) against the same mesh on the CPU
+    report["vs_cpu"] = {
+        c["arch"]: _step_vs_cpu(torch, c["arch"],
+                                [r[name]["result"] for r in card],
+                                [r[name]["result"] for r in twins])
+        for name, c in cases if c["kind"] == "step_pair"}
+    report["b_reduced"] = DIST_REDUCED
+
+    # (c)
+    full = [r["full"]["result"] for r in card]
+    del card
+    gc.collect()
+    launches, report["c"] = dist_full_report(torch, full, plan)
+    t2 = time.perf_counter()
+    report["c"]["restore"] = dist_restore(torch, full, ckpt_dir)
+    report["c_restore_s"] = time.perf_counter() - t2
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return rows, launches, report
+
+
+def dist_full_report(torch, full, plan):
+    """(c)'s checks and numbers over the 4 ranks' results."""
+    per_step = (full[0]["layers_per_stage"] * plan.pipeline_microbatches
+                * 2 * DIST_STEPS)
+    want = {"absmax": 13 * per_step, "fused_matmul": 5 * per_step,
+            "fused_mlp": per_step}
+    launches = {k: 0 for k in want}
+    for r in full:
+        got = {k: r["launches"].get(k, 0) for k in want}
+        if got != want:
+            fail(f"phase 14(c): rank {r['coords']} launched {got}, expected "
+                 f"{want} (13 absmax, 5 matmuls, 1 MLP a layer of its "
+                 f"{r['layers_per_stage']}, each of "
+                 f"{plan.pipeline_microbatches} microbatches forward and "
+                 f"recomputed)")
+        for k in want:
+            launches[k] += got[k]
+    lead = full[0]
+    norms, losses = lead["grad_norms"], lead["losses"]
+    if len(norms) != DIST_STEPS or not all(math.isfinite(g) and g > 0
+                                           for g in norms):
+        fail(f"phase 14(c): gradient norms {norms}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 14(c): losses {losses}")
+    still = [(r["coords"], k) for r in full for k, v in r["moved"].items()
+             if v == 0]
+    if still:
+        fail(f"phase 14(c): pieces that did not move: {still}")
+    steps = [max(r["step_s"][i] for r in full) for i in range(DIST_STEPS)]
+    med = sorted(steps[1:])[len(steps[1:]) // 2]
+    tokens = DIST_SEQ * DIST_BATCH
+    peaks = [r["peak_gb"] for r in full]
+    waits = []
+    for r in full:
+        w = sum(v["s"] for k, v in r["transport"].items()
+                if k.split(" ")[0] in ("send", "send_wait", "recv",
+                                       "all_reduce_sum", "all_reduce_max"))
+        waits.append(w / sum(r["step_s"]))
+    idle = [sum(t["total_s"] - t["forward_s"] - t["backward_s"]
+                for t in r["stage_times"]) / sum(t["total_s"]
+                                                 for t in r["stage_times"])
+            for r in full]
+    print(f"phase 14(c): h2o-danube-1.8b whole (24 layers, d_model 2560), "
+          f"bp8_fused, on {DIST_SHAPE} (4 gloo ranks on one card), "
+          f"{DIST_STEPS} steps of {DIST_BATCH} x {DIST_SEQ} tokens in "
+          f"{plan.pipeline_microbatches} microbatches; step times "
+          + ", ".join(f"{x:.3f}" for x in steps)
+          + f" s (slowest rank; median past the first {med:.3f} s = "
+          f"{tokens / med:.1f} training tokens/s); losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; gradient norms "
+          + ", ".join(f"{g:.4f}" for g in norms) + "; peak device memory "
+          "by rank " + ", ".join(f"{p:.2f}" for p in peaks)
+          + f" GB, sum {sum(peaks):.2f} GB (one process, phase 8: 51.15 GB, "
+          f"f32 moments); share of the steps waiting in sends, receives "
+          "and all-reduces by rank " + ", ".join(f"{w:.3f}" for w in waits)
+          + "; a stage's idle share of its flushes by rank "
+          + ", ".join(f"{x:.3f}" for x in idle)
+          + f" (plan's bubble {plan.bubble:.3f}); launches (all ranks) "
+          f"{launches}")
+    print(f"phase 14(c): each rank's train() {[round(r['wall_s'], 1) for r in full]}"
+          f" s, of it the steps {[round(sum(r['step_s']), 1) for r in full]}"
+          f" s; the checkpoint's snapshot and write on rank 0 "
+          f"{full[0]['ckpt_s']}")
+    for r in full:
+        print(f"  rank {r['coords']}: transport "
+              + ", ".join(f"{k} {v['calls']} calls {v['s']:.3f}s "
+                          f"{v['bytes'] / 1e9:.3f} GB"
+                          for k, v in sorted(r["transport"].items())))
+    return launches, {
+        "mesh": DIST_SHAPE, "steps": DIST_STEPS, "step_s": steps,
+        "median_step_s": med, "tokens_per_s": tokens / med,
+        "losses": losses, "grad_norms": norms, "peak_gb": peaks,
+        "peak_sum_gb": sum(peaks), "wait_share": waits,
+        "idle_share": idle, "bubble_plan": plan.bubble,
+        "microbatches": plan.pipeline_microbatches, "launches": launches,
+        "wall_s": [r["wall_s"] for r in full],
+        "transport": [r["transport"] for r in full]}
+
+
+def dist_restore(torch, full, ckpt_dir, dev="cuda"):
+    """(c)'s checkpoint in this process without a mesh: restored, each
+    rank's pieces cut from it against the digests the ranks took of
+    theirs (bitwise), then ``train()`` continuing from the restored state
+    for one more step (it writes no second checkpoint)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = dist_config("h2o_danube_1p8b")
+    model = build_model(cfg)
+    gc.collect()
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    step = ckpt.latest_step(str(ckpt_dir))
+    if step != DIST_STEPS:
+        fail(f"phase 14(c): the mesh's checkpoint is of step {step}")
+    # the restore checks the tree's structure only: placeholders will do
+    zeros = tree_map(lambda d: 0, model.schema())
+    like = {"state": {"params": zeros, "opt": {"m": zeros, "v": zeros,
+                                               "step": 0}},
+            "extra": {"data": 0, "rng": 0}}
+    t0 = time.perf_counter()
+    payload = ckpt.restore(str(ckpt_dir), step, like)
+    state = payload["state"]
+    read_s = time.perf_counter() - t0
+    geom = payload["extra"]["data"].tolist()
+    if geom != [0, DIST_STEPS, DIST_BATCH, DIST_SEQ]:
+        fail(f"phase 14(c): the checkpoint's data geometry {geom}")
+    bad, seen = [], {}
+    for r in full:
+        places = _piece_places(model, DIST_SHAPE, r["coords"])
+        for path, t in tree_leaves(state):
+            key = "/".join(path)
+            leaf = path[1:] if path[0] == "params" else path[2:]
+            cuts = places["/".join(leaf)][0] if leaf else []
+            if (key, tuple(cuts)) not in seen:
+                seen[(key, tuple(cuts))] = _bits_digest(
+                    torch, _cut_piece(t, cuts).to(dev))
+            if seen[(key, tuple(cuts))] != r["digests"][key]:
+                bad.append((r["coords"], key))
+    if bad:
+        fail(f"phase 14(c): restored pieces differ from the ranks': {bad}")
+    state = tree_map(lambda t: t.to(dev), state)
+    t1 = time.perf_counter()
+    _, hist = train(model, cfg, ShapeConfig("train", "train", DIST_SEQ,
+                                            DIST_BATCH),
+                    TrainerConfig(total_steps=DIST_STEPS + 1),
+                    opt_cfg=dist_full_opt(), state=state,
+                    start_step=DIST_STEPS, device=dev)
+    resume_s = time.perf_counter() - t1
+    if [h["step"] for h in hist] != [DIST_STEPS + 1] or not math.isfinite(
+            hist[0]["loss"]):
+        fail(f"phase 14(c): resuming without a mesh ran {hist}")
+    print(f"phase 14(c): the mesh's checkpoint (step {step}) restored in "
+          f"one process without a mesh in {read_s:.1f}s, every rank's pieces "
+          f"bitwise; train() continued from it at step {hist[0]['step']}, "
+          f"loss {hist[0]['loss']:.4f} ({resume_s:.1f}s)")
+    return {"read_s": read_s, "resumed": hist, "resume_s": resume_s}
+
+
+class _Shape:
+    """A mesh's shape for ``param_placements`` (which reads its plan from
+    the shape alone)."""
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -4746,7 +5587,7 @@ def main() -> None:
         elif k.endswith("_kernels_per_call"):
             print(f"  {k}: {v}")
 
-    # ---- phase 3: card vs CPU at full width, 2 layers ----
+    # ---- phase 3: card vs CPU at full width, CPU_CHECK_LAYERS ----
     rng = np.random.default_rng(0)
     full = dataclasses.replace(get_config("h2o_danube_1p8b"),
                                matmul_mode="bp8_fused", kv_quant="bp8")
@@ -4755,7 +5596,8 @@ def main() -> None:
     report["cpu_s"] = {}
     for mode in ("bp8_fused", "bp8"):
         with Phase(f"3 card vs cpu, {mode}", report):
-            cfg2 = dataclasses.replace(full, num_layers=2, matmul_mode=mode)
+            cfg2 = dataclasses.replace(full, num_layers=CPU_CHECK_LAYERS,
+                                       matmul_mode=mode)
             report["cpu_s"][mode] = card_vs_cpu(torch, cfg2, prompts)
 
     # ---- phase 4: the served path, full model ----
@@ -4886,8 +5728,15 @@ def main() -> None:
         ft_rows, ft_launches, report["phase13"] = phase_train_families(
             torch, timer, build)
 
+    # ---- phase 14: the distributed layer ----
+    with Phase("14 the distributed layer (mesh, sharding, TP, pipeline)",
+               report):
+        dist_rows, dist_launches, report["phase14"] = phase_dist(
+            torch, timer, build)
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
-                     "train_bp8_fused": train_launches}
+                     "train_bp8_fused": train_launches,
+                     DIST_PATH: dist_launches}
     for arch, path in GEMMA_PATHS.items():
         path_launches[path] = gemma_launches[arch]
     for arch, path in MOE_PATHS.items():
@@ -4915,7 +5764,8 @@ def main() -> None:
                              for n, r in path_rows.items()]
                           + [(n, FT_PATHS[arch], r)
                              for arch, arch_rows in ft_rows.items()
-                             for n, r in arch_rows.items()]):
+                             for n, r in arch_rows.items()]
+                          + [(n, DIST_PATH, r) for n, r in dist_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)
         t_ops = sum(x[2] for x in b)
@@ -4928,6 +5778,9 @@ def main() -> None:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r["library_ms"]})
     report["kernels"] = kernels
+    print("phase seconds: " + ", ".join(
+        f"{k.split(' ')[0]} {v:.1f}" for k, v in report["phase_s"].items())
+        + f"; in all {sum(report['phase_s'].values()):.1f}")
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

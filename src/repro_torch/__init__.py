@@ -32,5 +32,8 @@ pipeline, checkpoints in the reference's on-disk format and the trainer.
   train/     ``TrainPlan``, the train step, the trainer
   ckpt/      checkpoints (the reference's format) and the async manager
   runtime/   failure injection, straggler monitor, supervisors
-  launch/    the serving and training CLIs
+  dist/      the sharding rules, tensor parallelism and the GPipe/1F1B
+             pipeline over meshes of ranks
+  launch/    the serving and training CLIs, meshes of ranks over
+             ``torch.distributed`` and their launcher
 """

@@ -120,9 +120,14 @@ def _unstorable(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr).view(_codec.DTYPES[logical])
 
 
+def _crc(arr: np.ndarray) -> int:
+    """crc32 of an array's bytes, read in place (no copy of the leaf)."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
 def _logical_crc(t: torch.Tensor) -> int:
     store, _ = _storable(t)
-    return zlib.crc32(store.tobytes())
+    return _crc(store)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +225,7 @@ def write_snapshot(directory: str, step: int, snap: Snapshot, *,
             _write_npy(os.path.join(tmp, fname), store)
             manifest["leaves"].append({
                 "file": fname, "shape": list(leaf.shape),
-                "dtype": logical, "crc32": zlib.crc32(store.tobytes()),
+                "dtype": logical, "crc32": _crc(store),
             })
             stored_bytes += nbytes
         if throttle_s:
@@ -332,7 +337,7 @@ def _load_leaf(path: str, meta: Dict[str, Any], index: int) -> torch.Tensor:
                 f"crc {crc} != {meta['crc32']}")
         return t
     arr = np.load(os.path.join(path, meta["file"]))
-    crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+    crc = _crc(arr)
     if crc != meta["crc32"]:
         raise CheckpointCorruption(
             f"checkpoint corruption in leaf {index} "

@@ -24,8 +24,10 @@ flight (``ckpt.overlapped_steps``).  Durations and queue depth go to the
 ``repro_torch.obs`` registry, and snapshot/write/restore show as spans
 (the writer on a trace lane of its own).
 
-``restore(like, device=...)`` puts the leaves on one device; restoring
-onto another mesh carving waits for the port's ``dist/``.
+``restore(like, device=...)`` puts the whole leaves on one device; on
+a mesh the trainer cuts each rank's pieces from them
+(``train_step.shard_state``), so a checkpoint resumes on any mesh or
+none (the reference's elastic restore).
 """
 from __future__ import annotations
 

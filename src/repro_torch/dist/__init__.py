@@ -1,0 +1,14 @@
+"""Distributed training over meshes of ranks (``torch.distributed``).
+
+  * :mod:`repro_torch.dist.sharding`: logical-axis rules -> per-leaf
+    placements, and cutting a leaf into a rank's piece and back;
+  * :mod:`repro_torch.dist.tp`: tensor parallelism over "model" (the
+    plan, the placements, the Megatron f/g operators, the two BP scale
+    rules);
+  * :mod:`repro_torch.dist.pipeline`: pipeline parallelism over "stage"
+    (stage stacking, the GPipe and 1F1B timetables, their executor).
+
+The meshes themselves are ``repro_torch.launch.mesh``'s.  Nothing here
+touches a device or a process group at import.
+"""
+from repro_torch.dist import pipeline, sharding, tp  # noqa: F401

@@ -31,8 +31,9 @@ is not counted, and a replay calls no op.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -48,6 +49,36 @@ _TINY = float(torch.finfo(torch.float32).tiny)
 
 def _scale(x: torch.Tensor) -> torch.Tensor:
     return _f.absmax(x, _TINY)
+
+
+#: a function that reduces a (n,) f32 tensor of scales in place across
+#: ranks (``dist.tp.global_scales``), or None; process-wide, since
+#: autograd recomputes a remat'd layer on a thread of its own
+_REDUCE_SCALES = [None]
+
+
+@contextlib.contextmanager
+def reduced_scales(reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """Pass every scale the ops take through ``reduce`` (one call for an
+    op's scales) while the block runs, forward and backward."""
+    prev = _REDUCE_SCALES[0]
+    _REDUCE_SCALES[0] = reduce
+    try:
+        yield
+    finally:
+        _REDUCE_SCALES[0] = prev
+
+
+def _scales(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each tensor's absmax scale, (1, 1) f32 floored at tiny; reduced
+    across ranks in one call when ``reduced_scales`` is active."""
+    out = tuple(_scale(t) for t in ts)
+    reduce = _REDUCE_SCALES[0]
+    if reduce is None:
+        return out
+    flat = torch.cat([s.reshape(1) for s in out])
+    reduce(flat)
+    return tuple(flat[i:i + 1].reshape(1, 1) for i in range(len(ts)))
 
 
 def _weight(w: torch.Tensor) -> torch.Tensor:
@@ -79,7 +110,7 @@ def oisma_matmul_unfused(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     fused epilogue's association ``acc * ((sx * sy) * 0.1)``."""
     x = x.to(torch.float32).contiguous()
     y = _weight(y)
-    sx, sy = _scale(x), _scale(y)
+    sx, sy = _scales(x, y)
     acc = _k.bp_matmul(_k.bp_quantize(x, sx), _k.bp_quantize(y, sy))
     return acc * ((sx * sy) * 0.1)
 
@@ -134,12 +165,13 @@ def oisma_matmul(x: torch.Tensor, y: torch.Tensor, *,
             raise ValueError("coded y needs y_scale (see prepare_bp_weight)")
         y = y.contiguous()
         sy = y_scale.to(torch.float32).reshape(1, 1).contiguous()
+        (sx,) = _scales(x)
     elif torch.is_floating_point(y):
         y = _weight(y)
-        sy = _scale(y)
+        sx, sy = _scales(x, y)
     else:
         raise TypeError(f"y must be real or int8 codes, not {y.dtype}")
-    return _f.fused_bp_matmul(x, y, _scale(x), sy)
+    return _f.fused_bp_matmul(x, y, sx, sy)
 
 
 def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
@@ -153,8 +185,7 @@ def oisma_mlp(x: torch.Tensor, w_up: torch.Tensor, w_gate: torch.Tensor, *,
     _record("fused_mlp", x, k, w_up.shape[1])
     x = x.to(torch.float32).contiguous()
     up, gate = _weight(w_up), _weight(w_gate)
-    return _f.fused_mlp(x, up, gate, _scale(x), _scale(up), _scale(gate),
-                        act=act)
+    return _f.fused_mlp(x, up, gate, *_scales(x, up, gate), act=act)
 
 
 # ---------------------------------------------------------------------------

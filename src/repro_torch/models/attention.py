@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import device_constant
+from repro_torch.dist import tp as _tp
 from repro_torch.kernels import attention as kq
 from repro_torch.models.layers import (ParamDef, apply_rope, dense,
                                        linear_def, norm_def, rms_norm)
@@ -286,7 +287,16 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     b, sq, _ = x.shape
     h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mode = cfg.matmul_mode
-    q = dense(x, p["wq"], mode, p.get("bq")).reshape(b, sq, h, d)
+    # tensor parallelism (training under a plan, dist/tp.py): wq/wo (and
+    # in "shard" kv mode wk/wv) hold this rank's heads; the local head
+    # counts come from the weights' shapes
+    tpc = _tp.current_tp()
+    tp_attn = (tpc is not None and tpc.plan.shard_heads
+               and cross_kv is None and cache is None)
+    group = tp_attn and tpc.plan.kv_mode == _tp.KV_GROUP
+    col = "col" if tp_attn else None
+    q = dense(x, p["wq"], mode, p.get("bq"), tp=col).reshape(b, sq, -1, d)
+    h_loc = q.shape[2]
     q_pos = positions if positions.dim() == 2 else positions[None].expand(
         b, sq)
     if cross_kv is not None:
@@ -299,11 +309,20 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                    prefix_len=prefix_len)
         out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
         return out, cache
-    k = dense(x, p["wk"], mode, p.get("bk")).reshape(b, sq, kh, d)
-    v = dense(x, p["wv"], mode, p.get("bv")).reshape(b, sq, kh, d)
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if group:   # replicated leaves whose use is split: "g" on each
+        wk, wv = _tp.tp_gather(wk, tpc), _tp.tp_gather(wv, tpc)
+        bk = None if bk is None else _tp.tp_gather(bk, tpc)
+        bv = None if bv is None else _tp.tp_gather(bv, tpc)
+    if tp_attn and cfg.qk_norm:
+        q_norm, k_norm = (_tp.tp_gather(q_norm, tpc),
+                          _tp.tp_gather(k_norm, tpc))
+    k = dense(x, wk, mode, bk, tp=col).reshape(b, sq, -1, d)
+    v = dense(x, wv, mode, bv, tp=col).reshape(b, sq, -1, d)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -365,10 +384,16 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             k_all, v_all = k, v
         kv_pos = q_pos
     if out is None:
+        if group:
+            # kv_heads < tp: every rank computes the whole (small) k/v and
+            # slices the one kv head its contiguous q-head block maps to
+            kvh = (_tp.tp_index(tpc) * h_loc) // (h // kh)
+            k_all, v_all = k_all[:, :, kvh:kvh + 1], v_all[:, :, kvh:kvh + 1]
         out = sdpa(q, k_all, v_all, q_pos, kv_pos, causal=causal,
                    window=window, chunk=cfg.attn_chunk,
                    softcap=cfg.logit_softcap, prefix_len=prefix_len)
-    out = dense(out.reshape(b, sq, h * d).to(x.dtype), p["wo"], mode)
+    out = dense(out.reshape(b, sq, h_loc * d).to(x.dtype), p["wo"], mode,
+                tp="row" if tp_attn else None)
     return out, cache
 
 
@@ -410,16 +435,19 @@ def mla_defs(cfg: ModelConfig, dtype=torch.bfloat16):
     return defs
 
 
-def _mla_q(p, cfg: ModelConfig, x: torch.Tensor):
-    """(q_nope, q_rope): (B, S, H, nope) and (B, S, H, rope)."""
+def _mla_q(p, cfg: ModelConfig, x: torch.Tensor, tpc=None):
+    """(q_nope, q_rope): (B, S, H, nope) and (B, S, H, rope); under a TP
+    plan ``tpc`` the rank's heads (the latent ``wdq``/``q_norm``
+    replicated, their output entering the split through "g")."""
     b, s, _ = x.shape
     qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     mode = cfg.matmul_mode
+    col = "col" if tpc is not None else None
     if cfg.q_lora_rank:
         ql = rms_norm(dense(x, p["wdq"], mode), p["q_norm"], cfg.norm_eps)
-        q = dense(ql, p["wuq"], mode)
+        q = dense(ql, p["wuq"], mode, tp=col)
     else:
-        q = dense(x, p["wq"], mode)
+        q = dense(x, p["wq"], mode, tp=col)
     q = q.reshape(b, s, -1, qk)
     return q[..., :cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
 
@@ -448,7 +476,12 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     instead of O(S * H * head_dim)."""
     b, sq, _ = x.shape
     mode = cfg.matmul_mode
-    q_nope, q_rope = _mla_q(p, cfg, x)
+    # tensor parallelism (training under a plan, dist/tp.py): the latent
+    # projections are replicated, wuq/wuk/wuv/wo hold this rank's heads
+    tpc = _tp.current_tp()
+    tpc = tpc if (tpc is not None and tpc.plan.shard_heads
+                  and cache is None) else None
+    q_nope, q_rope = _mla_q(p, cfg, x, tpc)
     dkv = dense(x, p["wdkv"], mode)
     ckv = rms_norm(dkv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     krope = dkv[..., cfg.kv_lora_rank:]                     # (B, S, rope)
@@ -493,6 +526,9 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             kr_e = krope.to(torch.bfloat16).to(torch.float32)
         else:
             ckv_e, kr_e = ckv.to(torch.float32), krope.to(torch.float32)
+        if tpc is not None:   # the shared latents enter the head split
+            ckv_e = _tp.tp_gather(ckv_e, tpc)
+            kr_e = _tp.tp_gather(kr_e, tpc)
         q, k, v = _mla_expand(p, cfg, q_nope, q_rope, ckv_e, kr_e)
         out = sdpa(q, k, v, q_pos, q_pos, causal=True, window=window,
                    chunk=cfg.attn_chunk)
@@ -501,4 +537,5 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                 cache[key][:, :sq] = val.to(cache[key].dtype)
             cache["pos"][:, :sq] = q_pos.to(torch.int32)
     out = out.reshape(b, sq, -1).to(x.dtype)
-    return dense(out, p["wo"], mode), cache
+    return dense(out, p["wo"], mode,
+                 tp="row" if tpc is not None else None), cache

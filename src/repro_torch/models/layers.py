@@ -19,29 +19,66 @@ import torch
 from repro_torch.core import bp_matmul as _bpm
 from repro_torch.core import quantize as _q
 from repro_torch.device import device_constant
+from repro_torch.dist import tp as _tp
 from repro_torch.kernels import ops as _ops
 from repro_torch.models.params import ParamDef
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, mode: str = "bf16",
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (..., K) @ w: (K, N) under the configured matmul mode."""
-    if mode == "bf16":
-        y = torch.matmul(x, w.to(x.dtype))
+          bias: Optional[torch.Tensor] = None,
+          tp: Optional[str] = None) -> torch.Tensor:
+    """x: (..., K) @ w: (K, N) under the configured matmul mode.
+
+    ``tp`` marks a projection under an installed TP plan (``dist/tp.py``):
+    "col" (w holds this rank's output columns) or "row" (its input rows:
+    the output is summed over the TP group).  A "col" projection's input
+    enters through "g" in f32, so that its gradient is summed before its
+    one cast; a "row" one's BP output is summed in f32 before the cast in
+    the global regime, after it per shard (the reference's psum follows
+    ``dense``), and a bf16 one in f32 in both."""
+    tpc = _tp.current_tp() if tp else None
+    col, row = tpc is not None and tp == "col", tpc is not None and \
+        tp == "row"
+    if row and bias is not None:
+        raise ValueError("a row-parallel projection takes no bias")
+    if mode == "bf16" and (row or col):
+        # a split bf16 matmul in f32 (its products are exact), summed or
+        # back-propagated in f32 and cast once, as the whole matmul's
+        # f32 accumulation is: no scale is involved, in either regime
+        xf = x.to(torch.float32)
+        if col:
+            xf = _tp.tp_gather(xf, tpc)
+        y = torch.matmul(xf, w.to(x.dtype).to(torch.float32))
+        if row:
+            y = _tp.tp_psum(y, tpc)
+        y = y.to(x.dtype)
+    elif mode in ("bf16", "fp8"):
+        if col:
+            x = _tp.tp_gather(x, tpc)
+        if mode == "bf16":
+            y = torch.matmul(x, w.to(x.dtype))
+        else:
+            xq = _q.fake_quantize_e4m3(x.to(torch.float32))
+            wq = _q.fake_quantize_e4m3(w.to(torch.float32))
+            y = torch.matmul(xq, wq).to(x.dtype)
+        if row:
+            y = _tp.tp_psum(y, tpc)
     elif mode in ("bp8", "bp8_lowrank", "bp8_fused"):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        if col:     # "g" in f32: each projection's gradient cast once
+            x2 = _tp.tp_gather(x2, tpc)
         if mode == "bp8_fused":         # w as held: the kernels read bf16
             y = _ops.oisma_matmul_ste(x2, w)
         else:
             y = _bpm.bp_matmul_ste(
                 x2, w.to(torch.float32),
                 impl="bitplane" if mode == "bp8" else "lowrank")
+        if row and tpc.exact:
+            y = _tp.tp_psum(y, tpc)
         y = y.reshape(*lead, w.shape[-1]).to(x.dtype)
-    elif mode == "fp8":
-        xq = _q.fake_quantize_e4m3(x.to(torch.float32))
-        wq = _q.fake_quantize_e4m3(w.to(torch.float32))
-        y = torch.matmul(xq, wq).to(x.dtype)
+        if row and not tpc.exact:
+            y = _tp.tp_psum(y, tpc)
     else:
         raise ValueError(f"unknown matmul mode {mode!r}")
     if bias is not None:
@@ -145,21 +182,28 @@ def mlp_defs(d_model: int, d_ff: int, gated: bool, dtype=torch.bfloat16):
 
 def mlp_apply(p, x: torch.Tensor, act: str, gated: bool,
               mode: str) -> torch.Tensor:
+    """Under a TP plan that splits the ffn dim, up and gate are
+    column-parallel and down row-parallel (``dist/tp.py``)."""
+    tpc = _tp.current_tp()
+    tp_on = tpc is not None and tpc.plan.shard_ffn
     if mode == "bp8_fused" and gated and act in ("silu", "gelu", "relu"):
         # one kernel: up and gate share one BP encode of x, the weights
         # are read as held, and the two (tokens, d_ff) projections never
         # reach device memory
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        if tp_on:
+            x2 = _tp.tp_gather(x2, tpc)
         up = _ops.oisma_mlp_ste(x2, p["up"], p["gate"], act=act)
         up = up.reshape(*lead, p["up"].shape[-1]).to(x.dtype)
     else:
-        up = dense(x, p["up"], mode)
+        col = "col" if tp_on else None
+        up = dense(x, p["up"], mode, tp=col)
         if gated:
-            up = activation(dense(x, p["gate"], mode), act) * up
+            up = activation(dense(x, p["gate"], mode, tp=col), act) * up
         else:
             up = activation(up, act)
-    return dense(up, p["down"], mode)
+    return dense(up, p["down"], mode, tp="row" if tp_on else None)
 
 
 def embed_def(vocab: int, d_model: int, dtype=torch.bfloat16) -> ParamDef:

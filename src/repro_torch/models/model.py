@@ -20,7 +20,7 @@ zamba2 Mamba2 layer (not the shared block) and each xlstm mLSTM block
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +34,8 @@ from repro_torch.models.layers import (chunked_softmax_xent, dense,
                                        embed_def, embed_lookup, layer_norm,
                                        linear_def, ln_defs, mlp_apply,
                                        mlp_defs, norm_def, rms_norm)
-from repro_torch.models.params import ParamDef, stack, tree_map
+from repro_torch.models.params import (ParamDef, stack, tree_leaves,
+                                       tree_map, tree_unflatten)
 
 BIG_WINDOW = 1 << 30  # "no window"
 
@@ -304,6 +305,156 @@ class DecoderModel:
         else:              # no experts: the reference's f32 zero
             aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss, {"loss": loss, "aux_loss": aux}
+
+    def pipeline_loss(self, params, batch, *, mesh, num_microbatches: int = 1,
+                      batch_axes: Tuple[str, ...] = ("data",),
+                      schedule: str = "1f1b"):
+        """The train loss on ``mesh`` and its gradients: returns ``(loss,
+        metrics, grads)``, the loss and metrics whole on every rank, the
+        gradients f32 in the shapes of this rank's ``params`` pieces
+        (``dist.tp.param_placements``), already summed over the ranks that
+        hold the same piece.  Torch has no autograd across ranks, so this
+        runs the backward too (``dist.pipeline.pipeline_grads``).
+
+        The layer stack runs over the "stage" axis in ``num_microbatches``
+        microbatches in ``schedule``'s order; a depth the stage count does
+        not divide leaves the last stage fewer layers (the reference pads
+        it with identity layers).  Each stage runs its layers with their
+        windows, each layer recomputed in the backward when ``cfg.remat``.
+        The embedding and the dense first layers (on stage 0, over the
+        whole batch) and the final norm and chunked cross-entropy (on the
+        last stage) stay outside the pipeline, as the reference's do.
+        The per-microbatch batch splits over ``batch_axes`` (row-major:
+        microbatch m, then the data shard, as the reference's reshape and
+        ``shard_map`` split it); the loss is normalised by the whole
+        batch's mask.  Tensor parallelism over "model" runs inside the
+        stages under ``plan_stage_tp(cfg, mesh)``: in the per-shard scale
+        regime on a stage mesh, in the global one on a mesh without
+        stages (``dist.tp``).  The MoE aux loss is averaged over the
+        (microbatch x data shard) chunks, the reference's redefinition:
+        dense stacks equal ``loss`` up to float reassociation."""
+        import contextlib
+        from repro_torch.dist import pipeline as pp
+        from repro_torch.dist import tp as mtp
+        cfg = self.cfg
+        if cfg.num_prefix_tokens:
+            raise ValueError("the pipelined loss takes no prefix tokens")
+        S, stage = mesh.size("stage"), mesh.index("stage")
+        exact = S == 1
+        batch_axes = tuple(a for a in batch_axes if a in mesh.shape)
+        plan = mtp.plan_stage_tp(cfg, mesh)
+        M = num_microbatches
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        D, di = mesh.size(batch_axes), mesh.index(batch_axes)
+        if b % M or (b // M) % D:
+            raise ValueError(f"batch {b} does not split into {M} "
+                             f"microbatches of {D} data shards")
+        bm, bl = b // M, b // M // D
+
+        def rows(m: int) -> slice:
+            return slice(m * bm + di * bl, m * bm + (di + 1) * bl)
+
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        windows = _layer_windows(cfg)
+        n_dense = cfg.first_dense_layers
+        lo, hi = pp.stage_layers(cfg.num_layers - n_dense, S, stage)
+        layers = _unstacked(params["layers"], hi - lo)
+        first, last = stage == 0, stage == S - 1
+        leaves = tree_leaves(params)
+        index = {path: i for i, (path, _) in enumerate(leaves)}
+        grads = [None] * len(leaves)
+        scales = (mtp.global_scales(mesh, batch_axes + ("model",))
+                  if exact else contextlib.nullcontext())
+        with scales:
+            x_all = x_det = dx_all = None
+            if first:   # the embedding and dense layers: the whole batch
+                x_all = self._embed_in(params, batch)
+                pos = torch.arange(s, device=x_all.device)[None].expand(b, s)
+                for i, lp in enumerate(_unstacked(params.get(
+                        "dense_layers", {}), n_dense)):
+                    x_all, _ = _run_layer(cfg, self._train_layer, x_all, lp,
+                                          int(windows[i]), pos)
+                x_det = x_all.detach()
+                dx_all = torch.zeros_like(x_det)
+            pos = torch.arange(s, device=tokens.device)[None].expand(bl, s)
+
+            def first_fn(m):
+                return x_det[rows(m)].detach().requires_grad_()
+
+            def on_input_grad(m, g):
+                dx_all[rows(m)] = g
+
+            def stage_fn(a, m):
+                aux = None
+                for i, lp in enumerate(layers):
+                    a, a1 = _run_layer(cfg, self._train_layer, a, lp,
+                                       int(windows[n_dense + lo + i]), pos)
+                    if a1 is not None:
+                        aux = a1 if aux is None else aux + a1
+                return a, aux
+
+            def last_fn(y, m):
+                h = rms_norm(y, params["final_norm"], cfg.norm_eps)
+                total, _ = chunked_softmax_xent(
+                    h, params["embed"] if cfg.tie_embeddings
+                    else params["head"].T, labels[rows(m)], mask[rows(m)],
+                    softcap=cfg.logit_softcap)
+                return total / denom
+
+            mine = [i for i, (path, _) in enumerate(leaves)
+                    if path[0] == "layers" or (last and path[0] in (
+                        "final_norm", "head", "embed"))]
+            chunks = M * D
+            with mtp.use_stage_tp(plan, mesh if plan else None,
+                                  exact=exact):
+                got, loss, aux, times = pp.pipeline_grads(
+                    stage_fn, mesh, M, inputs=[leaves[i][1] for i in mine],
+                    act_shape=(bl, s, cfg.d_model),
+                    act_dtype=leaves[index[("embed",)]][1].dtype,
+                    first_fn=first_fn, last_fn=last_fn,
+                    on_input_grad=on_input_grad,
+                    aux_coef=(0.01 / cfg.num_layers / chunks
+                              if cfg.num_experts else 0.0),
+                    schedule=schedule)
+            for i, g in zip(mine, got):
+                grads[i] = g
+            if first:   # the embedding's and dense layers' backward, once
+                outer = [i for i, (path, _) in enumerate(leaves)
+                         if path[0] in ("embed", "dense_layers")]
+                got = torch.autograd.grad(x_all, [leaves[i][1]
+                                                  for i in outer], dx_all,
+                                          allow_unused=True)
+                for i, g in zip(outer, got):
+                    if g is not None:
+                        g = g.to(torch.float32)
+                        grads[i] = g if grads[i] is None else grads[i] + g
+        out = []
+        for (path, t), g in zip(leaves, grads):
+            g = torch.zeros(t.shape, dtype=torch.float32, device=t.device) \
+                if g is None else g
+            # a layer piece is one stage's; every other leaf every stage's
+            axes = batch_axes if path[0] == "layers" else \
+                ("stage",) + batch_axes
+            out.append(mesh.all_reduce(g, axes))
+        sums = torch.stack([loss, aux])
+        mesh.all_reduce(sums, ("stage",) + batch_axes)
+        loss, aux = sums[0], sums[1] / chunks
+        if cfg.num_experts:
+            loss = loss + 0.01 * aux / cfg.num_layers
+        metrics = {"loss": loss, "aux_loss": aux, "stage_times": times}
+        return loss, metrics, tree_unflatten(params, out)
+
+    def _train_layer(self, x, lp, window: int, positions):
+        """One layer of the pipelined loss: (x, aux or None)."""
+        y, _, aux = _decoder_layer_apply(lp, self.cfg, x, positions,
+                                         window=window)
+        return y, aux
 
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):

@@ -7,8 +7,16 @@ a capacity per expert, each (token, slot)'s rank within its expert
 dropped, the kept slots in (E, C, d) buffers, the expert FFNs batched
 over all E experts as plain matmuls in the activations' type, and the
 weighted combine in f32, plus the shared experts through ``dense`` in
-the config's matmul mode.  Expert and tensor parallelism wait for the
-port's distributed layer.
+the config's matmul mode.
+
+Under a TP plan (training, ``dist/tp.py``) the routed experts split over
+the TP ranks (expert parallelism): the router stays replicated (every
+rank routes every token, the ranks, the capacity and the aux loss
+alike), ``up``/``gate``/``down`` hold a contiguous block of experts,
+each rank dispatches the slots routed to its block, and the combine is
+summed over the ranks ("f"); the routing weights enter the split
+through "g", so that the router's gradient is whole.  The shared
+experts split their ffn dim like a dense MLP.
 
 Every step is a fixed-shape tensor op with no host round trip, so the
 layer runs inside a captured CUDA graph: the capacity is a Python int
@@ -29,6 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp as _tp
 from repro_torch.models.layers import activation, dense
 from repro_torch.models.params import ParamDef
 
@@ -103,14 +112,26 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     capacity = max(capacity, 1)
     r = route(p["router"], cfg, xt, capacity)
     dev = x.device
+    tpc = _tp.current_tp()
+    ep = tpc is not None and tpc.plan.shard_experts
+    shared_tp = (tpc is not None and tpc.plan.shard_shared
+                 and cfg.num_shared_experts > 0)
+
+    # this rank's experts [e0, e0 + e_local): all of them without EP
+    e_local = p["up"].shape[0]
+    e0 = _tp.tp_index(tpc) * e_local if ep else 0
+    xt_e = _tp.tp_gather(xt, tpc) if ep else xt
 
     # dispatch: cell (e, c) holds the slot of rank c in expert e, if kept
     c_idx = torch.arange(capacity, device=dev)
-    filled = c_idx[None, :] < r["counts"][:, None]                 # (E, C)
-    at = torch.where(filled, r["seg_start"][:, None] + c_idx[None, :], 0)
+    counts, seg_start = r["counts"], r["seg_start"]
+    if ep:
+        counts, seg_start = counts[e0:e0 + e_local], seg_start[e0:e0 + e_local]
+    filled = c_idx[None, :] < counts[:, None]                      # (E, C)
+    at = torch.where(filled, seg_start[:, None] + c_idx[None, :], 0)
     tok = torch.div(r["order"][at], k, rounding_mode="floor")
     zero = torch.zeros((), dtype=x.dtype, device=dev)
-    buf = torch.where(filled[..., None], xt[tok], zero)            # (E, C, d)
+    buf = torch.where(filled[..., None], xt_e[tok], zero)          # (E, C, d)
 
     # the expert FFNs, batched over the experts, in the activations' type
     h = activation(torch.bmm(buf, p["gate"].to(x.dtype)), cfg.act) \
@@ -118,20 +139,49 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     yb = torch.bmm(h, p["down"].to(x.dtype))                       # (E, C, d)
 
     # combine: each token's k weighted outputs, summed left to right
-    keep = r["keep"]
     flat_e = r["topi"].reshape(-1)
-    got = yb[flat_e, torch.where(keep, r["rank"], 0)]              # (T*k, d)
+    keep = r["keep"]
+    topw = r["topw"]
+    loc = flat_e
+    if ep:       # this rank's slots only; the weights enter the split
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + e_local)
+        topw = _tp.tp_gather(topw, tpc)
+        loc = torch.clamp(flat_e - e0, 0, e_local - 1)
+    got = yb[loc, torch.where(keep, r["rank"], 0)]                 # (T*k, d)
     got = torch.where(keep[:, None], got, zero).to(torch.float32)
-    w = r["topw"].reshape(-1) * keep
+    w = topw.reshape(-1) * keep
     contrib = (got * w[:, None]).reshape(t, k, d)
     out = torch.zeros((t, d), dtype=torch.float32, device=dev)
     for j in range(k):
         out = out + contrib[:, j]
 
+    shared_out = None
     if cfg.num_shared_experts:
         mode = cfg.matmul_mode
-        shared = activation(dense(xt, p["shared_gate"], mode), cfg.act) \
-            * dense(xt, p["shared_up"], mode)
-        out = out + dense(shared, p["shared_down"], mode).to(torch.float32)
-    return {"out": out.to(x.dtype).reshape(b, s, d),
+        col = "col" if shared_tp else None
+        shared = activation(dense(xt, p["shared_gate"], mode, tp=col),
+                            cfg.act) \
+            * dense(xt, p["shared_up"], mode, tp=col)
+        if shared_tp and tpc.exact:       # summed in f32 before its cast
+            shared_out = dense(shared, p["shared_down"], mode,
+                               tp="row").to(torch.float32)
+            shared_tp = False
+        else:
+            shared_out = dense(shared, p["shared_down"],
+                               mode).to(torch.float32)
+    # the partial sums (this rank's experts, the split shared ffn) go
+    # through one all-reduce; whole ones are added after it
+    partial = out if ep else None
+    whole = None if ep else out
+    if shared_out is not None:
+        if shared_tp:
+            partial = shared_out if partial is None else partial + shared_out
+        else:
+            whole = shared_out if whole is None else whole + shared_out
+    total = whole
+    if partial is not None:
+        total = _tp.tp_psum(partial, tpc)
+        if whole is not None:
+            total = total + whole
+    return {"out": total.to(x.dtype).reshape(b, s, d),
             "aux_loss": r["aux_loss"]}

@@ -50,10 +50,25 @@ def tree_leaves(tree, prefix: Tuple[str, ...] = ()):
     return [(prefix, tree)]
 
 
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` (in ``tree_leaves``'
+    order)."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def stack(schema, n: int, axis_name: str = "stack"):
     """Prepend a stacking dimension to every ParamDef in a subtree."""
     return tree_map(lambda d: ParamDef((n,) + d.shape, (axis_name,) + d.axes,
                                        d.dtype, d.init, d.scale), schema)
+
+
+def axes_tree(schema):
+    """The logical axis names of every leaf of a schema."""
+    return tree_map(lambda d: d.axes, schema)
 
 
 def _init_leaf(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -76,12 +76,16 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(params, grads, opt_state, cfg: OptimizerConfig
+def adamw_update(params, grads, opt_state, cfg: OptimizerConfig,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: returns (new params, new opt state, {"grad_norm",
-    "lr"}).  Nothing is updated in place."""
+    "lr"}).  Nothing is updated in place.  ``gnorm`` is the gradients'
+    global norm when they are one rank's pieces of a sharded tree
+    (``train_step.mesh_grad_norm``), else ``global_norm(grads)``."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.minimum(_f32(1.0, gnorm),
                           cfg.grad_clip / torch.clamp_min(gnorm, 1e-9))
     lr = lr_at(cfg, step)

@@ -12,9 +12,20 @@ in it), ``train.grad_sum`` and ``train.adamw``: a profile of a step
 reads its time by part from them.
 
 ``TrainPlan.for_shape`` is the reference's planner, plain arithmetic on
-the config and the shape, its pipelined branch included.  The pipelined
-step itself (``pipeline_stages > 1``) waits for the port's distributed
-layer, ``dist/``.
+the config and the shape, its pipelined branch included.
+
+On a mesh (``launch.mesh``) the state is held in pieces
+(``dist.tp.param_placements``): the layer stack split over "stage" and
+its heads, ffn and experts over "model"; the embedding, head, final norm
+and dense first layers whole on every rank.  The AdamW moments follow
+their parameters, and are replicated over "data": ZeRO sharding over
+"data" (the reference's "train" rules' ``"d_model": "data"``) is left
+for a later slice (ROADMAP Queue 1 item 5b).  Each accumulation step is
+``DecoderModel.pipeline_loss``: pipelined in ``pipeline_microbatches``
+over a stage mesh (per-shard BP scales, as the reference's
+``shard_map``), or data and tensor parallel on a stage-free one (global
+scales: the unsharded step's function).  The gradient norm for clipping
+counts each element once across the ranks.
 """
 from __future__ import annotations
 
@@ -26,19 +37,20 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import tp as mtp
+from repro_torch.dist.pipeline import bubble_fraction
+from repro_torch.launch.mesh import mesh_axis_size
 from repro_torch.models.model import build
-from repro_torch.models.params import init_params, tree_leaves, tree_map
+from repro_torch.models.params import (_init_leaf, axes_tree, init_params,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state)
 
-NEEDS_DIST = "needs the port's distributed layer (ROADMAP Queue 1 item 5)"
-
-
-def bubble_fraction(num_stages: int, num_microbatches: int) -> float:
-    """Idle fraction of the pipeline: (S - 1) / (M + S - 1)."""
-    if num_stages <= 1:
-        return 0.0
-    return (num_stages - 1) / (num_microbatches + num_stages - 1)
+#: what the decoder family's mesh step does not cover yet
+NEEDS_NEXT = ("is the decoder family's only so far (ROADMAP Queue 1 item "
+              "5b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,18 +143,142 @@ def _layer_param_bytes(cfg: ModelConfig) -> float:
     return n / max(1, cfg.num_layers - cfg.first_dense_layers) * 2.0
 
 
+def param_placements(model, mesh) -> Any:
+    """Placements of ``model``'s params on ``mesh`` (``dist/tp.py``)."""
+    stages = mesh_axis_size(mesh, "stage")
+    return mtp.param_placements(axes_tree(model.schema()),
+                                mtp.plan_stage_tp(model.cfg, mesh),
+                                "stage" if stages > 1 else None)
+
+
+def state_placements(model, mesh) -> Dict[str, Any]:
+    """Placements of the train state {"params", "opt": {m, v, step}}."""
+    pl = param_placements(model, mesh)
+    return {"params": pl, "opt": {"m": pl, "v": pl, "step": ()}}
+
+
+def state_shapes(model) -> Dict[str, Any]:
+    """Whole leaf shapes of the train state."""
+    shapes = tree_map(lambda d: d.shape, model.schema())
+    return {"params": shapes, "opt": {"m": shapes, "v": shapes,
+                                      "step": ()}}
+
+
+def check_mesh(model, mesh, stages: int) -> None:
+    """Refuse what the mesh step does not run: a family other than the
+    decoders (the reference's have no ``pipeline_loss``: a stage mesh
+    fails there too), or a stage count other than the mesh's."""
+    cfg = model.cfg
+    if not hasattr(model, "pipeline_loss"):
+        what = ("a stage mesh (the reference's model of this family has "
+                "no pipeline_loss either)" if mesh_axis_size(mesh, "stage")
+                > 1 else "a mesh")
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): training on "
+                                  f"{what} {NEEDS_NEXT}")
+    if mesh_axis_size(mesh, "stage") != stages:
+        raise ValueError(f"the plan pipelines over {stages} stages, the "
+                         f"mesh has {dict(mesh.shape)}")
+
+
+def mesh_device(mesh, device) -> torch.device:
+    """The mesh's device, when ``device`` (``resolve_device``: CUDA
+    unless "cpu" is asked for) names it; raise when they disagree."""
+    want = resolve_device(device)
+    if want.type != mesh.device.type or (
+            want.index is not None and want.index != mesh.device.index):
+        raise ValueError(f"device {str(want)!r} is not the mesh's "
+                         f"{str(mesh.device)!r}")
+    return mesh.device
+
+
+def mesh_grad_norm(grads, placements, mesh) -> torch.Tensor:
+    """The global gradient norm across the ranks' pieces: a layer piece
+    split over "model" counts on its rank, one held whole by every
+    "model" rank on the first only, the layers' stage pieces summed over
+    "stage"; every other leaf (the same on every rank) once."""
+    dev = tree_leaves(grads)[0][1].device
+    sq_layers = torch.zeros((), dtype=torch.float32, device=dev)
+    sq_rest = torch.zeros((), dtype=torch.float32, device=dev)
+    first_model = mesh.index("model") == 0
+    for (path, g), (_, pl) in zip(tree_leaves(grads),
+                                  tree_leaves(placements)):
+        sq = torch.sum(g.to(torch.float32) * g.to(torch.float32))
+        if path[0] != "layers":
+            sq_rest = sq_rest + sq
+        elif first_model or any(e is not None and "model" in (
+                (e,) if isinstance(e, str) else e) for e in pl):
+            sq_layers = sq_layers + sq
+    mesh.all_reduce(sq_layers, ("stage", "model"))
+    return torch.sqrt(sq_layers + sq_rest)
+
+
+def _make_mesh_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan, mesh):
+    check_mesh(model, mesh, plan.pipeline_stages)
+    M = plan.pipeline_microbatches if plan.pipeline_stages > 1 else 1
+    # split the per-microbatch batch over whatever of (pod, data) divides
+    # it, as the reference filters its shard_map's batch axes
+    sizes, rem, batch_axes = dict(mesh.shape), plan.micro_batch // M, []
+    for a in ("pod", "data"):
+        if a in sizes and rem % sizes[a] == 0:
+            batch_axes.append(a)
+            rem //= sizes[a]
+    placements = param_placements(model, mesh)
+
+    def train_step(state, batch):
+        params = state["params"]
+        mesh_device(mesh, tree_leaves(params)[0][1].device)
+        accum = plan.accum_steps
+        gsum = None
+        lsum = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        times = []
+        for i in range(accum):
+            micro = {k: v.reshape((accum, v.shape[0] // accum)
+                                  + tuple(v.shape[1:]))[i]
+                     for k, v in batch.items()}
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            with record_function("train.pipeline"):   # backward included
+                loss, metrics, grads = model.pipeline_loss(
+                    live, micro, mesh=mesh, num_microbatches=M,
+                    batch_axes=tuple(batch_axes))
+            times.append(metrics["stage_times"])
+            with record_function("train.grad_sum"):
+                if gsum is None:
+                    gsum = grads
+                else:
+                    for (_, acc), (_, g) in zip(tree_leaves(gsum),
+                                                tree_leaves(grads)):
+                        acc.add_(g)
+            lsum = lsum + loss.detach()
+        with record_function("train.grad_sum"):
+            for _, g in tree_leaves(gsum):
+                g.div_(accum)
+        with record_function("train.adamw"):
+            gnorm = mesh_grad_norm(gsum, placements, mesh)
+            new_params, new_opt, om = adamw_update(
+                params, gsum, state["opt"], opt_cfg, gnorm=gnorm)
+        out: Dict[str, Any] = {"loss": lsum / accum, **om,
+                               "step": new_opt["step"], "stage_times": times}
+        return {"params": new_params, "opt": new_opt}, out
+
+    return train_step
+
+
 def make_train_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan,
                     mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
     holds tensors on the state's device; ``state`` is {"params", "opt"}.
-    Every family trains (whisper's batches carry "frames", which the
-    split into micro-batches cuts along the batch as every leaf).
-    Without a mesh only: a mesh or a pipelined plan waits for ``dist/``."""
-    if mesh is not None:
-        raise NotImplementedError(f"training on a mesh {NEEDS_DIST}")
-    if plan.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"a pipelined TrainPlan (pipeline_stages > 1) {NEEDS_DIST}")
+    Every family trains without a mesh (whisper's batches carry "frames",
+    which the split into micro-batches cuts along the batch as every
+    leaf).  On a ``mesh`` the state is this rank's pieces
+    (``init_state(mesh=)``), the batch whole on every rank, and a
+    pipelined plan (``pipeline_stages`` > 1) needs as many stages on
+    the mesh, and runs the 1F1B schedule.  The state must lie on the
+    mesh's device."""
+    if mesh is not None or plan.pipeline_stages > 1:
+        if mesh is None:
+            raise ValueError("a pipelined TrainPlan (pipeline_stages > 1) "
+                             "needs a mesh with a 'stage' axis")
+        return _make_mesh_step(model, opt_cfg, plan, mesh)
 
     def train_step(state, batch):
         params = state["params"]
@@ -180,8 +316,42 @@ def make_train_step(model, opt_cfg: OptimizerConfig, plan: TrainPlan,
     return train_step
 
 
-def init_state(model, seed: int, opt_cfg: OptimizerConfig, device="cuda"):
+def init_state(model, seed: int, opt_cfg: OptimizerConfig, device="cuda",
+               mesh=None):
     """A fresh train state: the model's seeded parameters (``init_params``)
-    and zeroed AdamW moments, on ``device``."""
-    params = init_params(model.schema(), seed=seed, device=device)
+    and zeroed AdamW moments, on ``device``.  On a ``mesh``, this rank's
+    pieces of them: every leaf is drawn whole in ``init_params``' order
+    (the same values as without a mesh) and cut, one at a time."""
+    if mesh is None:
+        params = init_params(model.schema(), seed=seed, device=device)
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        pieces = [shd.local_shard(_init_leaf(d, gen, dev), pl, mesh).clone()
+                  for (_, d), (_, pl) in zip(
+                      tree_leaves(model.schema()),
+                      tree_leaves(param_placements(model, mesh)))]
+        params = tree_unflatten(model.schema(), pieces)
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+
+
+def shard_state(state, model, mesh, device):
+    """This rank's pieces of a whole train state (a restored checkpoint),
+    on ``device``."""
+    pl = state_placements(model, mesh)
+    return tree_map(lambda t, p: shd.local_shard(t, p, mesh).to(
+        device).clone() if p else t.to(device), state, pl)
+
+
+def gather_state(state, model, mesh, keep: bool):
+    """The whole train state from every rank's pieces, one leaf at a time,
+    on the mesh's first rank (a collective: every rank calls it); returned
+    where ``keep`` (that rank only), else None."""
+    def one(t, p, shape):
+        whole = shd.gather(t, p, mesh, shape, to_lead=True) if p else t
+        return whole if keep else None
+
+    out = tree_map(one, state, state_placements(model, mesh),
+                   state_shapes(model))
+    return out if keep else None

@@ -1,9 +1,18 @@
 """Training loop: data + step + checkpoints + fault tolerance.
 
-The reference's single-process loop (``repro.train.trainer``) without a
-mesh.  It auto-resumes from the newest checkpoint, saves through an
-async ``CheckpointManager`` every ``ckpt_every`` steps (the writes
-overlap the next train steps), and feeds the straggler monitor.
+The reference's loop (``repro.train.trainer``).  It auto-resumes from
+the newest checkpoint, saves through an async ``CheckpointManager``
+every ``ckpt_every`` steps (the writes overlap the next train steps),
+and feeds the straggler monitor.
+
+On a mesh (``launch.mesh``; every rank calls ``train``) the mesh decides
+the stage count and the data shards of ``TrainPlan.for_shape``, each
+rank holds its pieces of the state (``train_step.init_state(mesh=)``)
+and reads the whole batch.  A checkpoint is written in the reference's
+format, whole leaves gathered to rank 0, which alone owns the directory
+and writes the metrics; every rank restores the newest one and cuts its
+pieces, so a run resumes on any mesh or none (the reference's elastic
+restore), and a run without a mesh resumes a mesh's.
 
 Checkpoints carry more than the train state: the payload is
 ``{"state": ..., "extra": {"data": ..., "rng": ...}}``, where ``extra``
@@ -25,6 +34,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, batch_at
@@ -35,8 +45,11 @@ from repro_torch.optim.optimizer import OptimizerConfig
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                  StragglerMonitor)
 from repro_torch.serve.sampling import seed_key
-from repro_torch.train.train_step import (NEEDS_DIST, TrainPlan, init_state,
-                                          make_train_step)
+from repro_torch.launch.mesh import mesh_axis_size
+from repro_torch.train.train_step import (TrainPlan, check_mesh,
+                                          gather_state, init_state,
+                                          make_train_step, mesh_device,
+                                          shard_state)
 
 @dataclasses.dataclass
 class TrainerConfig:
@@ -72,24 +85,32 @@ def train(model, cfg: ModelConfig, shape: ShapeConfig,
     and it resumes from the newest checkpoint in ``tcfg.ckpt_dir``.
 
     ``device`` defaults to ``"cuda"`` and raises without CUDA unless
-    ``"cpu"`` is asked for.  A ``mesh`` raises: sharded training waits
-    for the port's ``dist/``.  The data pipeline's batches carry tokens
-    only, so whisper's loss raises its ``KeyError`` for the missing
-    "frames" at the first step, as the reference's trainer fails.
+    ``"cpu"`` is asked for; on a ``mesh`` it must be the mesh's device
+    (a CPU mesh needs ``device="cpu"`` here too).  A mesh with a "stage" axis trains pipelined at its stage
+    count (the decoder family only, as in the reference), a stage-free
+    one data and tensor parallel.  The data pipeline's batches carry
+    tokens only, so whisper's loss raises its ``KeyError`` for the
+    missing "frames" at the first step, as the reference's trainer fails.
     """
+    stages = mesh_axis_size(mesh, "stage") if mesh is not None else 1
     if mesh is not None:
-        raise NotImplementedError(f"training on a mesh {NEEDS_DIST}")
-    dev = resolve_device(device)
+        check_mesh(model, mesh, stages)
+        dev = mesh_device(mesh, device)
+    else:
+        dev = resolve_device(device)
+    lead = mesh is None or mesh.position == 0
     opt_cfg = opt_cfg or OptimizerConfig(total_steps=tcfg.total_steps,
                                          warmup_steps=5)
-    plan = TrainPlan.for_shape(cfg, shape, data_shards=1)
+    plan = TrainPlan.for_shape(
+        cfg, shape, data_shards=mesh_axis_size(mesh, "data") if mesh
+        is not None else 1, pipeline_stages=stages)
     if step_fn is None:
-        step_fn = make_train_step(model, opt_cfg, plan)
+        step_fn = make_train_step(model, opt_cfg, plan, mesh=mesh)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                       global_batch=shape.global_batch, seed=tcfg.seed)
 
     manager = None
-    if tcfg.ckpt_dir:
+    if tcfg.ckpt_dir and lead:
         manager = CheckpointManager(
             tcfg.ckpt_dir, keep=tcfg.keep,
             max_in_flight=tcfg.ckpt_max_in_flight,
@@ -100,10 +121,15 @@ def train(model, cfg: ModelConfig, shape: ShapeConfig,
     # returned state mid-schedule); the restore path derives its own start
     start = start_step if state is not None else 0
     if state is None:
-        state = init_state(model, tcfg.seed, opt_cfg, dev)
-        if manager is not None and manager.latest_step() is not None:
+        state = init_state(model, tcfg.seed, opt_cfg, dev, mesh=mesh)
+        ckpt_step = (ckpt.latest_step(tcfg.ckpt_dir) if tcfg.ckpt_dir
+                     else None)
+        if ckpt_step is not None:
             like = _payload(state, dcfg, 0, tcfg.seed)
-            payload, ckpt_step = manager.restore(like)
+            if manager is not None:
+                payload, ckpt_step = manager.restore(like, step=ckpt_step)
+            else:    # a rank that does not own the directory reads it
+                payload = ckpt.restore(tcfg.ckpt_dir, ckpt_step, like)
             geom = payload["extra"]["data"].tolist()
             saved = (geom[0], geom[2], geom[3])
             want = (dcfg.seed, dcfg.global_batch, dcfg.seq_len)
@@ -112,13 +138,23 @@ def train(model, cfg: ModelConfig, shape: ShapeConfig,
                     f"checkpoint data geometry {saved} != run {want} "
                     "(seed, global_batch, seq_len); refusing to resume "
                     "onto a different data stream")
-            state = tree_map(lambda t: t.to(dev), payload["state"])
+            state = (tree_map(lambda t: t.to(dev), payload["state"])
+                     if mesh is None else
+                     shard_state(payload["state"], model, mesh, dev))
             start = geom[1]
             if start != ckpt_step:
                 raise ValueError(f"checkpoint of step {ckpt_step} records "
                                  f"next step {start}")
     monitor = StragglerMonitor()
-    logger = JsonlLogger(tcfg.metrics_path)
+    logger = JsonlLogger(tcfg.metrics_path if lead else None)
+
+    def save(step: int, blocking: bool) -> None:
+        whole = state if mesh is None else gather_state(state, model, mesh,
+                                                        keep=lead)
+        if manager is not None:
+            manager.save(step, _payload(whole, dcfg, step, tcfg.seed),
+                         blocking=blocking)
+
     registry = obs.registry if obs is not None else MetricsRegistry()
     tracer = obs.tracer if obs is not None else None
     _span = (tracer.span if tracer is not None
@@ -152,22 +188,17 @@ def train(model, cfg: ModelConfig, shape: ShapeConfig,
                 if tracer is not None:
                     tracer.instant("straggler", step=step + 1, dt=dt)
             history.append({"step": step + 1, "loss": loss, "dt": dt})
-            if on_metrics:
+            if on_metrics and lead:
                 on_metrics(step + 1, metrics)
-            if manager is not None and (step + 1) % tcfg.ckpt_every == 0:
+            if tcfg.ckpt_dir and (step + 1) % tcfg.ckpt_every == 0:
                 with _span("checkpoint", step=step + 1):
-                    manager.save(step + 1,
-                                 _payload(state, dcfg, step + 1, tcfg.seed),
-                                 blocking=not tcfg.ckpt_async)
+                    save(step + 1, blocking=not tcfg.ckpt_async)
                 registry.counter("train.checkpoints")
-        if manager is not None and tcfg.total_steps > start:
+        if tcfg.ckpt_dir and tcfg.total_steps > start:
             # blocking final save: the manager drains the async queue
             # first, so this never interleaves with an in-flight write
             with _span("checkpoint", step=tcfg.total_steps, final=True):
-                manager.save(tcfg.total_steps,
-                             _payload(state, dcfg, tcfg.total_steps,
-                                      tcfg.seed),
-                             blocking=True)
+                save(tcfg.total_steps, blocking=True)
             registry.counter("train.checkpoints")
     finally:
         if manager is not None:

@@ -1,0 +1,300 @@
+"""The distributed layer's cases, run in ranks of their own on the CPU.
+
+``tests/test_torch_dist*.py`` write each world's inputs to a pickle and
+run ``python -c "import _torch_dist_cases as c; c.main(...)"`` in a
+subprocess with its own timeout; ``main`` starts the ranks
+(``launch_ranks``, gloo, one torch thread a rank) and pickles rank 0's
+results for the test to compare.  Every rank builds each mesh (a Mesh
+spans every rank) and runs every case in the same order.  Nothing here
+imports jax.
+"""
+import dataclasses
+import pickle
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.dist import pipeline as pp
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import tp as mtp
+from repro_torch.launch.mesh import Mesh, launch_ranks
+from repro_torch.models import attention as A
+from repro_torch.models import build
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim.optimizer import OptimizerConfig
+from repro_torch.train import train_step as ts
+from repro_torch.train.trainer import TrainerConfig, train
+
+
+def cfg_of(arch, mode, **kw):
+    return dataclasses.replace(get_config(arch, smoke=True),
+                               matmul_mode=mode, **kw)
+
+
+def whole_grads(model, mesh, grads):
+    """Every rank's gradient pieces gathered to whole numpy leaves."""
+    pl = ts.param_placements(model, mesh)
+    shapes = tree_map(lambda d: d.shape, model.schema())
+    whole = tree_map(lambda g, p, s: shd.gather(g, p, mesh, s), grads, pl,
+                     shapes)
+    return {"/".join(k): v.numpy() for k, v in tree_leaves(whole)}
+
+
+def local_params(tree, cfg, model, mesh, f32=False):
+    """This rank's pieces of a whole numpy param tree."""
+    whole = params_from_numpy(tree, cfg, "cpu")
+    if f32:
+        whole = tree_map(lambda t: t.float(), whole)
+    return tree_map(lambda t, p: shd.local_shard(t, p, mesh).clone(), whole,
+                    ts.param_placements(model, mesh))
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def loss_case(mesh, c):
+    """pipeline_loss of one case: {"loss", "aux", "grads"}."""
+    cfg = cfg_of(c["arch"], c["mode"], **c.get("cfg", {}))
+    model = build(cfg)
+    if "params" in c:
+        params = local_params(c["params"], cfg, model, mesh, c.get("f32"))
+    else:
+        params = ts.init_state(model, c.get("seed", 0), OptimizerConfig(),
+                               "cpu", mesh=mesh)["params"]
+        if c.get("f32"):
+            params = tree_map(lambda t: t.float(), params)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics, grads = model.pipeline_loss(
+        live, torch_batch(c["batch"]), mesh=mesh,
+        num_microbatches=c.get("M", 1), schedule=c.get("schedule", "1f1b"),
+        batch_axes=c.get("batch_axes", ("data",)))
+    return {"loss": float(loss), "aux": float(metrics["aux_loss"]),
+            "grads": whole_grads(model, mesh, grads)}
+
+
+def per_shard_case(mesh, c):
+    """The control of the global scale rule: the unpipelined loss and its
+    autograd gradients on this rank's pieces of a stage-free mesh (no
+    data axis), under the plan with each rank's scales taken on its own
+    pieces (``use_stage_tp(exact=False)``, no ``global_scales``)."""
+    cfg = cfg_of(c["arch"], c["mode"])
+    model = build(cfg)
+    params = ts.init_state(model, c.get("seed", 0), OptimizerConfig(),
+                           "cpu", mesh=mesh)["params"]
+    live = tree_map(lambda p: p.detach().float().requires_grad_(), params)
+    flat = [t for _, t in tree_leaves(live)]
+    with mtp.use_stage_tp(mtp.plan_stage_tp(cfg, mesh), mesh, exact=False):
+        loss, _ = model.loss(live, torch_batch(c["batch"]))
+        got = torch.autograd.grad(loss, flat)
+    grads = tree_unflatten(live, [g.float() for g in got])
+    return {"loss": float(loss), "grads": whole_grads(model, mesh, grads)}
+
+
+# ---------------------------------------------------------------------------
+# the toy pipeline of the reference's tests: residual tanh layers
+# ---------------------------------------------------------------------------
+
+def toy_layer(w, x):
+    return x + torch.tanh(x @ w)
+
+
+def toy_case(mesh, c):
+    """``pipeline_apply``'s forward, and ``pipeline_grads``' y, dW and dX
+    under both schedules for the output cotangent GY."""
+    W, X, GY = (torch.from_numpy(c[k]) for k in ("W", "X", "GY"))
+    S, s = mesh.size("stage"), mesh.index("stage")
+    lo, hi = pp.stage_layers(W.shape[0], S, s)
+    out = {"apply": pp.pipeline_apply(
+        lambda a: _toy_stage(W[lo:hi], a), X, mesh).numpy()}
+    M = X.shape[0]
+    for sched in ("1f1b", "gpipe"):
+        w = W[lo:hi].clone().requires_grad_()
+        ys, dxs = {}, {}
+
+        def stage_fn(a, m, w=w):
+            return _toy_stage(w, a), None
+
+        def last_fn(y, m, ys=ys):
+            ys[m] = y.detach()
+            return (y * GY[m]).sum()
+
+        got, _, _, _ = pp.pipeline_grads(
+            stage_fn, mesh, M, inputs=[w], act_shape=X.shape[1:],
+            act_dtype=X.dtype,
+            first_fn=lambda m: X[m].clone().requires_grad_(),
+            last_fn=last_fn, on_input_grad=lambda m, g, dxs=dxs:
+            dxs.__setitem__(m, g), schedule=sched)
+        dw = shd.gather(got[0], ("stage", None, None), mesh, W.shape)
+        y = torch.stack([ys[m] for m in range(M)]) if ys else \
+            torch.zeros_like(X)
+        dx = torch.stack([dxs[m] for m in range(M)]) if dxs else \
+            torch.zeros_like(X)
+        mesh.all_reduce(y, "stage")
+        mesh.all_reduce(dx, "stage")
+        out[sched] = {"y": y.numpy(), "dW": dw.numpy(), "dX": dx.numpy()}
+    return out
+
+
+def _toy_stage(w, a):
+    for i in range(w.shape[0]):
+        a = toy_layer(w[i], a)
+    return a
+
+
+# ---------------------------------------------------------------------------
+# one layer under a TP plan (the reference's sharded layer's counterpart)
+# ---------------------------------------------------------------------------
+
+def _cut_tree(tree, placements, mesh):
+    return tree_map(lambda t, p: shd.local_shard(
+        torch.from_numpy(np.asarray(t)), p, mesh).clone(), tree, placements)
+
+
+def layer_case(mesh, c):
+    """``mlp_apply``/``gqa_apply``/``moe_apply``/``mla_apply`` on this
+    rank's pieces of whole numpy weights, under the plan."""
+    cfg = cfg_of(c["arch"], c["mode"])
+    plan = mtp.plan_stage_tp(cfg, mesh)
+    x = torch.from_numpy(c["x"]).to(torch.bfloat16)
+    # the layer's leaves' placements, without the stack's leading entry
+    pl = mtp.layer_placements(plan, {c["layer"]: c["axes"]}, None)
+    pl = tree_map(lambda e: e[1:], pl[c["layer"]])
+    p = _cut_tree(c["params"], pl, mesh)
+    p = tree_map(lambda t, d: t.to(d), p, c["dtypes"])
+    b, s, _ = x.shape
+    pos = torch.arange(s)[None].expand(b, s)
+    with mtp.use_stage_tp(plan, mesh):
+        if c["layer"] == "mlp":
+            y = L.mlp_apply(p, x, cfg.act, True, cfg.matmul_mode)
+        elif c["layer"] == "gqa":
+            y = A.gqa_apply(p, cfg, x, pos, window=cfg.window_size)[0]
+        elif c["layer"] == "mla":
+            y = A.mla_apply(p, cfg, x, pos)[0]
+        else:
+            y = MOE.moe_apply(p, cfg, x)["out"]
+    return y.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the trainer and checkpoints on a mesh
+# ---------------------------------------------------------------------------
+
+def trainer_case(mesh, c):
+    """``train(mesh=)`` for ``c["steps"]``, checkpointing into
+    ``c["ckpt"]``; the history, and the gathered final state."""
+    cfg = cfg_of(c["arch"], c["mode"])
+    model = build(cfg)
+    tcfg = TrainerConfig(total_steps=c["steps"], ckpt_every=c["steps"],
+                         ckpt_dir=c.get("ckpt"), ckpt_async=False,
+                         ckpt_compress_opt=False, seed=c.get("seed", 0))
+    opt = OptimizerConfig(learning_rate=3e-3, warmup_steps=2,
+                          total_steps=c["steps"])
+    state, hist = train(model, cfg, ShapeConfig("t", "train",
+                                                c["seq"], c["batch"]),
+                        tcfg, opt_cfg=opt, mesh=mesh, device=mesh.device)
+    return {"losses": [h["loss"] for h in hist],
+            "state": _whole_state(state, model, mesh)}
+
+
+def restore_case(mesh, c):
+    """Cut a checkpoint onto this mesh (``train`` resumes from it at its
+    last step, so it runs no step) and gather it back."""
+    cfg = cfg_of(c["arch"], c["mode"])
+    model = build(cfg)
+    tcfg = TrainerConfig(total_steps=c["steps"], ckpt_dir=c["ckpt"],
+                         ckpt_async=False, ckpt_compress_opt=False)
+    state, hist = train(model, cfg, ShapeConfig("t", "train", c["seq"],
+                                                c["batch"]), tcfg,
+                        mesh=mesh, device=mesh.device)
+    return {"steps_run": len(hist),
+            "state": _whole_state(state, model, mesh)}
+
+
+def _whole_state(state, model, mesh):
+    """The state gathered to the mesh's first rank, as numpy (None on the
+    other ranks)."""
+    whole = ts.gather_state(state, model, mesh, keep=mesh.position == 0)
+    if whole is None:
+        return None
+    return {"/".join(k): v.float().numpy() for k, v in tree_leaves(whole)}
+
+
+KINDS = {"loss": loss_case, "per_shard": per_shard_case, "toy": toy_case,
+         "layer": layer_case, "trainer": trainer_case,
+         "restore": restore_case}
+
+
+def world(device, cases):
+    """One rank: every case on its mesh, in order."""
+    meshes = {}
+    out = {}
+    for name, c in cases:
+        key = tuple(c["mesh"].items())
+        if key not in meshes:
+            meshes[key] = Mesh(c["mesh"], device=device)
+        out[name] = KINDS[c["kind"]](meshes[key], c)
+    return out if torch.distributed.get_rank() == 0 else None
+
+
+def main(n, in_path, out_path, timeout=240.0):
+    """Run the cases pickled at ``in_path`` on ``n`` CPU ranks; pickle
+    rank 0's results to ``out_path``."""
+    with open(in_path, "rb") as f:
+        cases = pickle.load(f)
+    res = launch_ranks(world, n, cases, device="cpu", timeout=timeout)
+    with open(out_path, "wb") as f:
+        pickle.dump(res[0], f)
+
+
+class World:
+    """Cases running on ``n`` ranks in a subprocess with its own timeout,
+    started at construction; ``result()`` waits and returns rank 0's
+    results by case name."""
+
+    def __init__(self, n, cases, timeout=300):
+        import os
+        import pathlib
+        import subprocess
+        here = pathlib.Path(__file__).resolve().parent
+        self.tmp = tempfile.TemporaryDirectory()
+        self.src = os.path.join(self.tmp.name, "in.pkl")
+        self.dst = os.path.join(self.tmp.name, "out.pkl")
+        with open(self.src, "wb") as f:
+            pickle.dump(cases, f)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(here.parent / "src"), str(here)]), OMP_NUM_THREADS="1")
+        self.timeout = timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import _torch_dist_cases as c; "
+             f"c.main({n}, {self.src!r}, {self.dst!r}, {timeout - 30})"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+
+    def result(self):
+        import subprocess
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, err = self.proc.communicate()
+            raise AssertionError(f"ranks past {self.timeout} s:\n"
+                                 f"{out[-3000:]}{err[-3000:]}")
+        try:
+            assert self.proc.returncode == 0, out[-4000:] + err[-4000:]
+            with open(self.dst, "rb") as f:
+                return pickle.load(f)
+        finally:
+            self.tmp.cleanup()
+
+
+def run_world(n, cases, timeout=300):
+    """``World(n, cases).result()``."""
+    return World(n, cases, timeout).result()

@@ -129,10 +129,17 @@ def test_checkpoint_write_overlaps_training(tmp_path, small):
 
 
 def test_trainer_refuses_a_mesh(small):
-    cfg, model = small
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train(model, cfg, SHAPE, TrainerConfig(total_steps=1),
-              mesh=object(), device="cpu")
+    """The decoders train on a mesh (``tests/test_torch_dist_train.py``);
+    the other families refuse a stage mesh, as the reference's fail
+    there (their models have no ``pipeline_loss``), before any rank
+    work."""
+    import types
+    mesh = types.SimpleNamespace(shape={"stage": 2, "data": 1, "model": 1})
+    for arch in ("whisper_base", "zamba2_2p7b", "xlstm_1p3b"):
+        cfg = get_config(arch, smoke=True)
+        with pytest.raises(NotImplementedError, match="stage mesh.*5b"):
+            train(build(cfg), cfg, SHAPE, TrainerConfig(total_steps=1),
+                  mesh=mesh, device="cpu")
 
 
 def test_launcher_trains_on_cpu_and_refuses_shards(tmp_path, capsys):
@@ -145,8 +152,17 @@ def test_launcher_trains_on_cpu_and_refuses_shards(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "danube-smoke (2 layers, bp8) on cpu" in text
     assert "finished at step 3 after 1 restart(s)" in text
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["--device", "cpu", "--model-shards", "2"])
+    # --model-shards 2: two gloo ranks of the launcher's own, resuming
+    # the run above (its checkpoint of step 3) on a model mesh to step 5
+    out = cli.main(["--device", "cpu", "--model-shards", "2", "--steps",
+                    "5", "--seq-len", "16", "--global-batch", "2",
+                    "--matmul-mode", "bp8", "--ckpt-dir",
+                    str(tmp_path / "c"), "--ckpt-every", "2"])
+    assert out == 5
+    # a rank's failure fails the launch: xlstm refuses a stage mesh
+    with pytest.raises(RuntimeError, match="stage mesh"):
+        cli.main(["--device", "cpu", "--arch", "xlstm_1p3b",
+                  "--model-shards", "1", "--stages", "2", "--steps", "1"])
 
 
 def test_launcher_trains_moe_on_cpu(capsys):

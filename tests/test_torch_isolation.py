@@ -50,6 +50,18 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.dist.sharding",
+                                    "repro_torch.dist.tp",
+                                    "repro_torch.dist.pipeline",
+                                    "repro_torch.launch.mesh"])
+def test_distributed_layer_is_held_to_the_same_rules(module):
+    """The distributed layer's modules are among those imported above
+    (no jax, no reference) and scanned below."""
+    assert module in _modules()
+    path = PKG.joinpath(*module.split(".")[1:]).with_suffix(".py")
+    assert "import jax" not in path.read_text()
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))

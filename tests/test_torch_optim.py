@@ -248,12 +248,34 @@ def test_layer_param_bytes_match_reference(arch, smoke):
 
 
 def test_pipelined_plan_and_mesh_raise():
+    """A decoder's step builds on a mesh (``tests/test_torch_dist_*.py``
+    run it); what still raises: a pipelined plan without a mesh or with
+    another stage count, and the other families on any mesh (a stage
+    mesh fails in the reference too: they have no ``pipeline_loss``)."""
+    import types
+    stub = lambda **shape: types.SimpleNamespace(shape=shape)  # noqa: E731
     model = build(get_config("h2o_danube_1p8b", smoke=True))
     cfg = topt.OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    assert callable(make_train_step(model, cfg, TrainPlan(1, 4),
+                                    mesh=stub(data=1, model=2)))
+    assert callable(make_train_step(
+        model, cfg, TrainPlan(1, 4, pipeline_stages=2,
+                              pipeline_microbatches=2),
+        mesh=stub(stage=2, data=1, model=1)))
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(model, cfg, TrainPlan(1, 4, pipeline_stages=2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_train_step(model, cfg, TrainPlan(1, 4), mesh=object())
+    with pytest.raises(ValueError, match="pipelines over 2 stages"):
+        make_train_step(model, cfg, TrainPlan(1, 4, pipeline_stages=2),
+                        mesh=stub(stage=4, data=1, model=1))
+    for arch in ("whisper_base", "zamba2_2p7b", "xlstm_1p3b"):
+        other = build(get_config(arch, smoke=True))
+        with pytest.raises(NotImplementedError,
+                           match="stage mesh.*item 5b"):
+            make_train_step(other, cfg, TrainPlan(1, 4, pipeline_stages=2),
+                            mesh=stub(stage=2, data=1, model=1))
+        with pytest.raises(NotImplementedError, match="a mesh is the"):
+            make_train_step(other, cfg, TrainPlan(1, 4),
+                            mesh=stub(data=2, model=1))
 
 
 # ---------------- the train step ----------------
