@@ -42,7 +42,8 @@ prints its wall time):
    (EARLIER_MS), and the build's ptxas registers and spills beside their
    dynamic shared memory.
 3. Card vs CPU: h2o-danube at full width, 1 layer, the same seeded
-   weights on both devices, 3 prompts, 8 greedy tokens each through the
+   weights on both devices, 2 prompts (37 and 101 tokens; a third of 64
+   dropped for time), 8 greedy tokens each through the
    paged engine, in ``bp8_fused`` and in ``bp8`` (both over a ``bp8``
    cache); the card's path captured (the engine's default), the card's
    path eager (``capture=False``) and the CPU's plain path must emit the
@@ -311,7 +312,35 @@ prints its wall time):
    launches of rows 1-3 (counted from just before to just after), every
    piece moved, finite grad norms above 0; its checkpoint (whole leaves,
    bf16 moments, written by rank 0) restored in this process without a
-   mesh, every rank's pieces bitwise, and ``train()`` continuing from it.
+   mesh, every rank's pieces bitwise, and ``train()`` continuing from it;
+   and sequence parallelism (``dist/seq.py``), the world's first work:
+   the 4 card ranks as one (seq 4, data 1, model 1) ring under the
+   "sequence" rules, the twins waiting at a barrier, ``bp8_fused``
+   throughout: (d) the ring core on
+   seeded inputs, each case bitwise the port's oracle run in the rank's
+   one process and within 1e-5 of dense attention: GQA at qwen2-72b's
+   heads (64 q, 8 kv, D 128) over 8192 slots under the kv schedule (8192
+   queries, a block a rank) and the stats schedule (one query), 8191
+   slots through ``pad_kv``, and the absorbed-MLA ring at minicpm3-4b's
+   latent (R 256, rope 32, 40 heads); (e) qwen2-72b at full width and 2
+   of its 80 layers over a ``bp8`` cache (a 32768-token prompt, 8192 a
+   rank, 16 greedy decode steps) and minicpm3-4b whole (an 8192-token
+   prompt, 16 steps) under the ring, launches of rows 1-3 counted from
+   just before the prefill to just after the last step; ranks 1-3 then
+   free their weights while rank 0 runs the same calls in one process
+   without the ring, the steps fed the ring's tokens: the prefill's
+   last-position logits' cosine above 0.9999, each greedy choice equal
+   but where the single process's top-2 gap is under 1% of the row's
+   largest |logit| (the gaps printed either way); prefill and step
+   seconds of both, each rank's cache bytes and peak against the single
+   process's, a decode step's share in sends and receives (``Mesh.stats``)
+   and the launches; (f) long_500k: 4 decode steps of qwen2-72b (2
+   layers) over a seeded cache of 524288 slots (BP8 codes and scales,
+   positions 0..524283; a block a rank) on the ring against the single
+   process's steps over the whole cache through the fused decode
+   attention: logits' cosine above 0.9999, top-1 equal but at a near
+   tie, step ms and cache bytes; then rows 1-3 timed at a ring rank's
+   qwen2-72b prefill shapes (M 8192) beside their bound.
 
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
@@ -324,7 +353,9 @@ decode shapes, and rows 1-4 on the ring path, row 4 timed over the
 wrapped ring; rows 1-2 on whisper-base's and xlstm-1.3b's training paths
 and rows 1-3 on zamba2-2.7b's, timed at one forward layer at M 1024;
 rows 1-3 on the mesh's training path, timed at a TP-2 rank's layer at M
-256, their launches summed over the 4 ranks),
+256, their launches summed over the 4 ranks; rows 1-3 on the ring's
+serving path, timed at a ring rank's qwen2-72b prefill layer at M 8192,
+their launches summed over the 4 ranks and the two models),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -378,6 +409,9 @@ TINY = 1.1754943508222875e-38     # f32 tiny: the scales' floor
 #: 12(b) (the ring): one layer, so that the CPU's plain path leaves the
 #: script's time to phase 14
 CPU_CHECK_LAYERS = 1
+#: phase 3's prompts of the 37, 64 and 101 tokens drawn: 37 and 101 (the
+#: 64 dropped to keep the script's time; ``reduced`` in PERF.md §4)
+PHASE3_PROMPTS = (0, 2)
 # h2o-danube-1.8b: d_model, q/o width, k/v width, d_ff
 D, HD, KVD, FF = 2560, 2560, 640, 6912
 #: (K, N) of one layer's projections: wq, wk, wv, wo, up, gate, down
@@ -416,10 +450,14 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, calls, iters: int = 10, clean: bool = False) -> float:
+    def __call__(self, calls, iters: int = 10, clean: bool = False,
+                 warm: bool = True) -> float:
+        """``warm=False``: the calls have just run (their check), so the
+        warm-up call is skipped."""
         torch = self.torch
-        for f in calls:
-            f()
+        if warm:
+            for f in calls:
+                f()
         torch.cuda.synchronize()
         events = []
         for _ in range(iters):
@@ -4604,12 +4642,25 @@ def dist_config(arch, mode="bp8_fused", layers=None):
 
 
 def dist_kernel_rows(torch, timer, m, dev="cuda"):
-    """Phase 14(a): absmax and the fused matmul bitwise, and the fused MLP
-    within 1e-5, of their plain versions at a rank's shard shapes of
-    h2o-danube-1.8b under TP 2 at ``m`` rows a microbatch (wq 2560 ->
-    1280, wk/wv 2560 -> 320, wo 1280 -> 2560 and down 3456 -> 2560
-    row-parallel, the MLP's up/gate 2560 -> 3456), each timed (phase 2's
-    timer) beside its bound over one layer's calls."""
+    """Phase 14(a): rows 1-3 at a rank's shard shapes of h2o-danube-1.8b
+    under TP 2 at ``m`` rows a microbatch (wq 2560 -> 1280, wk/wv 2560 ->
+    320, wo 1280 -> 2560 and down 3456 -> 2560 row-parallel, the MLP's
+    up/gate 2560 -> 3456)."""
+    tp = DIST_SHAPE["model"]
+    return layer_kernel_rows(
+        torch, timer, [(m, D, HD // tp), (m, D, KVD // tp),
+                       (m, D, KVD // tp), (m, HD // tp, D),
+                       (m, FF // tp, D)], (m, D, FF // tp),
+        "14(a)", f"a TP-{tp} rank's", "mesh train", dev=dev)
+
+
+def layer_kernel_rows(torch, timer, shapes, mlp, tag, what, label,
+                      plain_iters=3, dev="cuda"):
+    """absmax and the fused matmul bitwise, and the silu MLP within 1e-5,
+    of their plain versions at one layer's (M, K, N) matmul ``shapes`` and
+    MLP (M, K, N) ``mlp``, each timed (phase 2's timer) beside its bound
+    over the layer's calls (the plain versions ``plain_iters`` times; at
+    one, warmed by the check alone)."""
     from repro_torch.kernels import fused as kf
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev)
@@ -4621,15 +4672,12 @@ def dist_kernel_rows(torch, timer, m, dev="cuda"):
     def nbytes(t):
         return t.numel() * t.element_size()
 
-    tp = DIST_SHAPE["model"]
-    shapes = [(m, D, HD // tp), (m, D, KVD // tp), (m, D, KVD // tp),
-              (m, HD // tp, D), (m, FF // tp, D)]
     xs = {(mm, k): randn(mm, k) for mm, k, _ in shapes}
     ws = {(k, n): randn(k, n, std=k ** -0.5).to(torch.bfloat16)
           for _, k, n in shapes}
     for t in list(xs.values()) + list(ws.values()):
         if not torch.equal(kf.absmax(t, TINY), ref.absmax_ref(t, TINY)):
-            fail(f"phase 14(a): absmax differs at {tuple(t.shape)}")
+            fail(f"phase {tag}: absmax differs at {tuple(t.shape)}")
     sc = {id(t): kf.absmax(t, TINY)
           for t in list(xs.values()) + list(ws.values())}
     args = [(xs[(mm, k)], ws[(k, n)], sc[id(xs[(mm, k)])],
@@ -4637,17 +4685,21 @@ def dist_kernel_rows(torch, timer, m, dev="cuda"):
     for shp, a in zip(shapes, args):
         got, want = kf.fused_bp_matmul(*a), ref.fused_matmul_ref(*a)
         if not torch.equal(got, want):
-            fail(f"phase 14(a): fused matmul differs at {shp}: max "
+            fail(f"phase {tag}: fused matmul differs at {shp}: max "
                  f"{(got - want).abs().max().item()}")
-    x = randn(m, D)
-    up, gate = (randn(D, FF // tp, std=D ** -0.5).to(torch.bfloat16)
+        del got, want
+    m, k, n = mlp
+    x = randn(m, k)
+    up, gate = (randn(k, n, std=k ** -0.5).to(torch.bfloat16)
                 for _ in range(2))
     margs = (x, up, gate) + tuple(kf.absmax(t, TINY) for t in (x, up, gate))
     got = kf.fused_mlp(*margs, "silu")
     want = ref.fused_mlp_ref(x, up, gate, "silu", *margs[3:])
     e = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+    mlp_err = (got - want).abs().max().item()
+    del got, want
     if not math.isfinite(e) or e > 1e-5:
-        fail(f"phase 14(a): fused MLP off by {e:.3g} at M {m}")
+        fail(f"phase {tag}: fused MLP off by {e:.3g} at M {m}")
     am_in = [a[0] for a in args] + [a[1] for a in args] + [x, up, gate]
     rows = {
         "absmax": dict(
@@ -4663,25 +4715,27 @@ def dist_kernel_rows(torch, timer, m, dev="cuda"):
             max_abs_err=0.0,
             ms=timer([lambda a=a: kf.fused_bp_matmul(*a) for a in args]),
             plain_ms=timer([lambda a=a: ref.fused_matmul_ref(*a)
-                            for a in args], iters=3),
+                            for a in args], iters=plain_iters,
+                           warm=plain_iters > 1),
             library_ms=None,
-            b=[bound(4 * mm * k + 2 * k * n + 8 + 4 * mm * n,
-                     2 * mm * n * 8 * k, H100_INT8_OPS_PER_S)
-               for mm, k, n in shapes]),
+            b=[bound(4 * mm * kk + 2 * kk * nn + 8 + 4 * mm * nn,
+                     2 * mm * nn * 8 * kk, H100_INT8_OPS_PER_S)
+               for mm, kk, nn in shapes]),
         "fused_mlp": dict(
-            max_abs_err=(got - want).abs().max().item(),
+            max_abs_err=mlp_err,
             ms=timer([lambda: kf.fused_mlp(*margs, "silu")]),
             plain_ms=timer([lambda: ref.fused_mlp_ref(
-                x, up, gate, "silu", *margs[3:])], iters=3),
+                x, up, gate, "silu", *margs[3:])], iters=plain_iters,
+                warm=plain_iters > 1),
             library_ms=None,
-            b=[bound(4 * m * D + nbytes(up) + nbytes(gate) + 12
-                     + 4 * m * (FF // tp), 2 * 2 * m * (FF // tp) * 8 * D,
+            b=[bound(4 * m * k + nbytes(up) + nbytes(gate) + 12
+                     + 4 * m * n, 2 * 2 * m * n * 8 * k,
                      H100_INT8_OPS_PER_S)])}
-    print(f"phase 14(a): absmax and the fused matmul bitwise at a TP-{tp} "
-          f"rank's (M, K, N) {shapes}, the silu MLP {D} -> {FF // tp} within "
-          f"1e-5 ({e:.3g})")
+    print(f"phase {tag}: absmax and the fused matmul bitwise at {what} "
+          f"(M, K, N) {shapes}, the silu MLP {k} -> {n} within 1e-5 "
+          f"({e:.3g})")
     for name, r in rows.items():
-        print(f"mesh train kernel {name} (a rank's layer at M {m}): ms "
+        print(f"{label} kernel {name} ({what} layer at M {m}): ms "
               f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
               f"{r['library_ms']} bound_ms {sum(x[0] for x in r['b']):.4f} "
               f"max_abs_err {r['max_abs_err']}")
@@ -4972,10 +5026,10 @@ def dist_rank(dev, cases, ckpt_dir):
     """One rank of phase 14's world (ranks 0-3 on the card, 4-7 on the
     CPU): every case in order, each on the meshes over its rank sets
     (built by every rank; the 2-rank cases on {0, 1} and {2, 3} at once,
-    a whole-step case on 0-3 and 4-7 at once).  (c) comes first, and its
-    steps run on a quiet host: the twins wait at a barrier over all 8
-    ranks that the card's ranks reach after their last step.  Returns this
-    rank's results."""
+    a whole-step case on 0-3 and 4-7 at once).  (d)-(f) and then (c) come
+    first, and run on a quiet host: the twins wait at a barrier over all
+    8 ranks that the card's ranks reach at the end of (d)-(f), and at
+    another after (c)'s last step.  Returns this rank's results."""
     import torch
     import torch.distributed as tdist
     from repro_torch.kernels import build
@@ -4989,7 +5043,7 @@ def dist_rank(dev, cases, ckpt_dir):
         t0 = time.perf_counter()
         side = next((i for i, m in enumerate(meshes) if m.member), None)
         if side is None:
-            if case["kind"] == "full":      # a twin waits out (c)'s steps
+            if case["kind"] in ("full", "ring"):  # a twin waits them out
                 tdist.barrier()
                 res[name] = {"result": None, "s": time.perf_counter() - t0,
                              "lead": False, "transport": []}
@@ -5000,6 +5054,8 @@ def dist_rank(dev, cases, ckpt_dir):
         elif case["kind"] == "step_pair":
             res[name] = _case_step_pair(torch, mesh, dev, case, side == 1,
                                         pending)
+        elif case["kind"] == "ring":
+            res[name] = _case_ring(torch, build, mesh, dev, tdist.barrier)
         else:
             res[name] = _case_full(torch, build, mesh, dev, ckpt_dir,
                                    tdist.barrier)
@@ -5020,11 +5076,14 @@ CARD, TWINS = (0, 1, 2, 3), (4, 5, 6, 7)
 
 
 def _world_cases():
-    """(c), then (b), with the rank sets of their meshes."""
+    """(d)-(f), (c), then (b), with the rank sets of their meshes: the
+    twins wait at a barrier through (d)-(f) and (c)'s steps, and run
+    their CPU steps beside (c)'s checkpoint and the card's (b) cases."""
     pipe = {"kind": "vs_single", "mode": "bf16", "layers": DIST_LAYERS,
             "M": 2, "schedules": ("gpipe", "1f1b")}
     free = {"kind": "vs_single", "mode": "bp8_fused", "layers": DIST_LAYERS}
     return [
+        ("ring", {"kind": "ring", "mesh": RING_SHAPE, "ranks": [CARD]}),
         ("full", {"kind": "full", "mesh": DIST_SHAPE, "ranks": [CARD]}),
         ("stage2", {**pipe, "mesh": {"stage": 2}, "ranks": [(0, 1)]}),
         ("data2", {**free, "mesh": {"data": 2}, "ranks": [(2, 3)]}),
@@ -5072,11 +5131,17 @@ def phase_dist(torch, timer, build):
     2, model 2) in ``bp8_fused``, against the same mesh on 4 gloo CPU
     ranks; (c) h2o-danube-1.8b whole on (stage 2, model 2), its
     checkpoint restored bitwise and resumed in this process without a
-    mesh.  The card's ranks are 4 processes on cuda:0 over gloo, started
-    here with their 4 twins on the CPU; (c)'s steps run first, while the
-    twins wait at a barrier, so that no CPU step of a twin loads the host
-    under them.  Returns the kernel rows,
-    the launches of (c) summed over the ranks, and a report."""
+    mesh; (d)-(f) sequence parallelism on the 4 card ranks as one (seq 4)
+    ring: the ring core bitwise its oracles, qwen2-72b (2 layers) and
+    minicpm3-4b served under the ring against the same calls in one
+    process, and a long_500k decode step, then rows 1-3 timed at a ring
+    rank's prefill shapes.  The card's ranks are 4 processes on cuda:0
+    over gloo, started here with their 4 twins on the CPU; (d)-(f) and
+    (c)'s steps run first, while the twins wait at barriers, so that no
+    CPU step of a twin loads the host under them (the ring's first work
+    takes the ranks' cold start).  Returns the kernel rows
+    and launches of (c) and of (e) (summed over the ranks), and a
+    report."""
     import shutil
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import launch_ranks
@@ -5097,6 +5162,11 @@ def phase_dist(torch, timer, build):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    report["parent_gb"] = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                           "reserved": torch.cuda.memory_reserved() / 1e9}
+    print(f"phase 14: this process holds {report['parent_gb']['allocated']:.2f}"
+          f" GB allocated, {report['parent_gb']['reserved']:.2f} GB reserved "
+          "on the card as its ranks start")
     t1 = time.perf_counter()
     tm = {}
     ranks = launch_ranks(dist_rank, len(CARD + TWINS), _world_cases(),
@@ -5106,6 +5176,8 @@ def phase_dist(torch, timer, build):
                          timings=tm)
     card, twins = ranks[:len(CARD)], ranks[len(CARD):]
     report["world_s"] = time.perf_counter() - t1
+    report["case_s"] = {"card": {k: v["s"] for k, v in card[0].items()},
+                        "twin": {k: v["s"] for k, v in twins[0].items()}}
     print(f"phase 14 world (4 card ranks and their 4 CPU twins): "
           f"{report['world_s']:.1f}s; per case on the card's rank 0: "
           + ", ".join(f"{k} {v['s']:.1f}s" for k, v in card[0].items())
@@ -5152,6 +5224,9 @@ def phase_dist(torch, timer, build):
         for name, c in cases if c["kind"] == "step_pair"}
     report["b_reduced"] = DIST_REDUCED
 
+    # (d)-(f)
+    ring_launches, report["ring"] = ring_report(
+        [r["ring"]["result"] for r in card])
     # (c)
     full = [r["full"]["result"] for r in card]
     del card
@@ -5161,7 +5236,12 @@ def phase_dist(torch, timer, build):
     report["c"]["restore"] = dist_restore(torch, full, ckpt_dir)
     report["c_restore_s"] = time.perf_counter() - t2
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return rows, launches, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    ring_rows = ring_kernel_rows(torch, timer)
+    report["ring_rows_s"] = time.perf_counter() - t3
+    return rows, launches, ring_rows, ring_launches, report
 
 
 def dist_full_report(torch, full, plan):
@@ -5303,6 +5383,440 @@ def dist_restore(torch, full, ckpt_dir, dev="cuda"):
           f"bitwise; train() continued from it at step {hist[0]['step']}, "
           f"loss {hist[0]['loss']:.4f} ({resume_s:.1f}s)")
     return {"read_s": read_s, "resumed": hist, "resume_s": resume_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 14(d)-(f): sequence parallelism (ring attention over "seq")
+# ---------------------------------------------------------------------------
+
+SEQ_PATH = "serve_seq_ring_bp8_fused"
+#: the ring's mesh: phase 14's 4 card ranks as one ring
+RING_SHAPE = {"seq": 4, "data": 1, "model": 1}
+#: (e): qwen2-72b at full width and 2 of its 80 layers under a prompt of
+#: decode_32k's length (8192 tokens a rank), minicpm3-4b whole under
+#: 8192; 16 greedy decode steps each
+RING_QWEN_LAYERS, RING_QWEN_PROMPT = 2, 32768
+RING_MINICPM_PROMPT, RING_STEPS = 8192, 16
+#: (f): long_500k's cache, seeded: 524288 slots, positions 0..524283
+LONG_SLOTS, LONG_FILLED, LONG_STEPS = 524288, 524284, 4
+#: (d): the ring core's KV length at qwen2-72b's heads and minicpm3's
+#: latent
+RING_CORE_SKV = 8192
+RING_SEED = 25
+#: a greedy token may part from the single process's only where that
+#: run's top-2 logit gap is under this share of the row's largest |logit|
+RING_TIE = 0.01
+SEQ_REDUCED = {"num_layers": "qwen2-72b 80 -> 2 in 14(e) and (f); "
+                "minicpm3-4b whole (62)"}
+
+
+def seq_config(arch, layers=None, kv_quant="none"):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, matmul_mode="bp8_fused",
+                               kv_quant=kv_quant,
+                               num_layers=layers or cfg.num_layers)
+
+
+def _cosine(torch, a, b) -> float:
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+
+
+def _ring_core(torch, mesh, dev):
+    """14(d) on one rank: the ring core at qwen2-72b's heads (64 q, 8 kv,
+    D 128) over 8192 KV slots under both schedules (the kv schedule over
+    8192 queries, a block a rank; the stats schedule over one), an odd
+    8191 through ``pad_kv``, and the absorbed-MLA ring at minicpm3-4b's
+    latent (R 256, rope 32, 40 heads); each held bitwise to the port's
+    oracle run in this process and within 1e-5 of dense attention."""
+    from repro_torch.dist import seq
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RING_SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    n, skv = mesh.size("seq"), RING_CORE_SKV
+    q, k, v = randn(1, skv, 64, 128), randn(1, skv, 8, 128), randn(
+        1, skv, 8, 128)
+    pos = torch.arange(skv, device=dev)[None]
+    q1, p1 = q[:, -1:], pos[:, -1:]
+    out = {}
+
+    def held(name, got, want, dense):
+        mesh.reset_stats()
+        out[name] = {"bitwise": bool(torch.equal(got, want)),
+                     "dense_err": _rel_err(got, dense)}
+
+    with shd.use_rules(mesh, shd.get_rules("sequence")), seq.use_ring(mesh):
+        lay = seq.row_ring(1, skv)
+        lo, c = lay.block(skv)
+        with seq.shard_rows(skv, lay):
+            got = seq.ring_attend(q[:, lo:lo + c], k[:, lo:lo + c],
+                                  v[:, lo:lo + c], pos[:, lo:lo + c],
+                                  pos[:, lo:lo + c], kv_local=True)
+        held(f"gqa, kv schedule, {skv} queries", got,
+             A.ring_reference(q, k, v, pos, pos, n_blocks=n,
+                              q_blocks=n)[:, lo:lo + c],
+             A.sdpa(q, k, v, pos, pos)[:, lo:lo + c])
+        held("gqa, stats schedule, 1 query",
+             seq.ring_attend(q1, k, v, p1, pos),
+             A.ring_reference(q1, k, v, p1, pos, n_blocks=n),
+             A.sdpa(q1, k, v, p1, pos))
+        odd = (k[:, :skv - 1], v[:, :skv - 1], pos[:, :skv - 1])
+        held(f"gqa, stats schedule, {skv - 1} slots through pad_kv",
+             seq.ring_attend(q1, *odd[:2], p1, odd[2]),
+             A.ring_reference(q1, *seq.pad_kv(*odd, skv)[:2], p1,
+                              seq.pad_kv(*odd, skv)[2], n_blocks=n),
+             A.sdpa(q1, *odd[:2], p1, odd[2]))
+        qa, qr = randn(1, 1, 40, 256), randn(1, 1, 40, 32)
+        ckv = randn(1, skv, 256, dtype=torch.bfloat16)
+        kr = randn(1, skv, 32, dtype=torch.bfloat16)
+        scale = 1.0 / math.sqrt(96.0)
+        s = (torch.einsum("bqhr,bsr->bhqs", qa, ckv.float())
+             + torch.einsum("bqhp,bsp->bhqs", qr, kr.float())) * scale
+        dense = torch.einsum("bhqs,bsr->bqhr", torch.softmax(s, -1),
+                             ckv.float())
+        held("mla, stats schedule, 1 query",
+             seq.ring_attend_mla(qa, qr, ckv[:, lo:lo + c], kr[:, lo:lo + c],
+                                 p1, pos[:, lo:lo + c], scale=scale),
+             A.ring_mla_reference(qa, qr, ckv, kr, p1, pos, n_blocks=n,
+                                  scale=scale), dense)
+    return out
+
+
+def _transport(mesh) -> dict:
+    return {f"{op} ({tr})": {"calls": st.calls, "s": st.seconds,
+                             "bytes": st.bytes}
+            for (op, tr), st in mesh.stats.items()}
+
+
+def _comm_s(transport) -> float:
+    """Seconds in the ring's sends and receives (and the row gathers and
+    scale reductions of a sharded prefill)."""
+    return sum(v["s"] for k, v in transport.items()
+               if k.split(" ")[0] in ("send", "send_wait", "recv",
+                                      "all_gather", "all_reduce_max"))
+
+
+def _sync_s(torch, t0) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _ring_serve(torch, build, mesh, dev, model, params, prompt_len):
+    """14(e) on one rank: ``model`` under the ring prefills a seeded
+    prompt of ``prompt_len`` tokens and takes ``RING_STEPS`` greedy
+    decode steps; launches counted from just before to just after."""
+    from repro_torch.dist import seq
+    from repro_torch.dist import sharding as shd
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(RING_SEED + prompt_len)
+    prompt = torch.randint(3, cfg.vocab_size, (1, prompt_len),
+                           generator=gen).to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    with shd.use_rules(mesh, shd.get_rules("sequence")), seq.use_ring(mesh):
+        torch.cuda.synchronize()
+        mesh.reset_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      prompt_len + RING_STEPS)
+        res["prefill_s"] = _sync_s(torch, t0)
+        res["prefill_transport"] = _transport(mesh)
+        first = logits.float()
+        tok = logits.argmax(-1)
+        toks, steps = [int(tok)], []
+        mesh.reset_stats()
+        for i in range(RING_STEPS):
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok[:, None], cache,
+                                              prompt_len + i)
+            tok = logits.argmax(-1)
+            toks.append(int(tok))
+            steps.append(_sync_s(torch, t1))
+        res["decode_transport"] = _transport(mesh)
+        res["launches"] = dict(build.LAUNCHES)
+    res.update(step_s=steps, tokens=toks, cache_bytes=param_bytes(cache),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               decode_comm_share=_comm_s(res["decode_transport"])
+               / sum(steps))
+    return res, prompt, first
+
+
+def _greedy_vs(torch, logits, token) -> dict:
+    """The single process's row against the ring's greedy ``token``: its
+    own choice, its top-2 gap and the near-tie threshold."""
+    row = logits.float().reshape(-1)
+    top = torch.topk(row, 2)
+    gap = float(top.values[0] - top.values[1])
+    tie = RING_TIE * float(row.abs().max())
+    return {"ring": token, "single": int(top.indices[0]), "gap": gap,
+            "tie_below": tie, "equal": int(top.indices[0]) == token}
+
+
+def _single_serve(torch, model, params, prompt, first, ring):
+    """14(e)'s single-process run (no ring) of the same calls, the decode
+    steps fed the ring's tokens: the prefill logits' cosine, and each
+    greedy choice against the ring's."""
+    prompt_len = prompt.shape[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  prompt_len + RING_STEPS)
+    prefill_s = _sync_s(torch, t0)
+    out = {"prefill_s": prefill_s, "cosine": _cosine(torch, first, logits),
+           "choices": [_greedy_vs(torch, logits, ring["tokens"][0])]}
+    steps = []
+    for i in range(RING_STEPS):
+        tok = torch.tensor([[ring["tokens"][i]]], device=prompt.device)
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache, prompt_len + i)
+        steps.append(_sync_s(torch, t1))
+        out["choices"].append(_greedy_vs(torch, logits,
+                                         ring["tokens"][i + 1]))
+    out.update(step_s=steps, cache_bytes=param_bytes(cache),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def _long_cache(torch, model, dev, blocks, n):
+    """(f)'s seeded cache of blocks ``blocks`` of ``n`` (one rank's, or
+    all joined for the single process): BP8 codes in [-9, 9], scales in
+    [0.25, 2.25), positions 0..LONG_FILLED-1 and -1 after; each block
+    drawn from its own seed, so that the ranks' blocks join to the whole."""
+    c = LONG_SLOTS // n
+    parts = []
+    for r in blocks:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(RING_SEED + 100 + r)
+        leaf = {}
+        for key, (shape, dtype) in sorted(
+                model.cache_spec(1, c)["layers"].items()):
+            if key == "pos":
+                p = torch.arange(r * c, (r + 1) * c, device=dev,
+                                 dtype=torch.int32)
+                p = torch.where(p < LONG_FILLED, p, -1)
+                leaf[key] = p.expand(shape).contiguous()
+            elif dtype == torch.int8:
+                leaf[key] = torch.randint(-9, 10, shape, generator=gen,
+                                          device=dev, dtype=torch.int8)
+            else:
+                leaf[key] = torch.rand(shape, generator=gen,
+                                       device=dev) * 2 + 0.25
+        parts.append(leaf)
+    return {"layers": {k: torch.cat([p[k] for p in parts], 2)
+                       for k in parts[0]}}
+
+
+def _long_tokens(torch, cfg, dev):
+    gen = torch.Generator().manual_seed(RING_SEED + 7)
+    return torch.randint(3, cfg.vocab_size, (LONG_STEPS, 1, 1),
+                         generator=gen).to(dev)
+
+
+def _long_steps(torch, model, params, cache, toks):
+    """(f)'s decode steps over ``cache``: each step's logits and
+    seconds."""
+    logits, steps = [], []
+    for i in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, toks[i], cache,
+                                      LONG_FILLED + i)
+        steps.append(_sync_s(torch, t0))
+        logits.append(lg.float())
+    return logits, steps, cache
+
+
+def _ring_long(torch, mesh, dev, model, params):
+    """14(f) on one rank: ``LONG_STEPS`` decode steps of qwen2-72b over
+    its block of long_500k's seeded cache, under the ring."""
+    from repro_torch.dist import seq
+    from repro_torch.dist import sharding as shd
+    n, i = mesh.size("seq"), mesh.index("seq")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = _long_cache(torch, model, dev, [i], n)
+    with shd.use_rules(mesh, shd.get_rules("sequence")), seq.use_ring(mesh):
+        mesh.reset_stats()
+        logits, steps, cache = _long_steps(torch, model, params, cache,
+                                           _long_tokens(torch, model.cfg,
+                                                        dev))
+    return {"step_s": steps, "cache_bytes": param_bytes(cache),
+            "comm_share": _comm_s(_transport(mesh)) / sum(steps)}, logits
+
+
+def _single_long(torch, model, params, dev, ring_logits, n):
+    """14(f)'s single-process steps over the whole seeded cache (through
+    the fused decode attention, row 4), against the ring's logits."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = _long_cache(torch, model, dev, range(n), n)
+    logits, steps, cache = _long_steps(torch, model, params, cache,
+                                       _long_tokens(torch, model.cfg, dev))
+    return {"step_s": steps, "cache_bytes": param_bytes(cache),
+            "cosines": [_cosine(torch, a, b)
+                        for a, b in zip(ring_logits, logits)],
+            "choices": [_greedy_vs(torch, b, int(a.argmax()))
+                        for a, b in zip(ring_logits, logits)]}
+
+
+def _case_ring(torch, build, mesh, dev, quiet):
+    """Phase 14(d)-(f) on one card rank of the (seq 4) ring: the core,
+    then qwen2-72b (2 layers) served under the ring and its long_500k
+    steps, then minicpm3-4b whole.  After each model's ring runs, ranks
+    1-3 free their weights and wait while rank 0 runs the same calls in
+    this one process without the ring, and compares.  ``quiet()`` (the
+    barrier the CPU twins wait at) is called at the end: everything here
+    runs on a quiet host."""
+    import torch.distributed as tdist
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import init_params
+    lead = mesh.index("seq") == 0
+    group = mesh.group("seq")
+    out = {"core": _ring_core(torch, mesh, dev)}
+    for arch, layers, prompt_len, kvq in (
+            ("qwen2_72b", RING_QWEN_LAYERS, RING_QWEN_PROMPT, "bp8"),
+            ("minicpm3_4b", None, RING_MINICPM_PROMPT, "none")):
+        cfg = seq_config(arch, layers, kvq)
+        model = build_model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_params(model.schema(), seed=0, device=dev)
+        init_s = _sync_s(torch, t0)
+        ring, prompt, first = _ring_serve(torch, build, mesh, dev, model,
+                                          params, prompt_len)
+        ring["init_s"] = init_s
+        res = {"ring": ring}
+        if arch == "qwen2_72b":
+            res["long_ring"], long_logits = _ring_long(torch, mesh, dev,
+                                                       model, params)
+        if not lead:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        tdist.barrier(group=group)
+        if lead:
+            res["single"] = _single_serve(torch, model, params, prompt,
+                                          first, ring)
+            if arch == "qwen2_72b":
+                res["long_single"] = _single_long(
+                    torch, model, params, dev, long_logits,
+                    mesh.size("seq"))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        tdist.barrier(group=group)
+        out[arch] = res
+    quiet()
+    return out
+
+
+def ring_kernel_rows(torch, timer):
+    """14(e)'s rows 1-3 at a ring rank's prefill shapes: qwen2-72b's
+    projections (wq, wk, wv, wo, down) and gated MLP at M 8192, a rank's
+    block of the 32768-token prompt."""
+    m, d, kv, ff = RING_QWEN_PROMPT // RING_SHAPE["seq"], 8192, 1024, 29568
+    return layer_kernel_rows(
+        torch, timer, [(m, d, d), (m, d, kv), (m, d, kv), (m, d, d),
+                       (m, ff, d)], (m, d, ff), "14(e)",
+        "a ring rank's qwen2-72b prefill", "ring prefill", plain_iters=1)
+
+
+def ring_report(ranks):
+    """14(d)-(f)'s gates and numbers over the 4 card ranks' results:
+    fails the script where a case is not bitwise, a cosine is at or under
+    0.9999 or a greedy choice parts outside a near tie."""
+    report = {"core": ranks[0]["core"]}
+    for r, res in enumerate(ranks):
+        for name, c in res["core"].items():
+            if not c["bitwise"] or not c["dense_err"] <= 1e-5:
+                fail(f"phase 14(d) rank {r} {name}: {c}")
+    print("phase 14(d): the ring core bitwise its oracle on every rank, "
+          "within 1e-5 of dense attention: " + "; ".join(
+              f"{k} {max(r['core'][k]['dense_err'] for r in ranks):.3g}"
+              for k in ranks[0]["core"]))
+    launches = {}
+    for arch in ("qwen2_72b", "minicpm3_4b"):
+        ring = [res[arch]["ring"] for res in ranks]
+        single = ranks[0][arch]["single"]
+        bad = [c for c in single["choices"]
+               if not c["equal"] and c["gap"] >= c["tie_below"]]
+        if not single["cosine"] > 0.9999 or bad:
+            fail(f"phase 14(e) {arch}: prefill cosine {single['cosine']}, "
+                 f"greedy choices parting outside a near tie {bad}")
+        per_rank = [{k: v for k, v in r["launches"].items()
+                     if k in ("absmax", "fused_matmul", "fused_mlp")}
+                    for r in ring]
+        for k in ("absmax", "fused_matmul", "fused_mlp"):
+            launches[k] = launches.get(k, 0) + sum(p.get(k, 0)
+                                                   for p in per_rank)
+        if any(p.get(k, 0) <= 0 for p in per_rank
+               for k in ("absmax", "fused_matmul", "fused_mlp")):
+            fail(f"phase 14(e) {arch}: a row of 1-3 never launched on a "
+                 f"ring rank: {per_rank}")
+        step_ring = [max(r["step_s"][i] for r in ring)
+                     for i in range(RING_STEPS)]
+        med = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]
+        parted = sum(not c["equal"] for c in single["choices"])
+        print(f"phase 14(e) {arch} ({ring[0]['init_s']:.1f}s init a rank): "
+              f"prefill {max(r['prefill_s'] for r in ring):.3f}s on the "
+              f"ring (slowest rank) vs {single['prefill_s']:.3f}s single; "
+              f"decode step median {med(step_ring) * 1e3:.1f} ms ring vs "
+              f"{med(single['step_s']) * 1e3:.1f} ms single; prefill "
+              f"logits cosine {single['cosine']:.7f}; greedy tokens equal "
+              f"at {len(single['choices']) - parted} of "
+              f"{len(single['choices'])} (top-2 gaps "
+              + ", ".join(f"{c['gap']:.4g}" for c in single["choices"])
+              + "); cache bytes a rank "
+              + ", ".join(str(r["cache_bytes"]) for r in ring)
+              + f" vs {single['cache_bytes']} single; peak GB a rank "
+              + ", ".join(f"{r['peak_gb']:.2f}" for r in ring)
+              + f" vs {single['peak_gb']:.2f} single; decode share in "
+              "sends and receives a rank "
+              + ", ".join(f"{r['decode_comm_share']:.3f}" for r in ring)
+              + "; launches of rows 1-3 a rank " + ", ".join(
+                  str(p) for p in per_rank))
+        report[arch] = {"ring": ring, "single": single,
+                        "launches": per_rank}
+    long_ring = [res["qwen2_72b"]["long_ring"] for res in ranks]
+    long_single = ranks[0]["qwen2_72b"]["long_single"]
+    bad = [c for c in long_single["choices"]
+           if not c["equal"] and c["gap"] >= c["tie_below"]]
+    if not min(long_single["cosines"]) > 0.9999 or bad:
+        fail(f"phase 14(f): cosines {long_single['cosines']}, top-1 "
+             f"parting outside a near tie {bad}")
+    step = [max(r["step_s"][i] for r in long_ring)
+            for i in range(LONG_STEPS)]
+    print(f"phase 14(f) long_500k decode, qwen2-72b 2 layers over "
+          f"{LONG_SLOTS} slots: step ms ring (slowest rank) "
+          + ", ".join(f"{x * 1e3:.1f}" for x in step) + " vs single "
+          + ", ".join(f"{x * 1e3:.1f}" for x in long_single["step_s"])
+          + "; logits cosines " + ", ".join(
+              f"{x:.7f}" for x in long_single["cosines"])
+          + "; top-1 equal " + str([c["equal"] for c in
+                                     long_single["choices"]])
+          + "; cache bytes a rank " + ", ".join(
+              str(r["cache_bytes"]) for r in long_ring)
+          + f" vs {long_single['cache_bytes']} single; share in sends and "
+          "receives a rank " + ", ".join(f"{r['comm_share']:.3f}"
+                                          for r in long_ring))
+    report["long_500k"] = {"ring": long_ring, "single": long_single}
+    report["reduced"] = SEQ_REDUCED
+    return launches, report
 
 
 class _Shape:
@@ -5598,7 +6112,10 @@ def main() -> None:
         with Phase(f"3 card vs cpu, {mode}", report):
             cfg2 = dataclasses.replace(full, num_layers=CPU_CHECK_LAYERS,
                                        matmul_mode=mode)
-            report["cpu_s"][mode] = card_vs_cpu(torch, cfg2, prompts)
+            # PHASE3_PROMPTS of the three drawn (the draws keep the later
+            # phases' prompts): a part of a chunk and two chunks
+            report["cpu_s"][mode] = card_vs_cpu(
+                torch, cfg2, [prompts[i] for i in PHASE3_PROMPTS])
 
     # ---- phase 4: the served path, full model ----
     with Phase("4 served path (bp8_fused)", report):
@@ -5731,12 +6248,12 @@ def main() -> None:
     # ---- phase 14: the distributed layer ----
     with Phase("14 the distributed layer (mesh, sharding, TP, pipeline)",
                report):
-        dist_rows, dist_launches, report["phase14"] = phase_dist(
-            torch, timer, build)
+        (dist_rows, dist_launches, ring_rows, ring_launches,
+         report["phase14"]) = phase_dist(torch, timer, build)
 
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches,
-                     DIST_PATH: dist_launches}
+                     DIST_PATH: dist_launches, SEQ_PATH: ring_launches}
     for arch, path in GEMMA_PATHS.items():
         path_launches[path] = gemma_launches[arch]
     for arch, path in MOE_PATHS.items():
@@ -5765,7 +6282,8 @@ def main() -> None:
                           + [(n, FT_PATHS[arch], r)
                              for arch, arch_rows in ft_rows.items()
                              for n, r in arch_rows.items()]
-                          + [(n, DIST_PATH, r) for n, r in dist_rows.items()]):
+                          + [(n, DIST_PATH, r) for n, r in dist_rows.items()]
+                          + [(n, SEQ_PATH, r) for n, r in ring_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)
         t_ops = sum(x[2] for x in b)
@@ -5778,6 +6296,9 @@ def main() -> None:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r["library_ms"]})
     report["kernels"] = kernels
+    paths = [(k["name"], k["path"]) for k in kernels]
+    if len(set(paths)) != len(paths):
+        fail(f"kernels line: a (kernel, path) twice in {paths}")
     print("phase seconds: " + ", ".join(
         f"{k.split(' ')[0]} {v:.1f}" for k, v in report["phase_s"].items())
         + f"; in all {sum(report['phase_s'].values()):.1f}")

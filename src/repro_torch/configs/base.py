@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 ARCH_IDS = ("gemma3_12b", "h2o_danube_1p8b", "qwen2_72b", "paligemma_3b",
             "granite_moe_1b", "deepseek_v2_236b", "minicpm3_4b",
@@ -82,6 +82,15 @@ class ModelConfig:
     # engine refuses it.
     ring_cache: bool = False
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (no full attention over the whole
+        sequence in every layer): SSM/hybrid families, or SWA-dominant
+        transformers."""
+        if self.family in ("hybrid", "xlstm"):
+            return True
+        return self.window_size is not None
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -91,6 +100,14 @@ class ShapeConfig:
     global_batch: int
 
 
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "p")
     if arch not in ARCH_IDS:
@@ -98,3 +115,18 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
             f"arch {arch!r} is not ported yet (ported: {ARCH_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.smoke_config() if smoke else mod.config()
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig,
+                     seq_shards: int = 1) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell is runnable; the reason if not.
+    A full-attention arch cannot hold long_500k's cache on a data x model
+    x stage layout unless sequence parallelism (``seq_shards`` > 1) cuts
+    its KV cache over a ring (``dist.seq``); sub-quadratic archs never
+    needed the ring."""
+    if (shape.name == "long_500k" and not cfg.sub_quadratic
+            and seq_shards <= 1):
+        return False, ("pure full-attention arch: long_500k needs "
+                       "sequence parallelism (seq_shards > 1) or "
+                       "sub-quadratic attention")
+    return True, ""

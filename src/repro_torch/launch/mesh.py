@@ -55,6 +55,8 @@ from repro_torch.device import resolve_device
 TIMEOUT = datetime.timedelta(minutes=5)
 #: the tag of ``Mesh.gather``'s sends (the pipeline's are microbatches')
 GATHER_TAG = 1 << 20
+#: the tag of ``Mesh.shift``'s sends (the ring's hops)
+SHIFT_TAG = (1 << 20) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +252,17 @@ class Mesh:
             return None
         return self.rank_at({**self.coords, axis: c})
 
+    def _ring_rank(self, axes, offset: int) -> int:
+        """The global rank ``offset`` steps along ``axes`` taken as one
+        ring (row-major over them, wrapping around)."""
+        live = self._live(axes)
+        k = (self.index(live) + offset) % self.size(live)
+        coords = dict(self.coords)
+        for a in reversed(live):
+            coords[a] = k % self.shape[a]
+            k //= self.shape[a]
+        return self.rank_at(coords)
+
     # -- transport -----------------------------------------------------------
 
     def transport(self, t: torch.Tensor) -> str:
@@ -365,7 +378,9 @@ class Mesh:
         """Start sending ``t`` to the rank ``offset`` steps along ``axis``;
         returns a handle whose ``wait()`` ends the send (the buffer stays
         alive with it)."""
-        peer = self.neighbour(axis, offset)
+        return self._send(t, self.neighbour(axis, offset), tag)
+
+    def _send(self, t: torch.Tensor, peer: int, tag: int):
         t0 = self._start(t.is_cuda)
         buf = self._staged(t).contiguous()
         work = dist.isend(buf, peer, tag=tag)
@@ -376,7 +391,9 @@ class Mesh:
              tag: int = 0) -> torch.Tensor:
         """Receive a tensor from the rank ``offset`` steps along ``axis``
         onto this rank's device (blocking)."""
-        peer = self.neighbour(axis, offset)
+        return self._recv(shape, dtype, self.neighbour(axis, offset), tag)
+
+    def _recv(self, shape, dtype, peer: int, tag: int) -> torch.Tensor:
         t0 = self._start(self.device.type == "cuda")
         host = self.backend != "nccl" and self.device.type == "cuda"
         buf = self._pinned_buffer(shape, dtype) if host else torch.empty(
@@ -384,6 +401,19 @@ class Mesh:
         dist.recv(buf, peer, tag=tag)
         out = buf.to(self.device) if host else buf
         self._record("recv", out, t0)
+        return out
+
+    def shift(self, t: torch.Tensor, axes, offset: int = 1) -> torch.Tensor:
+        """One hop of a ring over ``axes`` (row-major over them, wrapping):
+        send ``t`` to the rank ``offset`` steps on and return the tensor of
+        the same shape and dtype received from the rank ``offset`` steps
+        back.  ``t`` itself over one rank."""
+        if self.size(axes) == 1:
+            return t
+        pending = self._send(t, self._ring_rank(axes, offset), SHIFT_TAG)
+        out = self._recv(t.shape, t.dtype, self._ring_rank(axes, -offset),
+                         SHIFT_TAG)
+        pending.wait()
         return out
 
 

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import device_constant
+from repro_torch.dist import seq as _seq
 from repro_torch.dist import tp as _tp
 from repro_torch.kernels import attention as kq
 from repro_torch.models.layers import (ParamDef, apply_rope, dense,
@@ -134,6 +135,293 @@ def sdpa(q, k, v, q_pos, kv_pos, *, causal=True, window=None, chunk=1024,
 
 
 # ---------------------------------------------------------------------------
+# ring attention (sequence parallelism over a "seq" mesh axis)
+#
+# The KV sequence lives cut over a ring of ranks, one contiguous block a
+# rank.  Attention over the whole sequence is recovered from per-block
+# online-softmax partials (m, l, acc) merged in canonical block order, so
+# the result has the same bits whichever rank computed which block.  Two
+# schedules give the same partials:
+#
+#   * rotate="kv"    - the queries stay put (sharded or whole); the KV
+#                      blocks travel the ring (n - 1 hops).  Prefill's.
+#   * rotate="stats" - each rank computes its own block's partial once and
+#                      the (m, l, acc) tuple travels instead: for decode
+#                      (Sq == 1) O(heads * head_dim) bytes a hop.
+#
+# Causal masks, windows, prefixes and empty slots all come from the
+# absolute-position mask: a fully masked block gives m = NEG_INF and is
+# wiped exactly (exp(NEG_INF - m) == 0) by the merge.
+#
+# A block's partial is computed in pieces of at most ``_ring_rows`` query
+# rows (each row's partial is independent of the others'), never in
+# pieces of keys (that would change the order of the sums): a whole
+# block's scores at qwen2-72b's heads and 8192-token blocks would be
+# 17 GB.  The oracles (``ring_reference``, ``ring_mla_reference``) cut
+# the queries the same way, so that every einsum and reduction of the
+# ring has its twin of the same shape there, and ring == oracle bit for
+# bit.  ``repro_torch.dist.seq`` wraps these functions for the model.
+# ---------------------------------------------------------------------------
+
+#: the elements of one piece's (..., rows, block) score tensor: 0.5 GiB
+#: in f32, so a piece's transients (scores, probabilities, mask) stay
+#: under 2 GB
+RING_PIECE_ELEMENTS = 1 << 27
+
+
+def _ring_rows(per_row: int, rows: int) -> int:
+    """Query rows a piece takes when one row's scores are ``per_row``
+    elements."""
+    return max(1, min(rows, RING_PIECE_ELEMENTS // max(per_row, 1)))
+
+
+def _block_partials(qg, kb, vb, q_pos, kp_b, *, causal, window, prefix_len,
+                    softcap):
+    """Online-softmax partial of one KV block.
+
+    qg: (B,KH,G,Sq,D) pre-scaled f32 queries; kb: (B,KH,c,D); vb:
+    (B,KH,c,Dv); kp_b: (B,c) absolute positions (-1 = empty slot).
+    Returns (m, l, acc): (B,KH,G,Sq), (B,KH,G,Sq), (B,KH,G,Sq,Dv).  The
+    queries go in pieces of ``_ring_rows`` rows; every operand is made
+    contiguous, so that equal shapes take equal kernels."""
+    b, kh, g, sq, _ = qg.shape
+    c = kb.shape[2]
+    kb = kb.to(torch.float32).contiguous()
+    vb = vb.to(torch.float32).contiguous()
+    rows = _ring_rows(kh * g * c * b, sq)
+    ms, ls, accs = [], [], []
+    for r0 in range(0, sq, rows):
+        qc = qg[:, :, :, r0:r0 + rows].contiguous()
+        s = torch.einsum("bhgqd,bhsd->bhgqs", qc, kb)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        mask = _allowed(q_pos[:, r0:r0 + rows], kp_b, causal=causal,
+                        window=window, prefix_len=prefix_len)
+        s = _masked(s, mask[:, None, None])
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgqs,bhsv->bhgqv", p, vb))
+    return (torch.cat(ms, 3), torch.cat(ls, 3), torch.cat(accs, 3))
+
+
+def merge_block_partials(ms, ls, accs):
+    """Merge per-block partials stacked on dim 0 in canonical block order
+    (a left-to-right loop, the reference's float expressions); returns
+    acc / l, the attention output."""
+    m, l, acc = ms[0], ls[0], accs[0]
+    for j in range(1, ms.shape[0]):
+        mj, lj, accj = ms[j], ls[j], accs[j]
+        mn = torch.maximum(m, mj)
+        a, bcoef = torch.exp(m - mn), torch.exp(mj - mn)
+        l = l * a + lj * bcoef
+        acc = acc * a[..., None] + accj * bcoef[..., None]
+        m = mn
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _ring_rotate(mesh, axes, tensors):
+    """Each tensor sent one step along the ring ``axes`` and the previous
+    rank's received in its place: one message per dtype (the tensors of a
+    dtype travel packed)."""
+    out = list(tensors)
+    groups: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    for idx in groups.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        got = mesh.shift(flat, axes)
+        o = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = got[o:o + n].view(tensors[i].shape)
+            o += n
+    return tuple(out)
+
+
+def _ring_run(mesh, axes, n, rotate, local_partial, kv_operands,
+              part_shapes, device):
+    """The ring loop of both schedules: fill (ms, ls, accs) buffers
+    indexed by global block id, then merge them canonically.
+    ``local_partial(ops)`` gives (m, l, acc) for the KV operand tuple
+    ``ops``; ``kv_operands`` is this rank's own block."""
+    idx = mesh.index(axes)
+    bufs = [torch.zeros(s, dtype=torch.float32, device=device)
+            for s in part_shapes]
+
+    def put(j, part):
+        for buf, p in zip(bufs, part):
+            buf[j] = p
+
+    if rotate == "kv":
+        cur = kv_operands
+        for t in range(n):
+            put((idx - t) % n, local_partial(cur))
+            if t + 1 < n:
+                cur = _ring_rotate(mesh, axes, cur)
+    elif rotate == "stats":
+        cur = local_partial(kv_operands)
+        for t in range(n):
+            put((idx - t) % n, cur)
+            if t + 1 < n:
+                cur = _ring_rotate(mesh, axes, cur)
+    else:
+        raise ValueError(f"unknown ring schedule {rotate!r}")
+    return merge_block_partials(*bufs)
+
+
+def _grouped_queries(q, kh: int):
+    """(B,Sq,H,D) -> (B,KH,G,Sq,D) f32, divided by sqrt(D) (the
+    reference's ring divides where ``sdpa`` multiplies)."""
+    b, sq, h, d = q.shape
+    qg = q.reshape(b, sq, kh, h // kh, d).permute(0, 2, 3, 1, 4)
+    return qg.to(torch.float32) / _sqrt_d(d, q.device)
+
+
+def ring_sdpa(q, k, v, q_pos, kv_pos, *, mesh, axes, n_blocks, rotate="kv",
+              causal=True, window=None, prefix_len=None, softcap=None):
+    """Grouped SDPA over a KV sequence cut over the ring ``axes`` of
+    ``mesh`` (``n_blocks`` ranks), on this rank's pieces: q
+    (B,Sq_loc,H_loc,D), k/v (B,c,KH_loc,D[v]) (its block), q_pos
+    (B,Sq_loc), kv_pos (B,c).  Under "stats" every rank of the ring holds
+    the same queries; under "kv" each may hold its own block of them.
+    Both schedules return the same bits."""
+    b, sq, h, _ = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = _grouped_queries(q, kh)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    dv = vt.shape[-1]
+
+    def local_partial(ops):
+        kb, vb, kp = ops
+        return _block_partials(qg, kb, vb, q_pos, kp, causal=causal,
+                               window=window, prefix_len=prefix_len,
+                               softcap=softcap)
+
+    shp = (n_blocks, b, kh, g, sq)
+    out = _ring_run(mesh, axes, n_blocks, rotate, local_partial,
+                    (kt, vt, kv_pos), (shp, shp, shp + (dv,)), q.device)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1)
+
+
+def _oracle_merge(part, n_blocks: int, q_blocks: int, sq: int, dim: int):
+    """The oracles' merged output: the queries cut into ``q_blocks``
+    contiguous blocks, each computed and merged as the rank holding it
+    computes and merges it (``part(j, lo, hi)``: KV block j's partial of
+    rows [lo, hi)), joined along the query dim ``dim``.  Equal shapes
+    matter on the CPU too: an elementwise op's tail elements take a
+    scalar path whose ``exp`` can differ from the vector lanes' by an
+    ulp."""
+    if sq % q_blocks:
+        raise ValueError(f"Sq={sq} not divisible into {q_blocks} query "
+                         "blocks")
+    per = sq // q_blocks
+    outs = []
+    for i in range(q_blocks):
+        parts = [part(j, i * per, (i + 1) * per) for j in range(n_blocks)]
+        outs.append(merge_block_partials(
+            *(torch.stack(x) for x in zip(*parts))))
+    return torch.cat(outs, dim)
+
+
+def ring_reference(q, k, v, q_pos, kv_pos, *, n_blocks, q_blocks=1,
+                   causal=True, window=None, prefix_len=None, softcap=None):
+    """One-process oracle of ``ring_sdpa``: KV cut into ``n_blocks``
+    contiguous blocks, the same per-block partials, the same canonical
+    merge.  ``q_blocks`` is how many ranks' blocks the queries are cut
+    into (``n_blocks`` for the "kv" schedule over sharded queries, 1 for
+    whole ones): each is computed as its rank computes it, so that the
+    ring equals this bit for bit."""
+    b, sq, h, _ = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if skv % n_blocks:
+        raise ValueError(f"Skv={skv} not divisible into {n_blocks} blocks "
+                         "(pad with repro_torch.dist.seq.pad_kv first)")
+    c = skv // n_blocks
+    qg = _grouped_queries(q, kh)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+    def part(j, lo, hi):
+        return _block_partials(
+            qg[:, :, :, lo:hi], kt[:, :, j * c:(j + 1) * c],
+            vt[:, :, j * c:(j + 1) * c], q_pos[:, lo:hi],
+            kv_pos[:, j * c:(j + 1) * c], causal=causal, window=window,
+            prefix_len=prefix_len, softcap=softcap)
+
+    out = _oracle_merge(part, n_blocks, q_blocks, sq, 3)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1)
+
+
+def _mla_block_partials(qa, qr, ckv_b, kr_b, q_pos, kp_b, *, window, scale):
+    """Absorbed-MLA partial of one latent block: scores in latent space,
+    the accumulator over the latent.  qa: (B,Sq,H,R) f32; qr: (B,Sq,H,P)
+    f32; ckv_b: (B,c,R); kr_b: (B,c,P).  Returns (m, l, acc): (B,H,Sq),
+    (B,H,Sq), (B,H,Sq,R), the queries in pieces as ``_block_partials``."""
+    b, sq, h, _ = qa.shape
+    c = ckv_b.shape[1]
+    cb = ckv_b.to(torch.float32).contiguous()
+    kb = kr_b.to(torch.float32).contiguous()
+    rows = _ring_rows(h * c * b, sq)
+    ms, ls, accs = [], [], []
+    for r0 in range(0, sq, rows):
+        qac = qa[:, r0:r0 + rows].contiguous()
+        qrc = qr[:, r0:r0 + rows].contiguous()
+        s = (torch.einsum("bqhr,bsr->bhqs", qac, cb)
+             + torch.einsum("bqhp,bsp->bhqs", qrc, kb)) * scale
+        mask = _allowed(q_pos[:, r0:r0 + rows], kp_b, causal=True,
+                        window=window)
+        s = _masked(s, mask[:, None])
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhqs,bsr->bhqr", p, cb))
+    return (torch.cat(ms, 2), torch.cat(ls, 2), torch.cat(accs, 2))
+
+
+def ring_mla(qa, q_rope, ckv, krope, q_pos, kv_pos, *, mesh, axes,
+             n_blocks, rotate="stats", window=None, scale):
+    """Absorbed-MLA decode over a latent cache cut over the ring ``axes``,
+    on this rank's pieces (its latent block).  Returns o_lat
+    (B,Sq,H,R); the W_uv expansion stays with the caller."""
+    b, sq, h, r = qa.shape
+    qa = qa.to(torch.float32)
+    qr = q_rope.to(torch.float32)
+
+    def local_partial(ops):
+        cb, kb, kp = ops
+        return _mla_block_partials(qa, qr, cb, kb, q_pos, kp, window=window,
+                                   scale=scale)
+
+    shp = (n_blocks, b, h, sq)
+    out = _ring_run(mesh, axes, n_blocks, rotate, local_partial,
+                    (ckv, krope, kv_pos), (shp, shp, shp + (r,)), qa.device)
+    return out.permute(0, 2, 1, 3)            # (B,H,Sq,R) -> (B,Sq,H,R)
+
+
+def ring_mla_reference(qa, q_rope, ckv, krope, q_pos, kv_pos, *, n_blocks,
+                       window=None, scale):
+    """One-process oracle of ``ring_mla`` (same partials, same merge)."""
+    skv = ckv.shape[1]
+    if skv % n_blocks:
+        raise ValueError(f"Skv={skv} not divisible into {n_blocks} blocks")
+    c = skv // n_blocks
+    qa = qa.to(torch.float32)
+    qr = q_rope.to(torch.float32)
+
+    def part(j, lo, hi):
+        return _mla_block_partials(
+            qa[:, lo:hi], qr[:, lo:hi], ckv[:, j * c:(j + 1) * c],
+            krope[:, j * c:(j + 1) * c], q_pos[:, lo:hi],
+            kv_pos[:, j * c:(j + 1) * c], window=window, scale=scale)
+
+    return _oracle_merge(part, n_blocks, 1, qa.shape[1], 2).permute(
+        0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
 # KV caches
 # ---------------------------------------------------------------------------
 
@@ -225,6 +513,52 @@ def _cache_write(cache: Dict[str, torch.Tensor],
     return cache
 
 
+def _cache_write_block(cache: Dict[str, torch.Tensor],
+                       updates: Dict[str, torch.Tensor], pos,
+                       lo: int) -> Dict[str, torch.Tensor]:
+    """``_cache_write`` into this rank's block of a seq-sharded cache,
+    which holds positions [lo, lo + c) at slots pos - lo (in place): a
+    row whose position lies in another rank's block is that rank's to
+    write."""
+    c = cache["pos"].shape[1]
+    pos = torch.as_tensor(pos, device=cache["pos"].device)
+    if pos.dim() == 0:
+        p = int(pos)
+        if lo <= p < lo + c:
+            for key, val in updates.items():
+                cache[key][:, p - lo] = val[:, 0].to(cache[key].dtype)
+            cache["pos"][:, p - lo] = p
+        return cache
+    # every row writes a slot of the block, a row of another rank's block
+    # its slot's own value back: no host sync on which rows are this
+    # rank's
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    mine = (pos >= lo) & (pos < lo + c)
+    slot = (pos.to(torch.int64) - lo).clamp(0, c - 1)
+    for key, val in updates.items():
+        old = cache[key][rows, slot]
+        keep = mine.reshape((-1,) + (1,) * (old.dim() - 1))
+        cache[key][rows, slot] = torch.where(
+            keep, val[:, 0].to(cache[key].dtype), old)
+    cache["pos"][rows, slot] = torch.where(mine, pos.to(torch.int32),
+                                           cache["pos"][rows, slot])
+    return cache
+
+
+def _prefill_block(cache: Dict[str, torch.Tensor],
+                   updates: Dict[str, torch.Tensor], q_pos: torch.Tensor,
+                   lo: int) -> Dict[str, torch.Tensor]:
+    """Prefill's write into this rank's block of a seq-sharded cache
+    (positions [lo, lo + c)) from the whole prompt's ``updates`` (B, S,
+    ...) at positions ``q_pos`` (B, S) = 0..S-1 (in place)."""
+    hi = min(lo + cache["pos"].shape[1], q_pos.shape[1])
+    if hi > lo:
+        for key, val in updates.items():
+            cache[key][:, :hi - lo] = val[:, lo:hi].to(cache[key].dtype)
+        cache["pos"][:, :hi - lo] = q_pos[:, lo:hi].to(torch.int32)
+    return cache
+
+
 def _cache_append(cache: Dict[str, torch.Tensor],
                   updates: Dict[str, torch.Tensor],
                   q_pos: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -274,15 +608,22 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
          without RoPE; no cache;
        * decode (Sq == 1): write one slot, attend over the cache — through
          the fused kernel when the cache is BP8 and there is no
-         ``prefix_len`` (with one, over the dequantised cache);
+         ``prefix_len`` and no ring (with either, over the dequantised
+         cache, as the reference's);
        * chunked prefill (``append``): append the Sq tokens at slots
          [p0, p0+Sq) and attend over the whole cache (refused for a ring
-         cache, ``cfg.ring_cache``);
+         cache, ``cfg.ring_cache``, and under a ring);
        * prefill: write the cache densely from slot 0; a cache of n < Sq
          slots (a ring) keeps the last n tokens, at slots pos % n.
     A quantised cache is attended as the values it stores (dequantised
     codes), so decode over it reproduces prefill's logits.  ``rope=False``
     skips the rotary embedding (whisper's learned positions).
+
+    Under a ring (``dist.seq.use_ring`` and rules that shard "kv_seq"),
+    the cache is this rank's block of a seq-sharded one: decode writes
+    its token only on the rank whose block holds it, prefill writes the
+    block from the whole prompt's keys (gathered over the ring when the
+    rows are sharded), and attention runs through ``seq.ring_attend``.
     """
     b, sq, _ = x.shape
     h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -335,12 +676,20 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                    "v_scale": vs}
     else:
         updates = {"k": k, "v": v}
+    # sequence parallelism (dist/seq.py): the cache may be this rank's
+    # block of a seq-sharded one, and the rows a block of the prompt's
+    ring = _seq.current_ring()
+    kv_lay = None if ring is None or cache is None else _seq.kv_ring(b)
     out = None
     if cache is None:
         k_all, v_all, kv_pos = k, v, q_pos
     elif sq == 1:
-        _cache_write(cache, updates, q_pos[:, 0])
-        if quant and prefix_len is None:
+        if kv_lay is None:
+            _cache_write(cache, updates, q_pos[:, 0])
+        else:
+            _cache_write_block(cache, updates, q_pos[:, 0],
+                               kv_lay.index * cache["pos"].shape[1])
+        if quant and prefix_len is None and ring is None:
             # codes stream into the kernel and dequantise on chip; the
             # cache is never expanded in device memory
             qg = q[:, 0].reshape(b, kh, h // kh, d).to(torch.float32)
@@ -360,6 +709,9 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     elif append:
         if cfg.ring_cache:
             raise ValueError("chunked prefill cannot append to a ring cache")
+        if ring is not None:
+            raise NotImplementedError(f"chunked prefill under a ring "
+                                      f"{_seq.NEEDS_NEXT}")
         _cache_append(cache, updates, q_pos)
         if quant:
             k_all = kq.dequantize_kv(cache["k_codes"], cache["k_scale"])
@@ -369,7 +721,12 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         kv_pos = cache["pos"]
     else:
         n = cache["pos"].shape[1]
-        if n < sq:      # a ring keeps the last n tokens at slots pos % n
+        if kv_lay is not None:  # this rank's block of the whole prompt's
+            whole = (updates, q_pos) if ring.rows is None else (
+                {key: _seq.gather_rows(val) for key, val in updates.items()},
+                _seq.gather_rows(q_pos))
+            _prefill_block(cache, *whole, kv_lay.index * n)
+        elif n < sq:    # a ring keeps the last n tokens at slots pos % n
             slots = torch.arange(sq - n, sq, device=x.device) % n
             for key, val in updates.items():
                 cache[key][:, slots] = val[:, sq - n:].to(cache[key].dtype)
@@ -389,6 +746,19 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             # slices the one kv head its contiguous q-head block maps to
             kvh = (_tp.tp_index(tpc) * h_loc) // (h // kh)
             k_all, v_all = k_all[:, :, kvh:kvh + 1], v_all[:, :, kvh:kvh + 1]
+        if ring is not None and not tp_attn:
+            # the ring over the seq-sharded KV: decode's is the cache
+            # block, prefill's the rank's block of the prompt when its
+            # rows are sharded (else the whole prompt, cut there); None
+            # where the rules leave this KV whole
+            out = _seq.ring_attend(
+                q, k_all, v_all, q_pos, kv_pos,
+                kv_logical="kv_seq" if cache is not None else "seq",
+                kv_local=(cache is not None and sq == 1)
+                or ring.rows is not None,
+                causal=causal, window=window, prefix_len=prefix_len,
+                softcap=cfg.logit_softcap)
+    if out is None:
         out = sdpa(q, k_all, v_all, q_pos, kv_pos, causal=causal,
                    window=window, chunk=cfg.attn_chunk,
                    softcap=cfg.logit_softcap, prefix_len=prefix_len)
@@ -473,7 +843,12 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     appends the latents at [p0, p0+Sq) and expands K/V from the whole
     cache; decode (Sq == 1) is absorbed: W_uk folds into q and the scores
     are taken in the kv_lora latent space in f32, O(S * kv_lora) a step
-    instead of O(S * H * head_dim)."""
+    instead of O(S * H * head_dim).  Under a ring (``dist.seq``) the
+    latent cache is this rank's block of a seq-sharded one: decode rings
+    the absorbed scores over it (``seq.ring_attend_mla``), and prefill,
+    which the reference does not ring, gathers the latents of sharded rows
+    over the ring, attends this rank's queries over the whole sequence
+    and writes the rank's block."""
     b, sq, _ = x.shape
     mode = cfg.matmul_mode
     # tensor parallelism (training under a plan, dist/tp.py): the latent
@@ -491,28 +866,47 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     krope = apply_rope(krope[:, :, None, :], positions,
                        cfg.rope_theta)[:, :, 0]
     updates = {"ckv": ckv, "krope": krope}
+    # sequence parallelism (dist/seq.py): the latent cache may be this
+    # rank's block of a seq-sharded one, and the rows a block of the
+    # prompt's
+    ring = _seq.current_ring()
+    kv_lay = None if ring is None or cache is None else _seq.kv_ring(b)
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
 
     if cache is not None and sq == 1:
         # ---- absorbed decode ----
-        _cache_write(cache, updates, q_pos[:, 0])
+        if kv_lay is None:
+            _cache_write(cache, updates, q_pos[:, 0])
+        else:
+            _cache_write_block(cache, updates, q_pos[:, 0],
+                               kv_lay.index * cache["pos"].shape[1])
         kv_pos = cache["pos"]
         qa = torch.einsum("bqhd,rhd->bqhr", q_nope.to(torch.float32),
                           p["wuk"].to(torch.float32))
-        ckv_all = cache["ckv"].to(torch.float32)             # (B, S, R)
-        kr_all = cache["krope"].to(torch.float32)            # (B, S, P)
-        s_nope = torch.einsum("bqhr,bsr->bhqs", qa, ckv_all)
-        s_rope = torch.einsum("bqhp,bsp->bhqs", q_rope.to(torch.float32),
-                              kr_all)
-        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-        scores = (s_nope + s_rope) * _sdpa_scale(qk, x.device)
-        mask = _allowed(q_pos, kv_pos, causal=True, window=window)
-        pr = torch.softmax(_masked(scores, mask[:, None]), dim=-1)
-        o_lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv_all)  # (B,1,H,R)
+        o_lat = None
+        if ring is not None:    # the ring over the seq-sharded latents
+            o_lat = _seq.ring_attend_mla(
+                qa, q_rope.to(torch.float32), cache["ckv"], cache["krope"],
+                q_pos, kv_pos, window=window,
+                scale=_sdpa_scale(qk, x.device))
+        if o_lat is None:
+            ckv_all = cache["ckv"].to(torch.float32)         # (B, S, R)
+            kr_all = cache["krope"].to(torch.float32)        # (B, S, P)
+            s_nope = torch.einsum("bqhr,bsr->bhqs", qa, ckv_all)
+            s_rope = torch.einsum("bqhp,bsp->bhqs",
+                                  q_rope.to(torch.float32), kr_all)
+            scores = (s_nope + s_rope) * _sdpa_scale(qk, x.device)
+            mask = _allowed(q_pos, kv_pos, causal=True, window=window)
+            pr = torch.softmax(_masked(scores, mask[:, None]), dim=-1)
+            o_lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv_all)
         out = torch.einsum("bqhr,rhv->bqhv", o_lat,
                            p["wuv"].to(torch.float32))
     elif cache is not None and append:
         # ---- chunked prefill: attend every previously appended chunk,
         # expanded from the bf16-stored latents absorbed decode reads ----
+        if ring is not None:
+            raise NotImplementedError(f"chunked prefill under a ring "
+                                      f"{_seq.NEEDS_NEXT}")
         _cache_append(cache, updates, q_pos)
         q, k, v = _mla_expand(p, cfg, q_nope, q_rope,
                               cache["ckv"].to(torch.float32),
@@ -521,20 +915,27 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                    chunk=cfg.attn_chunk)
     else:
         # ---- expanded train / prefill ----
-        if cache is not None:
-            ckv_e = ckv.to(torch.bfloat16).to(torch.float32)
-            kr_e = krope.to(torch.bfloat16).to(torch.float32)
-        else:
-            ckv_e, kr_e = ckv.to(torch.float32), krope.to(torch.float32)
+        # (prefill expands from the bf16 latents it stores; under a ring
+        # with sharded rows, from every rank's, gathered: MLA prefill is
+        # not ringed, its attention sees the whole sequence)
+        dt = torch.bfloat16 if cache is not None else torch.float32
+        lat, kv_pos = {"ckv": ckv.to(dt), "krope": krope.to(dt)}, q_pos
+        if ring is not None and ring.rows is not None:
+            lat = {key: _seq.gather_rows(val) for key, val in lat.items()}
+            kv_pos = _seq.gather_rows(q_pos)
+        ckv_e, kr_e = (lat[key].to(torch.float32) for key in lat)
         if tpc is not None:   # the shared latents enter the head split
             ckv_e = _tp.tp_gather(ckv_e, tpc)
             kr_e = _tp.tp_gather(kr_e, tpc)
         q, k, v = _mla_expand(p, cfg, q_nope, q_rope, ckv_e, kr_e)
-        out = sdpa(q, k, v, q_pos, q_pos, causal=True, window=window,
+        out = sdpa(q, k, v, q_pos, kv_pos, causal=True, window=window,
                    chunk=cfg.attn_chunk)
-        if cache is not None:                   # prefill: store latents
-            for key, val in updates.items():
-                cache[key][:, :sq] = val.to(cache[key].dtype)
+        if kv_lay is not None:                  # prefill: store latents
+            _prefill_block(cache, lat, kv_pos,
+                           kv_lay.index * cache["pos"].shape[1])
+        elif cache is not None:
+            for key, val in lat.items():
+                cache[key][:, :sq] = val
             cache["pos"][:, :sq] = q_pos.to(torch.int32)
     out = out.reshape(b, sq, -1).to(x.dtype)
     return dense(out, p["wo"], mode,

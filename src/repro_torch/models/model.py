@@ -16,10 +16,27 @@ autograd, with the reference's recomputation when ``cfg.remat``: each
 decoder layer, each whisper decoder layer (not its encoder layers), each
 zamba2 Mamba2 layer (not the shared block) and each xlstm mLSTM block
 (not the sLSTM block) is run again in the backward.
+
+Sequence parallelism (``dist/seq.py``): under ``sharding.use_rules(mesh,
+get_rules("sequence"))`` and ``seq.use_ring(mesh)`` on a mesh with a
+"seq" axis of n ranks, a decoder serves on every rank.  Each rank holds
+one block of ``ceil(L / n)`` slots of the cache (``cache_spec``);
+``prefill`` runs the rank's block of the prompt's rows where the rules
+shard "seq" and n divides the prompt (its BP scales reduced over the
+ring, its MoE layers routing the gathered sequence), else every row
+(the ring then rotates the stats); ``decode_step``'s rows are whole on
+every rank and each token is written by the rank whose block holds it;
+the logits are computed on one rank of the ring and shared.
+Weights stay whole on every ring rank: the preset's folding of
+``ffn``/``heads``/``vocab``/``experts`` over "seq" waits for the ZeRO
+slice (ROADMAP Queue 1 item 5c), as do the other families, a "model"
+axis and chunked prefill under a ring, which refuse.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -27,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import seq as _seq
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -38,6 +56,17 @@ from repro_torch.models.params import (ParamDef, stack, tree_leaves,
                                        tree_map, tree_unflatten)
 
 BIG_WINDOW = 1 << 30  # "no window"
+
+
+def _served(fn):
+    """A serving entry point: refused under a ring where this slice does
+    not serve (``dist.seq.check_serving``: the families other than the
+    decoders, and a "model" axis)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kw):
+        _seq.check_serving(self.cfg)
+        return fn(self, *args, **kw)
+    return wrapper
 
 
 def _decoder_layer_defs(cfg: ModelConfig, moe: bool = False):
@@ -82,7 +111,16 @@ def _decoder_layer_apply(p, cfg: ModelConfig, x, positions, *, window,
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     aux = None
     if "moe" in p:
-        r = moe_mod.moe_apply(p["moe"], cfg, h)
+        ring = _seq.current_ring()
+        if ring is not None and ring.rows is not None:
+            # rows sharded over a ring: routing's capacity counts every
+            # row of the call, so the layer routes the whole sequence
+            h = _seq.gather_rows(h)
+            with _seq.whole_rows():
+                r = moe_mod.moe_apply(p["moe"], cfg, h)
+            r["out"] = _seq.row_block(r["out"])
+        else:
+            r = moe_mod.moe_apply(p["moe"], cfg, h)
         m, aux = r["out"], r["aux_loss"]
     else:
         m = mlp_apply(p["mlp"], h, cfg.act, cfg.mlp_gated, cfg.matmul_mode)
@@ -195,13 +233,23 @@ class DecoderModel:
     def cache_spec(self, batch: int, length: int):
         """{stack: {leaf: ((L, batch, length, ...), dtype)}}.  With
         ``cfg.ring_cache`` a layer keeps ``min(length, window)`` slots,
-        which needs every layer windowed (a uniform window)."""
+        which needs every layer windowed (a uniform window).  Under a ring
+        whose rules shard "kv_seq" (``dist.seq.kv_ring``) a rank holds one
+        block of ``ceil(length / n)`` slots of a cache padded to n such
+        blocks."""
         cfg = self.cfg
         if cfg.ring_cache and (not cfg.window_size
                                or cfg.local_global_pattern):
             raise ValueError(f"{cfg.name}: a ring cache needs every layer "
                              f"windowed (window_size set and no "
                              f"local_global_pattern)")
+        lay = _seq.kv_ring(batch)
+        if lay is not None:
+            if cfg.ring_cache:
+                raise NotImplementedError(
+                    f"{cfg.name}: a ring-buffer cache over a seq-sharded "
+                    f"ring {_seq.NEEDS_NEXT}")
+            length = lay.block(length)[1]
         one = attn.kv_cache_spec(cfg, batch, length, ring=cfg.ring_cache)
         return {name: {k: ((n,) + shape, dtype)
                        for k, (shape, dtype) in one.items()}
@@ -211,6 +259,7 @@ class DecoderModel:
         one = attn.kv_cache_axes(self.cfg)
         return {name: one for name, _ in self._stacks()}
 
+    @_served
     def init_cache(self, batch: int, length: int, device):
         """Empty cache: zeros, and ``pos = -1`` (empty) everywhere."""
         return _init_cache(self.cache_spec(batch, length), device)
@@ -333,7 +382,6 @@ class DecoderModel:
         stages (``dist.tp``).  The MoE aux loss is averaged over the
         (microbatch x data shard) chunks, the reference's redefinition:
         dense stacks equal ``loss`` up to float reassociation."""
-        import contextlib
         from repro_torch.dist import pipeline as pp
         from repro_torch.dist import tp as mtp
         cfg = self.cfg
@@ -456,6 +504,7 @@ class DecoderModel:
                                          window=window)
         return y, aux
 
+    @_served
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
         """Prefill ``batch["tokens"]`` (B, S) (after ``batch["patches"]``
@@ -467,10 +516,42 @@ class DecoderModel:
         cache = self.init_cache(b, cache_len + self.cfg.num_prefix_tokens,
                                 x.device)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        h, cache, _ = self._stack(params, x, positions, cache,
-                                  self._prefix(b, x.device), "prefill")
-        return self._logits(params, h[:, -1:])[:, 0], cache
+        lay = self._row_ring(b, s)
+        if lay is None:
+            h, cache, _ = self._stack(params, x, positions, cache,
+                                      self._prefix(b, x.device), "prefill")
+            return self._ring_logits(params, h[:, -1:]), cache
+        # rows sharded over the ring: this rank runs its block of the
+        # prompt; the last position's row is the ring's last rank's
+        lo, c = lay.block(s)
+        with _seq.shard_rows(s, lay):
+            h, cache, _ = self._stack(params, x[:, lo:lo + c],
+                                      positions[:, lo:lo + c], cache,
+                                      self._prefix(b, x.device), "prefill")
+        return self._ring_logits(params, h[:, -1:], lay.n - 1), cache
 
+    def _ring_logits(self, params, h, owner: int = 0):
+        """(B, V) logits of the one-row ``h`` (B, 1, D); under a ring,
+        computed on the ring's rank ``owner`` and shared (every rank would
+        compute the same; the head's f32 cast is some 5 GB at qwen2-72b's
+        width)."""
+        if _seq.current_ring() is None:
+            return self._logits(params, h)[:, 0]
+        return _seq.on_one_rank(lambda: self._logits(params, h)[:, 0],
+                                (h.shape[0], self.cfg.vocab_size),
+                                torch.float32, h.device, owner)
+
+    def _row_ring(self, b: int, s: int):
+        """The ring layout of a prefill's rows (``dist.seq.row_ring``), or
+        None when every rank runs every row: also in ``bp8`` and
+        ``bp8_lowrank``, whose scales ``dist.tp.global_scales`` does not
+        reduce (their rows stay whole and the ring rotates the stats,
+        whose output has the same bits)."""
+        if self.cfg.matmul_mode in ("bp8", "bp8_lowrank"):
+            return None
+        return _seq.row_ring(b, s)
+
+    @_served
     @torch.inference_mode()
     def prefill_chunk(self, params, batch, cache, pos0):
         """Append a chunk at positions [pos0, pos0+C): it attends over the
@@ -480,6 +561,9 @@ class DecoderModel:
         shape, wherever it starts."""
         if self.cfg.num_prefix_tokens:
             raise ValueError("chunked prefill: no prefix tokens")
+        if _seq.current_ring() is not None:
+            raise NotImplementedError(f"chunked prefill under a ring "
+                                      f"{_seq.NEEDS_NEXT}")
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = embed_lookup(params["embed"], tokens,
@@ -491,6 +575,7 @@ class DecoderModel:
                                   None, "prefill_chunk")
         return self._logits(params, h[:, -1:])[:, 0], cache
 
+    @_served
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache, pos):
         """One token per row: ``tokens`` (B, 1); ``pos`` a scalar or (B,)."""
@@ -499,7 +584,7 @@ class DecoderModel:
         positions = _decode_positions(pos, x.shape[0], x.device)
         h, cache, _ = self._stack(params, x, positions, cache, None,
                                   "decode")
-        return self._logits(params, h)[:, 0], cache
+        return self._ring_logits(params, h), cache
 
 
 # =============================================================================
@@ -575,6 +660,7 @@ class EncDecModel(_TiedLogits):
         return {"self": attn.kv_cache_axes(self.cfg),
                 "cross": {"k": cross, "v": cross}}
 
+    @_served
     def init_cache(self, batch: int, length: int, device):
         return _init_cache(self.cache_spec(batch, length), device)
 
@@ -655,6 +741,7 @@ class EncDecModel(_TiedLogits):
         h = self._decode_stack(params, x, positions, enc_out, None, "train")
         return _xent_loss(h, params["embed"], batch)
 
+    @_served
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
         """``batch``: "frames" (B, F, d_model) and "tokens" (B, S); returns
@@ -670,6 +757,7 @@ class EncDecModel(_TiedLogits):
                                "prefill")
         return self._logits(params, h[:, -1]), cache
 
+    @_served
     @torch.inference_mode()
     def prefill_chunk(self, params, batch, cache, pos0):
         """Append a chunk at positions [pos0, pos0+C).  The first chunk
@@ -690,6 +778,7 @@ class EncDecModel(_TiedLogits):
                                enc_out, cache, "prefill_chunk")
         return self._logits(params, h[:, -1]), cache
 
+    @_served
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache, pos):
         """One token per row: ``tokens`` (B, 1); ``pos`` a scalar
@@ -767,6 +856,7 @@ class HybridModel(_TiedLogits):
                                   "state")},
                 "attn": attn.kv_cache_axes(self.cfg)}
 
+    @_served
     def init_cache(self, batch: int, length: int, device):
         return _init_cache(self.cache_spec(batch, length), device)
 
@@ -820,6 +910,7 @@ class HybridModel(_TiedLogits):
         h = self._forward(params, x, positions, None, "train")
         return _xent_loss(h, params["embed"], batch)
 
+    @_served
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
         tokens = batch["tokens"]
@@ -830,6 +921,7 @@ class HybridModel(_TiedLogits):
         h = self._forward(params, x, positions, cache, "prefill")
         return self._logits(params, h[:, -1]), cache
 
+    @_served
     @torch.inference_mode()
     def prefill_chunk(self, params, batch, cache, pos0):
         """Append a chunk at [pos0, pos0+C): the attention caches append
@@ -845,6 +937,7 @@ class HybridModel(_TiedLogits):
                           "prefill_chunk")
         return self._logits(params, h[:, -1]), cache
 
+    @_served
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache, pos):
         x = embed_lookup(params["embed"], tokens)
@@ -914,6 +1007,7 @@ class XLSTMModel(_TiedLogits):
              "m": ("stack", "batch", "heads")}
         return {"mlstm": m, "slstm": s}
 
+    @_served
     def init_cache(self, batch: int, length: int, device):
         """The zero state (every leaf is f32)."""
         return _init_cache(self.cache_spec(batch, length), device)
@@ -959,6 +1053,7 @@ class XLSTMModel(_TiedLogits):
         h = self._forward(params, x, None, train=True)
         return _xent_loss(h, params["embed"], batch)
 
+    @_served
     @torch.inference_mode()
     def prefill(self, params, batch, cache_len: int):
         """From the zero state; returns (last-position logits, cache)."""
@@ -968,6 +1063,7 @@ class XLSTMModel(_TiedLogits):
         h = self._forward(params, x, cache)
         return self._logits(params, h[:, -1]), cache
 
+    @_served
     @torch.inference_mode()
     def prefill_chunk(self, params, batch, cache, pos0):
         """A chunk continues from the states in ``cache`` (a one-token
@@ -979,6 +1075,7 @@ class XLSTMModel(_TiedLogits):
         h = self._forward(params, x, cache)
         return self._logits(params, h[:, -1]), cache
 
+    @_served
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache, pos):
         """One token per row; ``pos`` is ignored (no positions)."""

@@ -11,8 +11,8 @@ round half to even, clip), which ``ckpt.codec`` runs on the background
 writer thread; the two paths are bitwise identical, and bitwise the
 reference's ``repro.optim.compress``.
 
-``compressed_psum``, the compressed all-reduce over a mesh axis, comes
-with the port's distributed layer (``dist/``), which does not exist yet.
+``compressed_psum``, the compressed all-reduce over a mesh axis, waits
+for ROADMAP Queue 1 item 5c (the rest of the distributed layer).
 """
 from __future__ import annotations
 

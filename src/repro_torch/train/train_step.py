@@ -20,7 +20,7 @@ its heads, ffn and experts over "model"; the embedding, head, final norm
 and dense first layers whole on every rank.  The AdamW moments follow
 their parameters, and are replicated over "data": ZeRO sharding over
 "data" (the reference's "train" rules' ``"d_model": "data"``) is left
-for a later slice (ROADMAP Queue 1 item 5b).  Each accumulation step is
+for a later slice (ROADMAP Queue 1 item 5c).  Each accumulation step is
 ``DecoderModel.pipeline_loss``: pipelined in ``pipeline_microbatches``
 over a stage mesh (per-shard BP scales, as the reference's
 ``shard_map``), or data and tensor parallel on a stage-free one (global
@@ -50,7 +50,7 @@ from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
 
 #: what the decoder family's mesh step does not cover yet
 NEEDS_NEXT = ("is the decoder family's only so far (ROADMAP Queue 1 item "
-              "5b)")
+              "5c)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,7 @@ results for the test to compare.  Every rank builds each mesh (a Mesh
 spans every rank) and runs every case in the same order.  Nothing here
 imports jax.
 """
+import contextlib
 import dataclasses
 import pickle
 import sys
@@ -227,9 +228,188 @@ def _whole_state(state, model, mesh):
     return {"/".join(k): v.float().numpy() for k, v in tree_leaves(whole)}
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: the ring core and the decoder under a ring
+# ---------------------------------------------------------------------------
+
+def _every_rank(mesh, t):
+    """``t`` of every rank of ``mesh`` (equal shapes), as numpy, in the
+    mesh's row-major order."""
+    return [p.numpy() for p in mesh.all_gather(t.contiguous(),
+                                               mesh.axis_names)]
+
+
+def _ring_core_one(mesh, c):
+    """One ring-core case on this rank: its output piece and the port's
+    oracle's same piece (computed here, on this rank's heads)."""
+    from repro_torch.dist import seq
+    t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for k, v in c["args"].items()}
+    n, si = mesh.size("seq"), mesh.index("seq")
+    tp, mi = mesh.size("model"), mesh.index("model")
+    if c["op"] == "mla":
+        qa, qr, ckv, kr, qp, kp = (t[k] for k in ("qa", "qr", "ckv", "kr",
+                                                  "q_pos", "kv_pos"))
+        c_blk = ckv.shape[1] // n
+        cut = slice(si * c_blk, (si + 1) * c_blk)
+        got = seq.ring_attend_mla(qa, qr, ckv[:, cut], kr[:, cut], qp,
+                                  kp[:, cut], scale=c["scale"])
+        want = A.ring_mla_reference(qa, qr, ckv, kr, qp, kp, n_blocks=n,
+                                    scale=c["scale"])
+        return got, want
+    q, k, v, qp, kp = (t[k] for k in ("q", "k", "v", "q_pos", "kv_pos"))
+    # this rank's heads: a block of q heads over its block of kv heads
+    hq, hk = q.shape[2] // tp, k.shape[2] // tp
+    q = q[:, :, mi * hq:(mi + 1) * hq]
+    k, v = k[:, :, mi * hk:(mi + 1) * hk], v[:, :, mi * hk:(mi + 1) * hk]
+    kw = {key: t[key] for key in ("causal", "window", "prefix_len",
+                                  "softcap") if key in t}
+    if c["op"] == "schedules":      # both schedules on whole queries
+        c_blk = k.shape[1] // n
+        cut = slice(si * c_blk, (si + 1) * c_blk)
+        outs = [A.ring_sdpa(q, k[:, cut], v[:, cut], qp, kp[:, cut],
+                            mesh=mesh, axes=("seq",), n_blocks=n,
+                            rotate=rot, **kw) for rot in ("kv", "stats")]
+        return outs[0], outs[1]
+    if c["op"] == "kv":             # sharded rows rotate the KV blocks
+        sq = q.shape[1]
+        lay = seq.row_ring(q.shape[0], sq)
+        lo, r = lay.block(sq)
+        klo, kc = lay.block(k.shape[1])
+        with seq.shard_rows(sq, lay):
+            got = seq.ring_attend(q[:, lo:lo + r], k[:, klo:klo + kc],
+                                  v[:, klo:klo + kc], qp[:, lo:lo + r],
+                                  kp[:, klo:klo + kc], kv_local=True, **kw)
+        want = A.ring_reference(q, k, v, qp, kp, n_blocks=n, q_blocks=n,
+                                **kw)[:, lo:lo + r]
+        return got, want
+    # "stats": whole queries, the whole KV padded and cut inside
+    got = seq.ring_attend(q, k, v, qp, kp, **kw)
+    kp_, vp_, pp_ = seq.pad_kv(k, v, kp, -(-k.shape[1] // n) * n)
+    want = A.ring_reference(q, kp_, vp_, qp, pp_, n_blocks=n, **kw)
+    return got, want
+
+
+def ring_core_case(mesh, c):
+    """The ring-core cases on this mesh under the "sequence" rules: every
+    rank's output piece, and whether each equals the port's oracle's
+    piece bit for bit."""
+    from repro_torch.dist import seq
+    out = {}
+    with shd.use_rules(mesh, shd.get_rules("sequence")), seq.use_ring(mesh):
+        for name, one in c["cases"]:
+            mesh.reset_stats()
+            got, want = _ring_core_one(mesh, one)
+            sends = sum(s.calls for (op, _), s in mesh.stats.items()
+                        if op == "send")
+            same = torch.tensor([float(torch.equal(got, want)), sends])
+            out[name] = {"pieces": _every_rank(mesh, got),
+                         "bitwise": [bool(x[0]) for x in
+                                     _every_rank(mesh, same)],
+                         "sends": [int(x[1]) for x in
+                                   _every_rank(mesh, same)]}
+    return out
+
+
+def ring_model_case(mesh, c):
+    """A decoder's prefill into a cache of ``c["cache_len"]`` and decode
+    steps of the given tokens under the ring, on this rank; the same
+    calls without a ring on this rank as the control.  Returns every
+    call's logits, every rank's cache block after prefill and at the end,
+    the ops sent in prefill and in decode, the fused decode attention's
+    calls and the rows each MoE layer routed."""
+    from repro_torch.dist import seq
+    from repro_torch.kernels import attention as KA
+    cfg = cfg_of(c["arch"], c["mode"], kv_quant=c["kv_quant"])
+    model = build(cfg)
+    params = params_from_numpy(c["params"], cfg, "cpu")
+    toks = torch.from_numpy(c["tokens"])
+    calls = {"row4": 0, "moe_rows": []}
+    row4, moe_apply = KA.bp8_decode_attention, MOE.moe_apply
+
+    def counted_row4(*a, **kw):
+        calls["row4"] += 1
+        return row4(*a, **kw)
+
+    def counted_moe(p, cfg_, x, **kw):
+        calls["moe_rows"].append(x.shape[1])
+        return moe_apply(p, cfg_, x, **kw)
+
+    def run(ring):
+        ctx = (shd.use_rules(mesh, shd.get_rules("sequence")), seq.use_ring(
+            mesh)) if ring else ()
+        logits, caches, stats = [], [], []
+        with contextlib.ExitStack() as stack:
+            for cm in ctx:
+                stack.enter_context(cm)
+            mesh.reset_stats()
+            lg, cache = model.prefill(params, {"tokens": toks},
+                                      c["cache_len"])
+            stats.append({op: s.calls for (op, _), s in mesh.stats.items()})
+            logits.append(lg)
+            caches.append({k: v.clone() for k, v in
+                           cache["layers"].items()})
+            mesh.reset_stats()
+            for i, tok in enumerate(c["decode"]):
+                lg, cache = model.decode_step(
+                    params, torch.from_numpy(tok)[:, None], cache,
+                    toks.shape[1] + i)
+                logits.append(lg)
+            stats.append({op: s.calls for (op, _), s in mesh.stats.items()})
+            caches.append(cache["layers"])
+        return logits, caches, stats
+
+    KA.bp8_decode_attention, MOE.moe_apply = counted_row4, counted_moe
+    try:
+        logits, caches, stats = run(True)
+        ring_calls = {"row4": calls["row4"],
+                      "moe_rows": list(calls["moe_rows"])}
+        calls.update(row4=0, moe_rows=[])
+        single, _, _ = run(False)
+    finally:
+        KA.bp8_decode_attention, MOE.moe_apply = row4, moe_apply
+    return {
+        "logits": [lg.float().numpy() for lg in logits],
+        "single": [lg.float().numpy() for lg in single],
+        "ranks_agree": all(
+            all(np.array_equal(p, ps[0]) for p in ps)
+            for ps in (_every_rank(mesh, lg.float()) for lg in logits)),
+        "caches": [{k: [p.astype(np.float32) if p.dtype != np.int32 else p
+                        for p in _every_rank(mesh, v.float() if
+                                             v.is_floating_point() else v)]
+                    for k, v in cache.items()} for cache in caches],
+        "stats": stats, "calls": ring_calls, "single_calls": dict(calls)}
+
+
+def ring_refusals_case(mesh, c):
+    """What a ring on this mesh refuses: every family's entry points."""
+    from repro_torch.dist import seq
+    out = {}
+    with shd.use_rules(mesh, shd.get_rules("sequence")), seq.use_ring(mesh):
+        for arch in c["archs"]:
+            cfg = cfg_of(arch, "bf16")
+            model = build(cfg)
+            try:
+                model.init_cache(1, 8, "cpu")
+                out[arch] = None
+            except NotImplementedError as e:
+                out[arch] = str(e)
+        if mesh.size("model") == 1:
+            cfg = cfg_of("qwen2_72b", "bf16")
+            model = build(cfg)
+            try:
+                model.prefill_chunk({}, {"tokens": torch.ones(
+                    (1, 4), dtype=torch.long)}, None, 0)
+                out["prefill_chunk"] = None
+            except NotImplementedError as e:
+                out["prefill_chunk"] = str(e)
+    return out
+
+
 KINDS = {"loss": loss_case, "per_shard": per_shard_case, "toy": toy_case,
          "layer": layer_case, "trainer": trainer_case,
-         "restore": restore_case}
+         "restore": restore_case, "ring_core": ring_core_case,
+         "ring_model": ring_model_case, "ring_refusals": ring_refusals_case}
 
 
 def world(device, cases):

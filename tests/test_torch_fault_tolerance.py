@@ -137,7 +137,7 @@ def test_trainer_refuses_a_mesh(small):
     mesh = types.SimpleNamespace(shape={"stage": 2, "data": 1, "model": 1})
     for arch in ("whisper_base", "zamba2_2p7b", "xlstm_1p3b"):
         cfg = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="stage mesh.*5b"):
+        with pytest.raises(NotImplementedError, match="stage mesh.*5c"):
             train(build(cfg), cfg, SHAPE, TrainerConfig(total_steps=1),
                   mesh=mesh, device="cpu")
 

@@ -270,7 +270,7 @@ def test_pipelined_plan_and_mesh_raise():
     for arch in ("whisper_base", "zamba2_2p7b", "xlstm_1p3b"):
         other = build(get_config(arch, smoke=True))
         with pytest.raises(NotImplementedError,
-                           match="stage mesh.*item 5b"):
+                           match="stage mesh.*item 5c"):
             make_train_step(other, cfg, TrainPlan(1, 4, pipeline_stages=2),
                             mesh=stub(stage=2, data=1, model=1))
         with pytest.raises(NotImplementedError, match="a mesh is the"):

@@ -104,3 +104,23 @@ def test_step_following_the_layers_of_a_second_device(arch):
     assert set(rep["layers"]) == cs.layer_reach(cfg)
     assert cs.replay_reach(cfg) <= {k for k, v in rep["replay"].items()
                                     if v["calls"]}
+
+
+def test_chip_smoke_defines_each_module_name_once():
+    """A module-level name bound twice in ``chip_smoke.py`` (a later
+    phase's constant reusing an earlier one's name) silently rebinds the
+    earlier phase's: its kernels line entries land under the later
+    phase's path."""
+    import ast
+    import collections
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    seen = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            seen[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                for n in ast.walk(target):
+                    if isinstance(n, ast.Name):
+                        seen[n.id] += 1
+    assert [n for n, c in seen.items() if c > 1] == []
