@@ -144,7 +144,8 @@ prints its wall time):
    paged engine (prompts of 64 and 128 tokens, 4 greedy tokens), and
    paligemma at full width and 1 layer on the lock-step engine (256 zero
    patch tokens, prompts of 20 and 48, 6 tokens): card captured, card
-   eager and CPU tokens equal.  (c) The full 48-layer gemma3-12b, seeded
+   eager and CPU tokens equal.  (c) gemma3-12b at full width and 12 of
+   its 48 layers (two groups of 5 local and 1 global; ``reduced``), seeded
    on the card (init time and peak printed), on ``PagedServeEngine`` (4
    slots, block 16, 160 blocks, chunk 64): 8 requests, one of 1200
    prompt tokens (the local window cuts) and 7 of 32-256, 16 new tokens,
@@ -304,7 +305,8 @@ prints its wall time):
    mesh on the CPU twins (each card rank's pieces sent to its twin, phase
    13(b)'s whole-step rules on their sums); which transport each op
    used, and the world's timeline; (c)
-   h2o-danube-1.8b whole (24 layers) on (stage 2, data 1, model 2)
+   h2o-danube-1.8b at full width and 12 of its 24 layers (``reduced``)
+   on (stage 2, data 1, model 2)
    through ``trainer.train(mesh=)``, 3 steps of 8 x 128 tokens, lr 3e-5:
    step times, tokens/s, each rank's peak and their sum, each rank's
    share of the steps spent waiting in sends, receives and all-reduces,
@@ -324,8 +326,9 @@ prints its wall time):
    slots through ``pad_kv``, and the absorbed-MLA ring at minicpm3-4b's
    latent (R 256, rope 32, 40 heads); (e) qwen2-72b at full width and 2
    of its 80 layers over a ``bp8`` cache (a 32768-token prompt, 8192 a
-   rank, 16 greedy decode steps) and minicpm3-4b whole (an 8192-token
-   prompt, 16 steps) under the ring, launches of rows 1-3 counted from
+   rank, 16 greedy decode steps) and minicpm3-4b at full width and 16 of
+   its 62 layers (an 8192-token prompt, 16 steps) under the ring,
+   launches of rows 1-3 counted from
    just before the prefill to just after the last step; ranks 1-3 then
    free their weights while rank 0 runs the same calls in one process
    without the ring, the steps fed the ring's tokens: the prefill's
@@ -342,6 +345,25 @@ prints its wall time):
    tie, step ms and cache bytes; then rows 1-3 timed at a ring rank's
    qwen2-72b prefill shapes (M 8192) beside their bound.
 
+15. The OISMA reference and the engine model (``core/bp.py``, ``sim/``,
+   ``roofline/``), one process, seconds: (a) levels 0..9 from a numpy
+   seed as int8 codes at h2o-danube-1.8b's q projection (M 4 and 64, K =
+   N = 2560): ``sc_multiply`` (the paper's AND and popcount, bits 10 and
+   8) summed over K equal to the codes matmul (row 5); the AND
+   bitstreams of an M 4 x N 256 tile (rows of K * 8 bytes) reduced by
+   the popcount kernel (row 6) to the same sums; ``bp_matmul_reference``
+   and ``bp_matmul_bitplane`` bitwise equal in float64 at M 64 on seeded
+   inputs in [0, 1], and times 10 equal to the codes matmul on
+   ``quantize_to_levels``' codes; rows 5 and 6 against their plain
+   versions, the torch forms and the kernels timed, launches counted
+   over (a); (b) the paper's Fig. 7 on the card: the relative Frobenius
+   error at 4, 64 and 512 (the paper's 9.42% and 1.81% beside them),
+   failing unless it falls; (c) ``sim.validate()`` under 0.5% on every
+   row, and for h2o-danube-1.8b's decode_32k and prefill_32k the OISMA
+   engine's projection (22 nm, double-buffered; 1 and 4 engines) beside
+   one H100's analytic roofline terms (the data sheet's peaks), printed
+   as analytic, not measured.
+
 The last lines are the kernels JSON (each kernel with the path its
 launches come from; rows 1-3 also on the training path, timed at M
 1024; rows 1-4 also on the Gemma paths, timed at their decode shapes;
@@ -355,7 +377,8 @@ and rows 1-3 on zamba2-2.7b's, timed at one forward layer at M 1024;
 rows 1-3 on the mesh's training path, timed at a TP-2 rank's layer at M
 256, their launches summed over the 4 ranks; rows 1-3 on the ring's
 serving path, timed at a ring rank's qwen2-72b prefill layer at M 8192,
-their launches summed over the 4 ranks and the two models),
+their launches summed over the 4 ranks and the two models; rows 5 and 6
+on the in-array reference's path of phase 15(a), timed at its shapes),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
 """
@@ -372,9 +395,23 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
-H100_INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core rate
-H100_F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
+
+
+def h100_peaks():
+    """The H100's data-sheet peaks (HBM3 bytes/s, dense int8 OP/s, f32
+    FLOP/s outside the tensor cores) from ``repro_torch.roofline.hw``, the
+    port's one home for them; None where the package is not beside this
+    script, which ``main`` then refuses."""
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        return None, None, None
+    if str(src) not in sys.path:
+        sys.path.insert(0, str(src))
+    from repro_torch.roofline import hw
+    return hw.HBM_BW, hw.PEAK_OPS_INT8, hw.PEAK_FLOPS_F32
+
+
+H100_BYTES_PER_S, H100_INT8_OPS_PER_S, H100_F32_FLOPS_PER_S = h100_peaks()
 REPLACES = {
     "absmax": "src/repro/kernels/fused.py:74",
     "fused_matmul": "src/repro/kernels/fused.py:140",
@@ -3039,7 +3076,8 @@ def lockstep_card_vs_cpu(torch, cfg, prompts, max_new, max_len=128):
 
 
 def serve_gemma3(torch, build, timer, rng):
-    """Phase 9(c): the full gemma3-12b (48 layers) on ``PagedServeEngine``
+    """Phase 9(c): gemma3-12b at full width and GEMMA3_SERVE_LAYERS of its
+    48 layers on ``PagedServeEngine``
     (4 slots, block 16, 160 blocks, prefill chunk 64): 8 requests, one
     prompt of 1200 tokens (past the local window of 1024) and 7 of
     32-256, 16 new tokens each; twice on one capturing engine (the second
@@ -3049,7 +3087,7 @@ def serve_gemma3(torch, build, timer, rng):
     import numpy as np
     from repro_torch.models import build as build_model
     from repro_torch.models.params import init_params, tree_leaves
-    cfg = gemma_config("gemma3_12b")
+    cfg = gemma_config("gemma3_12b", num_layers=GEMMA3_SERVE_LAYERS)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3156,6 +3194,9 @@ GEMMA_REDUCED = {"num_layers": "48 -> 1 (a local layer; paligemma 18 -> 1) "
                  "in 9(b), the "
                  "card-vs-CPU check only: the CPU's plain path costs tens "
                  "of seconds a call at full width"}
+#: 9(c)'s depth: two of gemma3-12b's 8 groups (5 local layers and a global
+#: one each), to keep the script's time (48 until phase 15 came)
+GEMMA3_SERVE_LAYERS = 12
 
 
 def phase_gemma(torch, timer, build, log: str, rng):
@@ -4619,15 +4660,18 @@ def phase_train_families(torch, timer, build):
 # ---------------------------------------------------------------------------
 
 DIST_PATH = "train_mesh_bp8_fused"
-#: (c): h2o-danube-1.8b whole on (stage 2, data 1, model 2), 3 steps
+#: (c): h2o-danube-1.8b at full width and 12 of its 24 layers (whole
+#: until phase 15 came) on (stage 2, data 1, model 2), 3 steps
 DIST_SHAPE = {"stage": 2, "data": 1, "model": 2}
+DIST_FULL_LAYERS = 12
 DIST_STEPS, DIST_SEQ, DIST_BATCH = 3, 128, 8
 #: (b)'s depths, and the batch of its steps (2 x 32 tokens, 2 microbatches
 #: on 2 stages: ``TrainPlan.for_shape``'s)
 DIST_LAYERS, DIST_STAGE_TP_LAYERS = 2, 4
 DIST_CHECK_SEQ, DIST_CHECK_BATCH = 32, 2
 DIST_REDUCED = {"num_layers": "24 -> 2 in 14(b) (4 for the bf16 stage x "
-                "TP case); granite-moe-1b 24 -> 2, minicpm3-4b 62 -> 2"}
+                "TP case); granite-moe-1b 24 -> 2, minicpm3-4b 62 -> 2; "
+                "24 -> 12 in 14(c)"}
 #: the whole-step cases held to the same mesh on the CPU (4 gloo ranks)
 DIST_CPU_CASES = ("h2o_danube_1p8b", "granite_moe_1b", "minicpm3_4b")
 #: the limit on a world of ranks (spawn, the kernels' load, the cases)
@@ -4939,10 +4983,11 @@ def _case_step_pair(torch, mesh, dev, case, twin: bool, pending: list):
 
 
 def _case_full(torch, build, mesh, dev, ckpt_dir, quiet):
-    """Phase 14(c) on one rank: h2o-danube-1.8b whole in ``bp8_fused``
-    through ``trainer.train(mesh=)``, ``DIST_STEPS`` steps of 8 x 128
-    tokens at lr 3e-5 with ``TrainPlan.for_shape``'s microbatches and
-    bf16 moments (the checkpoint of the whole state is 10.8 GB, not 18),
+    """Phase 14(c) on one rank: h2o-danube-1.8b at full width and
+    ``DIST_FULL_LAYERS`` layers in ``bp8_fused`` through
+    ``trainer.train(mesh=)``, ``DIST_STEPS`` steps of 8 x 128 tokens at
+    lr 3e-5 with ``TrainPlan.for_shape``'s microbatches and bf16 moments
+    (the checkpoint of the whole 24-layer state was 10.8 GB, not 18),
     a checkpoint at the end; launches counted from just before to just
     after, the peak, the transport and its seconds, the stages' times,
     the pieces' digests (the checkpoint's proof) and whether each of this
@@ -4956,7 +5001,7 @@ def _case_full(torch, build, mesh, dev, ckpt_dir, quiet):
     from repro_torch.train.train_step import (TrainPlan, init_state,
                                               make_train_step)
     from repro_torch.train.trainer import TrainerConfig, train
-    cfg = dist_config("h2o_danube_1p8b")
+    cfg = dist_config("h2o_danube_1p8b", layers=DIST_FULL_LAYERS)
     model = build_model(cfg)
     shape = ShapeConfig("train", "train", DIST_SEQ, DIST_BATCH)
     opt = dist_full_opt()
@@ -5129,7 +5174,7 @@ def phase_dist(torch, timer, build):
     shapes; (b) the mesh steps at full width and 2 layers (4 for the
     stage x TP case) against the single-process card step and, on (stage
     2, model 2) in ``bp8_fused``, against the same mesh on 4 gloo CPU
-    ranks; (c) h2o-danube-1.8b whole on (stage 2, model 2), its
+    ranks; (c) h2o-danube-1.8b (12 layers) on (stage 2, model 2), its
     checkpoint restored bitwise and resumed in this process without a
     mesh; (d)-(f) sequence parallelism on the 4 card ranks as one (seq 4)
     ring: the ring core bitwise its oracles, qwen2-72b (2 layers) and
@@ -5148,7 +5193,7 @@ def phase_dist(torch, timer, build):
     from repro_torch.train.train_step import TrainPlan
     report = {}
     plan = TrainPlan.for_shape(
-        dist_config("h2o_danube_1p8b"),
+        dist_config("h2o_danube_1p8b", layers=DIST_FULL_LAYERS),
         ShapeConfig("t", "train", DIST_SEQ, DIST_BATCH), data_shards=1,
         pipeline_stages=DIST_SHAPE["stage"])
     m = DIST_SEQ * DIST_BATCH // plan.pipeline_microbatches
@@ -5286,7 +5331,8 @@ def dist_full_report(torch, full, plan):
                 for t in r["stage_times"]) / sum(t["total_s"]
                                                  for t in r["stage_times"])
             for r in full]
-    print(f"phase 14(c): h2o-danube-1.8b whole (24 layers, d_model 2560), "
+    print(f"phase 14(c): h2o-danube-1.8b ({DIST_FULL_LAYERS} of its 24 "
+          f"layers, d_model 2560), "
           f"bp8_fused, on {DIST_SHAPE} (4 gloo ranks on one card), "
           f"{DIST_STEPS} steps of {DIST_BATCH} x {DIST_SEQ} tokens in "
           f"{plan.pipeline_microbatches} microbatches; step times "
@@ -5333,7 +5379,7 @@ def dist_restore(torch, full, ckpt_dir, dev="cuda"):
     from repro_torch.models import build as build_model
     from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.train.trainer import TrainerConfig, train
-    cfg = dist_config("h2o_danube_1p8b")
+    cfg = dist_config("h2o_danube_1p8b", layers=DIST_FULL_LAYERS)
     model = build_model(cfg)
     gc.collect()
     if dev != "cpu":
@@ -5393,10 +5439,11 @@ SEQ_PATH = "serve_seq_ring_bp8_fused"
 #: the ring's mesh: phase 14's 4 card ranks as one ring
 RING_SHAPE = {"seq": 4, "data": 1, "model": 1}
 #: (e): qwen2-72b at full width and 2 of its 80 layers under a prompt of
-#: decode_32k's length (8192 tokens a rank), minicpm3-4b whole under
-#: 8192; 16 greedy decode steps each
+#: decode_32k's length (8192 tokens a rank), minicpm3-4b at full width
+#: and 16 of its 62 layers (whole until phase 15 came) under 8192; 16
+#: greedy decode steps each
 RING_QWEN_LAYERS, RING_QWEN_PROMPT = 2, 32768
-RING_MINICPM_PROMPT, RING_STEPS = 8192, 16
+RING_MINICPM_LAYERS, RING_MINICPM_PROMPT, RING_STEPS = 16, 8192, 16
 #: (f): long_500k's cache, seeded: 524288 slots, positions 0..524283
 LONG_SLOTS, LONG_FILLED, LONG_STEPS = 524288, 524284, 4
 #: (d): the ring core's KV length at qwen2-72b's heads and minicpm3's
@@ -5407,7 +5454,7 @@ RING_SEED = 25
 #: run's top-2 logit gap is under this share of the row's largest |logit|
 RING_TIE = 0.01
 SEQ_REDUCED = {"num_layers": "qwen2-72b 80 -> 2 in 14(e) and (f); "
-                "minicpm3-4b whole (62)"}
+                "minicpm3-4b 62 -> 16 in 14(e)"}
 
 
 def seq_config(arch, layers=None, kv_quant="none"):
@@ -5676,7 +5723,7 @@ def _single_long(torch, model, params, dev, ring_logits, n):
 def _case_ring(torch, build, mesh, dev, quiet):
     """Phase 14(d)-(f) on one card rank of the (seq 4) ring: the core,
     then qwen2-72b (2 layers) served under the ring and its long_500k
-    steps, then minicpm3-4b whole.  After each model's ring runs, ranks
+    steps, then minicpm3-4b (16 layers).  After each model's ring runs, ranks
     1-3 free their weights and wait while rank 0 runs the same calls in
     this one process without the ring, and compares.  ``quiet()`` (the
     barrier the CPU twins wait at) is called at the end: everything here
@@ -5689,7 +5736,8 @@ def _case_ring(torch, build, mesh, dev, quiet):
     out = {"core": _ring_core(torch, mesh, dev)}
     for arch, layers, prompt_len, kvq in (
             ("qwen2_72b", RING_QWEN_LAYERS, RING_QWEN_PROMPT, "bp8"),
-            ("minicpm3_4b", None, RING_MINICPM_PROMPT, "none")):
+            ("minicpm3_4b", RING_MINICPM_LAYERS, RING_MINICPM_PROMPT,
+             "none")):
         cfg = seq_config(arch, layers, kvq)
         model = build_model(cfg)
         gc.collect()
@@ -5817,6 +5865,236 @@ def ring_report(ranks):
     report["long_500k"] = {"ring": long_ring, "single": long_single}
     report["reduced"] = SEQ_REDUCED
     return launches, report
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the OISMA reference and the engine model
+# ---------------------------------------------------------------------------
+
+#: the path whose launches rows 5 and 6 report from phase 15(a)
+OISMA_REF_PATH = "oisma_in_array_reference"
+#: h2o-danube-1.8b's q projection at a decode step and at a prefill chunk
+OISMA_SHAPES = ((4, D, HD), (64, D, HD))
+#: the AND bitstreams' tile of 15(a): M 4 x the first N 256 outputs
+OISMA_TILE_N = 256
+#: rows of x in one piece of the in-array multiply's (rows, K, N, bits)
+#: AND (1.2 GB at the q projection's K and N)
+OISMA_PIECE_ROWS = 8
+OISMA_SEED = 27
+#: the paper's Fig. 7 relative Frobenius errors of the BP matmul
+FIG7_PAPER = {4: 0.0942, 512: 0.0181}
+#: trials a size, as the reference's accuracy benchmark takes them
+FIG7_TRIALS = {4: 60, 64: 60, 512: 20}
+#: h2o-danube-1.8b's cells the engine model and the roofline are printed for
+OISMA_CELLS = ("decode_32k", "prefill_32k")
+
+
+def sc_matmul(torch, bp, xl, yl, bits: int):
+    """The paper's in-array multiply summed over K: sum_k of
+    ``sc_multiply(x[m, k], y[k, n])`` (AND and popcount of the two
+    levels' bitstreams, ``bits`` wide), int64 (M, N), OISMA_PIECE_ROWS
+    rows of x at a time."""
+    return torch.cat([
+        bp.sc_multiply(xl[i:i + OISMA_PIECE_ROWS, :, None], yl[None],
+                       bits=bits).sum(1)
+        for i in range(0, xl.shape[0], OISMA_PIECE_ROWS)])
+
+
+def _max_err(torch, got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def phase_oisma(torch, timer, build, dev="cuda"):
+    """Phase 15: (a) the paper's AND/popcount reference of the in-array
+    multiply against rows 5 and 6, (b) Fig. 7's error curve on the card,
+    (c) the engine simulator's validation and the analytic projections.
+    Returns rows 5 and 6 on OISMA_REF_PATH, their launches over (a), and
+    a report."""
+    import numpy as np
+
+    from repro_torch import sim
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import bp
+    from repro_torch.kernels import bp_matmul as kb
+    from repro_torch.kernels import ref
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.model import (MeshSpec, analytic_cell,
+                                            oisma_engine_projection)
+
+    rng = np.random.default_rng(OISMA_SEED)
+
+    def on_card(a):
+        return torch.as_tensor(a, device=dev)
+
+    levels = {s: (on_card(rng.integers(0, 10, s[:2], dtype=np.int8)),
+                  on_card(rng.integers(0, 10, s[1:], dtype=np.int8)))
+              for s in OISMA_SHAPES}
+    big = OISMA_SHAPES[-1]
+    m, k, n = big
+    xf, yf = on_card(rng.random((m, k))), on_card(rng.random((k, n)))
+    right, left = bp.bent_pyramid_datasets()
+    x4, y4 = levels[OISMA_SHAPES[0]]
+    y4 = y4[:, :OISMA_TILE_N]
+    report = {}
+
+    # (a) the path: the codes matmul on the levels, and the periphery's
+    # popcount on the AND bitstreams of an M 4 x N 256 tile (rows of K * 8
+    # bytes); launches zeroed just before and read just after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    kern = {s: kb.bp_matmul(*levels[s]) for s in OISMA_SHAPES}
+    tile = (bp.encode(x4, right, bp.EFFECTIVE_BITS)[:, None]
+            & bp.encode(y4, left, bp.EFFECTIVE_BITS).permute(1, 0, 2)[None]
+            ).reshape(x4.shape[0] * OISMA_TILE_N, -1)
+    pops = kb.popcount_accumulate(tile)
+    qx, qy = (bp.quantize_to_levels(t).to(torch.int8) for t in (xf, yf))
+    kern_q = kb.bp_matmul(qx, qy)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if launches.get("bp_matmul", 0) <= 0 or launches.get("popcount", 0) <= 0:
+        fail(f"phase 15(a): rows 5 and 6 not both launched ({launches})")
+
+    for s in OISMA_SHAPES:
+        for bits in (bp.BITS, bp.EFFECTIVE_BITS):
+            want = sc_matmul(torch, bp, *levels[s], bits)
+            if not torch.equal(kern[s].to(torch.int64), want):
+                fail(f"phase 15(a): sc_multiply (bits {bits}) summed over K "
+                     f"differs from the codes matmul at {s}: max "
+                     f"{_max_err(torch, kern[s], want)}")
+    sums = pops.reshape(x4.shape[0], OISMA_TILE_N)
+    if not torch.equal(sums.to(torch.int64), sc_matmul(
+            torch, bp, x4, y4, bp.EFFECTIVE_BITS)):
+        fail("phase 15(a): the popcount of the AND bitstreams differs from "
+             "sc_multiply's sums")
+    if not torch.equal(sums.float(), kern[OISMA_SHAPES[0]][:, :OISMA_TILE_N]):
+        fail("phase 15(a): the popcount's sums differ from the codes matmul's")
+    r_lut = bp.bp_matmul_reference(xf, yf)
+    for bits in (bp.BITS, bp.EFFECTIVE_BITS):
+        if not torch.equal(r_lut, bp.bp_matmul_bitplane(xf, yf, bits=bits)):
+            fail(f"phase 15(a): bp_matmul_reference and bp_matmul_bitplane "
+                 f"(bits {bits}) differ in float64 at {big}")
+    if r_lut.dtype != torch.float64 or not torch.equal(
+            torch.round(r_lut * 10), kern_q.double()):
+        fail(f"phase 15(a): the float64 reference times 10 differs from the "
+             f"codes matmul on quantize_to_levels' codes at {big}")
+    # rows 5 and 6 against their plain versions on the path's inputs
+    plain = [(kern[s], ref.bp_matmul_ref(*levels[s])) for s in OISMA_SHAPES]
+    plain.append((kern_q, ref.bp_matmul_ref(qx, qy)))
+    errs = {"bp_matmul": max(_max_err(torch, a, b) for a, b in plain),
+            "popcount": _max_err(torch, pops,
+                                 ref.popcount_accumulate_ref(tile))}
+    if any(errs.values()):
+        fail(f"phase 15(a): a kernel differs from its plain version: {errs}")
+
+    ms = {}
+    for s in OISMA_SHAPES:
+        tag = "x".join(map(str, s))
+        xl, yl = levels[s]
+        for bits in (bp.BITS, bp.EFFECTIVE_BITS):
+            ms[f"sc_multiply_bits{bits}_{tag}"] = timer(
+                [lambda xl=xl, yl=yl, bits=bits: sc_matmul(
+                    torch, bp, xl, yl, bits)], iters=3)
+        ms[f"bp_matmul_kernel_{tag}"] = timer(
+            [lambda xl=xl, yl=yl: kb.bp_matmul(xl, yl)])
+    tag = "x".join(map(str, big))
+    ms[f"bp_matmul_reference_f64_{tag}"] = timer(
+        [lambda: bp.bp_matmul_reference(xf, yf)], iters=3)
+    ms[f"bp_matmul_bitplane_f64_{tag}"] = timer(
+        [lambda: bp.bp_matmul_bitplane(xf, yf)], iters=3)
+    r, c = tile.shape
+    ms[f"popcount_kernel_{r}x{c}"] = timer(
+        [lambda: kb.popcount_accumulate(tile)])
+    rows = {
+        "bp_matmul": dict(
+            max_abs_err=errs["bp_matmul"],
+            ms=timer([lambda p=levels[s]: kb.bp_matmul(*p)
+                      for s in OISMA_SHAPES]),
+            plain_ms=timer([lambda p=levels[s]: ref.bp_matmul_ref(*p)
+                            for s in OISMA_SHAPES], iters=3),
+            library_ms=None,
+            b=[bound(mm * kk + kk * nn + 4 * mm * nn, 2 * mm * nn * 8 * kk,
+                     H100_INT8_OPS_PER_S) for (mm, kk, nn) in OISMA_SHAPES]),
+        "popcount": dict(
+            max_abs_err=errs["popcount"],
+            ms=timer([lambda: kb.popcount_accumulate(tile)]),
+            plain_ms=timer([lambda: ref.popcount_accumulate_ref(tile)]),
+            library_ms=timer([lambda: tile.sum(-1, dtype=torch.int32)]),
+            b=[bound(r * c + 4 * r, r * c, H100_F32_FLOPS_PER_S)])}
+    print(f"phase 15(a): sc_multiply (AND and popcount, bits 10 and 8) "
+          f"summed over K equal to the codes matmul at "
+          f"{', '.join('x'.join(map(str, s)) for s in OISMA_SHAPES)}; the "
+          f"popcount kernel's {r} rows of {c} AND bytes equal to their "
+          f"sums; bp_matmul_reference == bp_matmul_bitplane bitwise in "
+          f"float64 at {tag}, times 10 equal to the kernel on "
+          f"quantize_to_levels' codes; launches {launches} in "
+          f"{path_s:.3f}s; ms " + ", ".join(f"{k_} {v:.4f}"
+                                            for k_, v in ms.items()))
+    report["a"] = {"launches": launches, "path_s": path_s, "ms": ms,
+                   "tile": [r, c]}
+
+    # (b) the paper's Fig. 7: the BP matmul's relative Frobenius error
+    # against the float64 product, falling with the size
+    fig7 = {}
+    for size, trials in FIG7_TRIALS.items():
+        errs7 = []
+        for _ in range(trials):
+            x, y = on_card(rng.random((size, size))), on_card(
+                rng.random((size, size)))
+            exact = x @ y
+            errs7.append(float(torch.linalg.norm(
+                exact - bp.bp_matmul_reference(x, y))
+                / torch.linalg.norm(exact)))
+        fig7[size] = sum(errs7) / trials
+    print("phase 15(b) Fig. 7, relative Frobenius error (mean of "
+          + ", ".join(f"{t} at {s}" for s, t in FIG7_TRIALS.items())
+          + " seeded uniform trials): " + ", ".join(
+              f"{s}x{s} {e * 100:.3f}%" + (
+                  f" (paper {FIG7_PAPER[s] * 100:.2f}%)" if s in FIG7_PAPER
+                  else "") for s, e in fig7.items()))
+    if not fig7[4] > fig7[64] > fig7[512]:
+        fail(f"phase 15(b): the errors do not fall 4 > 64 > 512: {fig7}")
+    report["b_fig7"] = fig7
+
+    # (c) the engine model: the simulator pinned to the paper's endpoints,
+    # and the analytic projections of two cells (nothing here is measured)
+    rows_v = sim.validate()
+    for metric, got, want, rel in rows_v:
+        print(f"phase 15(c) sim.validate {metric}: simulated {got:.6g}, "
+              f"paper {want:.6g}, relative error {rel:.3e}")
+    if any(rel >= 0.005 for *_, rel in rows_v):
+        fail(f"phase 15(c): sim.validate() at or above 0.5%: {rows_v}")
+    cfg = get_config("h2o_danube_1p8b")
+    cells = {}
+    for cell in OISMA_CELLS:
+        shape = SHAPES[cell]
+        proj = {e: oisma_engine_projection(cfg, shape, engines=e,
+                                           technology_nm=22,
+                                           double_buffered=True)
+                for e in (1, 4)}
+        terms = analytic_cell(cfg, shape, MeshSpec())["terms"]
+        cells[cell] = {"oisma_engine": proj, "h100_roofline": {
+            "t_compute_s": terms.t_compute, "t_memory_s": terms.t_memory,
+            "bottleneck": terms.bottleneck, "flops": terms.flops,
+            "hbm_bytes": terms.hbm_bytes}}
+        one, four = proj[1], proj[4]
+        print(f"phase 15(c) h2o-danube-1.8b {cell} (analytic, not "
+              f"measured): the OISMA engine at 22 nm, double-buffered, "
+              f"weights only: 1 engine {one['latency_s']:.6g} s a step "
+              f"(serial reprogramming {one['serial_reprogram_latency_s']:.6g}"
+              f" s), utilization {one['utilization']:.4f}, "
+              f"{one['achieved_tops_per_watt']:.4f} TOPS/W, "
+              f"{one['gops_per_mm2']:.2f} GOPS/mm2; 4 engines "
+              f"{four['latency_s']:.6g} s, scaling efficiency "
+              f"{four['scaling_efficiency']:.4f}; one H100's roofline: "
+              f"t_compute {terms.t_compute:.6g} s ({terms.flops:.4g} FLOPs "
+              f"at the data sheet's {hw.PEAK_FLOPS_BF16:.4g} bf16 FLOP/s), "
+              f"t_memory {terms.t_memory:.6g} s ({terms.hbm_bytes:.4g} B at "
+              f"{hw.HBM_BW:.4g} B/s), bottleneck {terms.bottleneck}")
+    report["c"] = {"validate": rows_v, "cells": cells}
+    return rows, launches, report
 
 
 class _Shape:
@@ -6251,9 +6529,15 @@ def main() -> None:
         (dist_rows, dist_launches, ring_rows, ring_launches,
          report["phase14"]) = phase_dist(torch, timer, build)
 
+    # ---- phase 15: the OISMA reference and the engine model ----
+    with Phase("15 the OISMA reference and the engine model", report):
+        oisma_rows, oisma_launches, report["phase15"] = phase_oisma(
+            torch, timer, build)
+
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches,
-                     DIST_PATH: dist_launches, SEQ_PATH: ring_launches}
+                     DIST_PATH: dist_launches, SEQ_PATH: ring_launches,
+                     OISMA_REF_PATH: oisma_launches}
     for arch, path in GEMMA_PATHS.items():
         path_launches[path] = gemma_launches[arch]
     for arch, path in MOE_PATHS.items():
@@ -6283,7 +6567,9 @@ def main() -> None:
                              for arch, arch_rows in ft_rows.items()
                              for n, r in arch_rows.items()]
                           + [(n, DIST_PATH, r) for n, r in dist_rows.items()]
-                          + [(n, SEQ_PATH, r) for n, r in ring_rows.items()]):
+                          + [(n, SEQ_PATH, r) for n, r in ring_rows.items()]
+                          + [(n, OISMA_REF_PATH, r)
+                             for n, r in oisma_rows.items()]):
         b = r["b"]
         t_bytes = sum(x[1] for x in b)
         t_ops = sum(x[2] for x in b)

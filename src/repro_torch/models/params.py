@@ -89,3 +89,9 @@ def init_params(schema, seed: int = 0, device="cuda") -> Dict[str, Any]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return tree_map(lambda d: _init_leaf(d, gen, dev), schema)
+
+
+def param_count(schema) -> int:
+    """Elements in a schema's leaves, read from their shapes: nothing is
+    allocated, so it serves the full configs' sizes."""
+    return sum(math.prod(d.shape) for _, d in tree_leaves(schema))

@@ -7,8 +7,8 @@ copied, not imported):
                series (snapshot / to_jsonl), and the append-only JSONL
                step logger
   trace.py     span-based tracing (injectable monotonic clock, nesting,
-               lanes) with a Chrome-trace/Perfetto exporter; the
-               simulator adapters come with the port of ``sim/``
+               lanes) with a Chrome-trace/Perfetto exporter, and the
+               simulator's two adapters onto the same timeline
   watchdog.py  per-callsite bounds on specialised shapes, asserted live;
                over the port's ``GraphedEntry`` it counts captured CUDA
                graphs (series ``jit_compiled_shapes``, the reference's
@@ -25,7 +25,8 @@ from typing import Optional
 from repro_torch.obs.registry import (JsonlLogger, MetricsRegistry,
                                       percentile, read_metrics,
                                       step_time_summary)
-from repro_torch.obs.trace import TraceEvent, Tracer, chrome_doc
+from repro_torch.obs.trace import (TraceEvent, Tracer, chrome_doc,
+                                   round_walk_chrome_trace, sim_chrome_trace)
 from repro_torch.obs.watchdog import (RetraceError, RetraceWatchdog,
                                       call_signature)
 
@@ -60,5 +61,6 @@ class Observability:
 __all__ = [
     "JsonlLogger", "MetricsRegistry", "percentile", "read_metrics",
     "step_time_summary", "TraceEvent", "Tracer", "chrome_doc",
+    "round_walk_chrome_trace", "sim_chrome_trace",
     "RetraceError", "RetraceWatchdog", "call_signature", "Observability",
 ]

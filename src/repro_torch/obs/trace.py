@@ -1,8 +1,6 @@
 """Span-based tracing with a Chrome-trace/Perfetto JSON exporter.
 
-A copy of the reference's ``repro/obs/trace.py`` (pure Python), without
-its two simulator adapters (``round_walk_chrome_trace``,
-``sim_chrome_trace``), which come with the port of ``sim/``.
+A copy of the reference's ``repro/obs/trace.py`` (pure Python).
 
 ``Tracer`` records nested spans (``with tracer.span("prefill_chunk",
 rid=3):``) against an injectable monotonic clock — real runs use
@@ -20,6 +18,18 @@ tracer adds no synchronisation.
 Open the exported file at https://ui.perfetto.dev (or
 ``chrome://tracing``): lanes render as threads, ``args`` show in the
 selection panel.
+
+Two adapters render the simulator onto the same timeline:
+
+* ``round_walk_chrome_trace`` — the mapper's per-round overlap
+  recurrence (``start_{r+1} = start_r + c_r + max(0, p_{r+1} - c_r)``,
+  see ``repro_torch.sim.mapper.round_timeline``) as compute/program/stall
+  lanes;
+* ``sim_chrome_trace`` — a ``repro_torch.sim.trace.Trace``'s tile-class
+  events laid end-to-end per kind (occupancy view).
+
+Simulator timelines use 1 cycle = 1 µs ticks unless ``freq_hz`` is
+given (Perfetto only needs consistent units).
 """
 from __future__ import annotations
 
@@ -131,3 +141,78 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f, indent=1, sort_keys=True)
             f.write("\n")
+
+
+# ---------------------------------------------------------------------------
+# simulator adapters: engine schedules on the same timeline
+# ---------------------------------------------------------------------------
+
+def _cycles_to_us(cycles: float, freq_hz: Optional[float]) -> float:
+    return cycles / freq_hz * 1e6 if freq_hz else cycles
+
+
+def round_walk_chrome_trace(slices, *, name: str = "matmul",
+                            freq_hz: Optional[float] = None
+                            ) -> Dict[str, Any]:
+    """Render ``repro_torch.sim.mapper.round_timeline`` slices as a timeline.
+
+    Three lanes: compute (tid 0), RRAM writes (tid 1), and the exposed
+    stall (tid 2) — the part of each round's program time the overlap
+    recurrence could not hide behind the previous round's compute.
+    Serial mode shows every program fully exposed; double-buffered mode
+    shows writes riding under compute with only the ``max(0, p - c)``
+    tails surfacing on the stall lane.
+    """
+    events = []
+    for s in slices:
+        if s.program_cycles > 0:
+            events.append(TraceEvent(
+                f"{name} r{s.index} program", "X",
+                _cycles_to_us(s.program_start, freq_hz),
+                _cycles_to_us(s.program_cycles, freq_hz), tid=1,
+                args={"round": s.index, "cycles": s.program_cycles},
+                cat="program"))
+        if s.compute_cycles > 0:
+            events.append(TraceEvent(
+                f"{name} r{s.index} compute", "X",
+                _cycles_to_us(s.compute_start, freq_hz),
+                _cycles_to_us(s.compute_cycles, freq_hz), tid=0,
+                args={"round": s.index, "cycles": s.compute_cycles},
+                cat="compute"))
+        if s.exposed_cycles > 0:
+            events.append(TraceEvent(
+                f"{name} r{s.index} exposed stall", "X",
+                _cycles_to_us(s.compute_start - s.exposed_cycles, freq_hz),
+                _cycles_to_us(s.exposed_cycles, freq_hz), tid=2,
+                args={"round": s.index, "cycles": s.exposed_cycles},
+                cat="stall"))
+    return chrome_doc(events, {0: "compute", 1: "rram writes",
+                               2: "exposed stall"})
+
+
+def sim_chrome_trace(trace, *, freq_hz: Optional[float] = None
+                     ) -> Dict[str, Any]:
+    """Render a ``repro_torch.sim.trace.Trace`` (tile-class events) end-to-end.
+
+    One lane per event kind (compute / reprogram / program), events laid
+    sequentially with their total occupancy cycles as duration — an
+    occupancy view, not a wall-clock one (wall-clock lives in the round
+    walk above; see the trace module's cycles caveat).
+    """
+    lanes = {"compute": 0, "reprogram": 1, "program": 2}
+    cursors = {tid: 0.0 for tid in lanes.values()}
+    events = []
+    for e in trace.events:
+        tid = lanes.get(e.kind, len(lanes))
+        t0 = cursors.get(tid, 0.0)
+        dur = e.cost.cycles
+        events.append(TraceEvent(
+            f"{e.matmul} {e.kind} {e.k_rows}x{e.n_words}", "X",
+            _cycles_to_us(t0, freq_hz), _cycles_to_us(dur, freq_hz),
+            tid=tid,
+            args={"tiles": e.tiles, "macs": e.cost.macs,
+                  "energy_j": e.cost.energy_j}, cat=e.kind))
+        cursors[tid] = t0 + dur
+    return chrome_doc(events, {0: "compute occupancy",
+                               1: "reprogram occupancy",
+                               2: "initial programming"})

@@ -2,8 +2,10 @@
 
 * the port's copies of the registry, the tracer and the watchdog pass the
   reference's own cases (``tests/test_obs.py``, run with the port's
-  classes in place of the reference's; the simulator adapters and the
-  ``repro.utils`` shim are not ported);
+  classes in place of the reference's);
+* the simulator's two adapters render the port's round walks and tile
+  traces as Chrome documents equal to the reference's, and the
+  ``utils.metrics`` shim is the port's JSONL logger;
 * under one ``FakeClock`` injected into both tracers, the port's paged
   engine and the reference's, serving the same requests with a
   ``Tracer``, a registry and a watchdog, give equal Chrome-trace event
@@ -43,7 +45,56 @@ CASES = [name for name, fn in inspect.getmembers(cases, inspect.isfunction)
 
 def test_cases_cover_the_ported_surface():
     assert len(CASES) == 18
-    assert not hasattr(tobs, "round_walk_chrome_trace")
+    assert callable(tobs.round_walk_chrome_trace)
+    assert callable(tobs.sim_chrome_trace)
+
+
+def test_utils_metrics_shim_is_the_obs_logger():
+    from repro_torch.utils.metrics import (MetricsLogger, read_metrics,
+                                           step_time_summary)
+    assert MetricsLogger is tobs.JsonlLogger
+    assert read_metrics is tobs.read_metrics
+    assert step_time_summary is tobs.step_time_summary
+
+
+@pytest.mark.parametrize("double_buffered", [False, True])
+@pytest.mark.parametrize("stationary", [False, True])
+def test_round_walk_chrome_trace_equals_the_reference(double_buffered,
+                                                      stationary):
+    from repro.sim import mapper as jmapper
+    from repro_torch.sim import mapper as tmapper
+    kw = dict(banks=4, arrays_per_bank=2, write_ports_per_bank=1,
+              double_buffered=double_buffered)
+    for m, k, n in ((64, 2048, 512), (16, 700, 130), (512, 2048, 1024)):
+        tsl = tmapper.round_timeline(m, k, n, tmapper.EngineConfig(**kw),
+                                     stationary=stationary)
+        jsl = jmapper.round_timeline(m, k, n, jmapper.EngineConfig(**kw),
+                                     stationary=stationary)
+        for freq in (None, 372e6):
+            got = tobs.round_walk_chrome_trace(tsl, name="qkv", freq_hz=freq)
+            want = jobs.round_walk_chrome_trace(jsl, name="qkv",
+                                                freq_hz=freq)
+            assert got == want
+            assert any(e["ph"] == "X" for e in got["traceEvents"])
+
+
+@pytest.mark.parametrize("freq", [None, 50e6])
+def test_sim_chrome_trace_equals_the_reference(freq):
+    from repro.configs import get_config as jget
+    from repro.configs.base import SHAPES as JSHAPES
+    from repro.sim import map_model as jmap_model, Trace as JTrace
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.sim import map_model, Trace
+    tt, jt = Trace(), JTrace()
+    map_model(get_config("granite_moe_1b"), SHAPES["decode_32k"], trace=tt,
+              include_attention=True)
+    jmap_model(jget("granite_moe_1b"), JSHAPES["decode_32k"], trace=jt,
+               include_attention=True)
+    got = tobs.sim_chrome_trace(tt, freq_hz=freq)
+    want = jobs.sim_chrome_trace(jt, freq_hz=freq)
+    assert got == want
+    assert sum(e["ph"] == "X" for e in got["traceEvents"]) == len(tt)
 
 
 @pytest.mark.parametrize("case", CASES)
