@@ -343,7 +343,19 @@ prints its wall time):
    process's steps over the whole cache through the fused decode
    attention: logits' cosine above 0.9999, top-1 equal but at a near
    tie, step ms and cache bytes; then rows 1-3 timed at a ring rank's
-   qwen2-72b prefill shapes (M 8192) beside their bound.
+   qwen2-72b prefill shapes (M 8192) beside their bound; after (f),
+   tensor-parallel serving (``dist/serving.py``) on the same 4 card ranks
+   under the "prefill" and "decode" rules, the twins at a barrier: (g)
+   qwen2-72b at full width and 4 of its 80 layers on (data 1, model 4)
+   (2 x 1024 tokens, 16 greedy steps, a ``bp8`` cache) and (h)
+   paligemma-3b whole on (data 2, model 2) (2 rows of 256 zero patches
+   and 64 tokens, 8 steps), each rank's pieces drawn block by block from
+   seeds; ranks 1-3 then free theirs while rank 0 runs the same calls
+   whole: layer 0's K/V pieces bitwise its cut, every call's cosine above
+   0.9999, greedy tokens equal but at a near tie, each leaf's bytes a
+   rank its share; prefill and step seconds, peaks, a decode step's
+   share in collectives, launches of rows 1-4; then rows 1-4 timed at a
+   TP rank's decode shapes.
 
 15. The OISMA reference and the engine model (``core/bp.py``, ``sim/``,
    ``roofline/``), one process, seconds: (a) levels 0..9 from a numpy
@@ -377,7 +389,9 @@ and rows 1-3 on zamba2-2.7b's, timed at one forward layer at M 1024;
 rows 1-3 on the mesh's training path, timed at a TP-2 rank's layer at M
 256, their launches summed over the 4 ranks; rows 1-3 on the ring's
 serving path, timed at a ring rank's qwen2-72b prefill layer at M 8192,
-their launches summed over the 4 ranks and the two models; rows 5 and 6
+their launches summed over the 4 ranks and the two models; rows 1-4 on
+the TP serving path, timed at a qwen2-72b TP-4 rank's decode layer,
+their launches summed over the 4 ranks and (g)-(h); rows 5 and 6
 on the in-array reference's path of phase 15(a), timed at its shapes),
 the card line, and ``{"ok": true, "device": {...}}``.  A detail report goes to ``chip_smoke_report.json`` in the
 output directory beside this script.
@@ -5074,7 +5088,8 @@ def dist_rank(dev, cases, ckpt_dir):
     a whole-step case on 0-3 and 4-7 at once).  (d)-(f) and then (c) come
     first, and run on a quiet host: the twins wait at a barrier over all
     8 ranks that the card's ranks reach at the end of (d)-(f), and at
-    another after (c)'s last step.  Returns this rank's results."""
+    another after (c)'s last step, and through (g)-(h) likewise.  Returns
+    this rank's results."""
     import torch
     import torch.distributed as tdist
     from repro_torch.kernels import build
@@ -5088,7 +5103,8 @@ def dist_rank(dev, cases, ckpt_dir):
         t0 = time.perf_counter()
         side = next((i for i, m in enumerate(meshes) if m.member), None)
         if side is None:
-            if case["kind"] in ("full", "ring"):  # a twin waits them out
+            if case["kind"] in ("full", "ring", "serve_tp"):
+                # a twin waits them out
                 tdist.barrier()
                 res[name] = {"result": None, "s": time.perf_counter() - t0,
                              "lead": False, "transport": []}
@@ -5101,6 +5117,9 @@ def dist_rank(dev, cases, ckpt_dir):
                                         pending)
         elif case["kind"] == "ring":
             res[name] = _case_ring(torch, build, mesh, dev, tdist.barrier)
+        elif case["kind"] == "serve_tp":
+            res[name] = _case_serve_tp(torch, build, mesh, dev,
+                                       tdist.barrier, case["case"])
         else:
             res[name] = _case_full(torch, build, mesh, dev, ckpt_dir,
                                    tdist.barrier)
@@ -5121,14 +5140,17 @@ CARD, TWINS = (0, 1, 2, 3), (4, 5, 6, 7)
 
 
 def _world_cases():
-    """(d)-(f), (c), then (b), with the rank sets of their meshes: the
-    twins wait at a barrier through (d)-(f) and (c)'s steps, and run
+    """(d)-(h), (c), then (b), with the rank sets of their meshes: the
+    twins wait at a barrier through (d)-(h) and (c)'s steps, and run
     their CPU steps beside (c)'s checkpoint and the card's (b) cases."""
     pipe = {"kind": "vs_single", "mode": "bf16", "layers": DIST_LAYERS,
             "M": 2, "schedules": ("gpipe", "1f1b")}
     free = {"kind": "vs_single", "mode": "bp8_fused", "layers": DIST_LAYERS}
     return [
         ("ring", {"kind": "ring", "mesh": RING_SHAPE, "ranks": [CARD]}),
+    ] + [(f"serve_tp_{k}", {"kind": "serve_tp", "case": k,
+                            "mesh": c["mesh"], "ranks": [CARD]})
+         for k, c in TP_CASES.items()] + [
         ("full", {"kind": "full", "mesh": DIST_SHAPE, "ranks": [CARD]}),
         ("stage2", {**pipe, "mesh": {"stage": 2}, "ranks": [(0, 1)]}),
         ("data2", {**free, "mesh": {"data": 2}, "ranks": [(2, 3)]}),
@@ -5174,19 +5196,23 @@ def phase_dist(torch, timer, build):
     shapes; (b) the mesh steps at full width and 2 layers (4 for the
     stage x TP case) against the single-process card step and, on (stage
     2, model 2) in ``bp8_fused``, against the same mesh on 4 gloo CPU
-    ranks; (c) h2o-danube-1.8b (12 layers) on (stage 2, model 2), its
+    ranks; (c) h2o-danube-1.8b (8 layers) on (stage 2, model 2), its
     checkpoint restored bitwise and resumed in this process without a
     mesh; (d)-(f) sequence parallelism on the 4 card ranks as one (seq 4)
     ring: the ring core bitwise its oracles, qwen2-72b (2 layers) and
     minicpm3-4b served under the ring against the same calls in one
     process, and a long_500k decode step, then rows 1-3 timed at a ring
-    rank's prefill shapes.  The card's ranks are 4 processes on cuda:0
-    over gloo, started here with their 4 twins on the CPU; (d)-(f) and
-    (c)'s steps run first, while the twins wait at barriers, so that no
+    rank's prefill shapes; (g)-(h) tensor-parallel serving on the same 4
+    card ranks: qwen2-72b (4 layers) on (data 1, model 4) and paligemma-3b
+    on (data 2, model 2) against the same calls in one process, then rows
+    1-4 timed at a TP rank's shapes.  The card's ranks are 4 processes
+    on cuda:0 over gloo, started here with their 4 twins on the CPU;
+    (d)-(h) and (c)'s steps run first, while the twins wait at barriers,
+    so that no
     CPU step of a twin loads the host under them (the ring's first work
     takes the ranks' cold start).  Returns the kernel rows
-    and launches of (c) and of (e) (summed over the ranks), and a
-    report."""
+    and launches of (c), of (e) and of (g)-(h) (summed over the ranks),
+    and a report."""
     import shutil
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import launch_ranks
@@ -5272,6 +5298,10 @@ def phase_dist(torch, timer, build):
     # (d)-(f)
     ring_launches, report["ring"] = ring_report(
         [r["ring"]["result"] for r in card])
+    # (g)-(h)
+    tp_launches, report["serve_tp"] = tp_report(torch, [
+        {k: v["result"] for k, v in r.items() if k.startswith("serve_tp_")}
+        for r in card])
     # (c)
     full = [r["full"]["result"] for r in card]
     del card
@@ -5286,7 +5316,15 @@ def phase_dist(torch, timer, build):
     t3 = time.perf_counter()
     ring_rows = ring_kernel_rows(torch, timer)
     report["ring_rows_s"] = time.perf_counter() - t3
-    return rows, launches, ring_rows, ring_launches, report
+    t4 = time.perf_counter()
+    tp_rows = tp_kernel_rows(torch, timer)
+    report["tp_rows_s"] = time.perf_counter() - t4
+    report["serve_tp"]["rows_h"] = {k: {x: y for x, y in r.items()
+                                        if x != "b"}
+                                    | {"bound_ms": sum(b[0] for b in r["b"])}
+                                    for k, r in tp_rows["h"].items()}
+    return (rows, launches, ring_rows, ring_launches, tp_rows["g"],
+            tp_launches, report)
 
 
 def dist_full_report(torch, full, plan):
@@ -5868,6 +5906,396 @@ def ring_report(ranks):
 
 
 # ---------------------------------------------------------------------------
+# phase 14(g)-(h): tensor-parallel serving on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+TP_PATH = "serve_tp_bp8_fused"
+#: (g): qwen2-72b at full width and 4 of its 80 layers on (data 1, model
+#: 4), 2 rows of 1024-token prompts, 16 greedy decode steps; (h):
+#: paligemma-3b whole on (data 2, model 2), 2 rows (one a data rank) of
+#: 256 zero patch tokens and a 64-token prompt, 8 steps
+TP_CASES = {
+    "g": {"arch": "qwen2_72b", "layers": 4, "mesh": {"data": 1, "model": 4},
+          "rows": 2, "prompt": 1024, "steps": 16},
+    "h": {"arch": "paligemma_3b", "layers": None,
+          "mesh": {"data": 2, "model": 2}, "rows": 2, "prompt": 64,
+          "steps": 8},
+}
+TP_SEED = 28
+#: rows of a leaf's block drawn from one seed (the stacked leaves: a
+#: layer a block)
+TP_BLOCK_ROWS = 2048
+TP_REDUCED = {"num_layers": "qwen2-72b 80 -> 4 in 14(g): its whole ~145 GB "
+              "of bf16 weights do not fit one card for the one-process "
+              "oracle, and the script's time; paligemma-3b whole in 14(h), "
+              "8 decode steps"}
+#: the collectives a serving call makes (the vocabulary's sum and gather,
+#: the row-parallel sums, the scale reductions, the rows' gather)
+TP_COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_gather")
+
+
+def tp_config(arch, layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, matmul_mode="bp8_fused", kv_quant="bp8",
+                               num_layers=layers or cfg.num_layers)
+
+
+def _seeded_leaf(torch, d, i, placement, mesh, dev):
+    """Leaf ``i`` of a schema (``ParamDef`` ``d``) drawn block by block
+    along its first dim (a layer of a stack, or ``TP_BLOCK_ROWS`` rows),
+    each block from a seed of its own, by the init's std rule: with a
+    mesh and ``placement``, only this rank's piece (the blocks it
+    overlaps, cut), else the whole leaf.  So the ranks' pieces join into
+    the one process's leaves, and no rank holds more than its pieces and
+    one block."""
+    from repro_torch.dist.sharding import _cut, local_shard
+    n0 = d.shape[0]
+    rows = 1 if d.axes[0] == "stack" else TP_BLOCK_ROWS
+    lo, hi = 0, n0
+    if mesh is not None and placement[0] is not None:
+        lo, hi = _cut(n0, mesh.size(placement[0]), mesh.index(placement[0]))
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = 1.0 if d.init == "embed" else d.scale / math.sqrt(max(1, fan_in))
+    parts = []
+    for b0 in range(lo - lo % rows, hi, rows):
+        shape = (min(rows, n0 - b0),) + tuple(d.shape[1:])
+        if d.init in ("zeros", "ones"):
+            blk = (torch.zeros if d.init == "zeros" else torch.ones)(
+                shape, dtype=d.dtype, device=dev)
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(TP_SEED * 1_000_003 + i * 100_003 + b0 // rows)
+            blk = torch.randn(shape, generator=gen, device=dev).mul_(std).to(
+                d.dtype)
+        blk = blk[max(lo, b0) - b0:min(hi, b0 + rows) - b0]
+        if mesh is not None:
+            blk = local_shard(blk, (None,) + tuple(placement[1:]), mesh)
+        parts.append(blk.contiguous())
+        del blk
+    return torch.cat(parts, 0) if len(parts) > 1 else parts[0]
+
+
+def seeded_tree(torch, model, dev, placements=None, mesh=None):
+    """``model``'s params drawn by ``_seeded_leaf``: this rank's pieces
+    of them under ``placements`` on ``mesh``, or the whole tree."""
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    schema = model.schema()
+    leaves = tree_leaves(schema)
+    pls = [p for _, p in tree_leaves(placements)] if placements else \
+        [None] * len(leaves)
+    return tree_unflatten(schema, [
+        _seeded_leaf(torch, d, i, pl, mesh, dev)
+        for i, ((_, d), pl) in enumerate(zip(leaves, pls))])
+
+
+def _tp_batch(torch, cfg, c, dev):
+    """A case's whole batch: seeded prompts, and paligemma's zero patch
+    embeddings."""
+    gen = torch.Generator().manual_seed(TP_SEED + c["prompt"])
+    batch = {"tokens": torch.randint(3, cfg.vocab_size,
+                                     (c["rows"], c["prompt"]),
+                                     generator=gen).to(dev)}
+    if cfg.num_prefix_tokens:
+        batch["patches"] = torch.zeros(
+            (c["rows"], cfg.num_prefix_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=dev)
+    return batch
+
+
+def _leaf_bytes(tree) -> dict:
+    from repro_torch.models.params import tree_leaves
+    return {"/".join(k): v.numel() * v.element_size()
+            for k, v in tree_leaves(tree)}
+
+
+def _layer0(cache) -> dict:
+    """The model's first layer of a cache, cloned."""
+    stack = "dense_layers" if "dense_layers" in cache else "layers"
+    return {k: v[0].clone() for k, v in cache[stack].items()}
+
+
+def _tp_serve(torch, build, mesh, dev, key):
+    """14(g)/(h) on one card rank: the case's model served on ``mesh``
+    through ``dist.serving`` (this rank's seeded pieces, the whole batch
+    on every rank): a prefill, then the case's greedy decode steps;
+    launches counted from just before to just after.  Returns the rank's
+    numbers, and (kept on the rank) every call's logits and the layer-0
+    cache after the prefill and at the end."""
+    from repro_torch.dist import serving as sv
+    from repro_torch.models import build as build_model
+    c = TP_CASES[key]
+    cfg = tp_config(c["arch"], c["layers"])
+    model = build_model(cfg)
+    rows = c["rows"]
+    rules = sv.serving_rules(mesh, "prefill", rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = seeded_tree(torch, model, dev,
+                         sv.serve_placements(model, mesh, rules), mesh)
+    res = {"init_s": _sync_s(torch, t0)}
+    batch = _tp_batch(torch, cfg, c, dev)
+    length = c["prompt"] + c["steps"]
+    kept = {"logits": []}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    mesh.reset_stats()
+    with sv.use_tp_serving(mesh, "prefill", batch=rows) as ctx:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, length)
+        res["prefill_s"] = _sync_s(torch, t0)
+        res["rows"], res["kv_heads"] = ctx.rows(rows), ctx.kv_heads(cfg)
+        plan = ctx.plan(cfg)
+    res["prefill_transport"] = _transport(mesh)
+    kept["logits"].append(logits.float())
+    kept["l0_prefill"] = _layer0(cache)
+    tok = logits.argmax(-1)
+    toks, steps = [tok.tolist()], []
+    mesh.reset_stats()
+    pos0 = c["prompt"] + cfg.num_prefix_tokens
+    with sv.use_tp_serving(mesh, "decode", batch=rows):
+        for i in range(c["steps"]):
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok[:, None], cache,
+                                              pos0 + i)
+            tok = logits.argmax(-1)
+            steps.append(_sync_s(torch, t1))
+            toks.append(tok.tolist())
+            kept["logits"].append(logits.float())
+    tr = res["decode_transport"] = _transport(mesh)
+    res["launches"] = dict(build.LAUNCHES)
+    kept["l0_end"] = _layer0(cache)
+    coll = {k: v for k, v in tr.items() if k.split(" ")[0] in TP_COLLECTIVES}
+    res.update(
+        step_s=steps, tokens=toks, plan=dataclasses.asdict(plan),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        param_bytes=_leaf_bytes(params), cache_bytes=_leaf_bytes(cache),
+        decode_collectives_per_step=sum(v["calls"] for v in coll.values())
+        / c["steps"],
+        decode_collective_share=sum(v["s"] for v in coll.values())
+        / sum(steps))
+    del params, cache
+    return res, kept
+
+
+def _tp_single(torch, model, dev, c, mine, kept, pieces, infos):
+    """14(g)/(h)'s one-process run on the card rank 0 (the whole seeded
+    params, no mesh) of the same calls, the decode steps fed the mesh's
+    tokens: every call's logits cosine and greedy choices, and each
+    rank's layer-0 cache pieces (``pieces``: every rank's, gathered here)
+    against this run's cut at the rank's rows and kv heads."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = seeded_tree(torch, model, dev)
+    init_s = _sync_s(torch, t0)
+    batch = _tp_batch(torch, cfg, c, dev)
+    toks = mine["tokens"]
+
+    def held(l0, when):
+        out = []
+        for r, info in enumerate(infos):
+            (lo, hi), (first, n) = info
+            same = True
+            for k, v in l0.items():
+                cut = v[lo:hi]
+                if cut.dim() >= 3:
+                    cut = cut[:, :, first:first + n]
+                same &= torch.equal(cut.cpu(), pieces[when][k][r].cpu())
+            out.append(bool(same))
+        return out
+
+    def choices(logits, want):
+        return [_greedy_vs(torch, logits[r], want[r])
+                for r in range(logits.shape[0])]
+
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, c["prompt"] + c["steps"])
+    out = {"init_s": init_s, "prefill_s": _sync_s(torch, t0),
+           "cosines": [_cosine(torch, kept["logits"][0], logits)],
+           "choices": choices(logits, toks[0]),
+           "l0_prefill": held(_layer0(cache), "prefill")}
+    steps = []
+    pos0 = c["prompt"] + cfg.num_prefix_tokens
+    for i in range(c["steps"]):
+        tok = torch.tensor(toks[i], device=dev)[:, None]
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache, pos0 + i)
+        steps.append(_sync_s(torch, t1))
+        out["cosines"].append(_cosine(torch, kept["logits"][i + 1], logits))
+        out["choices"] += choices(logits, toks[i + 1])
+    out.update(step_s=steps, l0_end=held(_layer0(cache), "end"),
+               cache_bytes=_leaf_bytes(cache),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, cache
+    return out
+
+
+def _case_serve_tp(torch, build, mesh, dev, quiet, key):
+    """Phase 14(g) or (h) on one card rank: the case served on the mesh,
+    every rank's layer-0 cache pieces gathered to rank 0, then ranks 1-3
+    free their weights and wait while rank 0 runs the same calls in this
+    one process, and compares.  ``quiet()`` (the barrier the CPU twins
+    wait at) is called at the end."""
+    import torch.distributed as tdist
+    from repro_torch.models import build as build_model
+    c = TP_CASES[key]
+    lead = mesh.position == 0
+    group = mesh.group(mesh.axis_names)
+    res, kept = _tp_serve(torch, build, mesh, dev, key)
+    pieces = {when: {k: mesh.gather(v.contiguous(), mesh.axis_names)
+                     for k, v in kept[f"l0_{when}"].items()}
+              for when in ("prefill", "end")}
+    infos = [None] * mesh.size(mesh.axis_names)
+    tdist.all_gather_object(infos, (res["rows"], res["kv_heads"]),
+                            group=group)
+    if not lead:
+        del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    tdist.barrier(group=group)
+    if lead:
+        model = build_model(tp_config(c["arch"], c["layers"]))
+        res["single"] = _tp_single(torch, model, dev, c, res, kept, pieces,
+                                   infos)
+        del kept, pieces
+        gc.collect()
+        torch.cuda.empty_cache()
+    tdist.barrier(group=group)
+    quiet()
+    return res
+
+
+def tp_kernel_rows(torch, timer):
+    """Rows 1-4 at a TP rank's decode shapes (served_kernel_rows, M 4;
+    checked bitwise at M 4, 64 and the prefill's 2048): qwen2-72b on 4
+    ranks (wq 8192 -> 2048, wk/wv 8192 -> 256, wo 2048 -> 8192 and down
+    7392 -> 8192 row-parallel, the silu MLP 8192 -> 7392, decode
+    attention at 2 kv heads, G 8, D 128) for the kernels line, and
+    paligemma-3b on 2 (wq 2048 -> 1024, wk/wv 2048 -> 256 whole, wo 1024
+    -> 2048, down 8192 -> 2048, the gelu MLP 2048 -> 8192, decode
+    attention at 1 kv head, G 4, D 256), printed beside it."""
+    out = {}
+    for key, (h, kh, ff, tp) in (("g", (16, 2, 7392, 4)),
+                                 ("h", (4, 1, 8192, 2))):
+        c = TP_CASES[key]
+        full = tp_config(c["arch"], 1)
+        d, hd = full.d_model, full.head_dim
+        rank = dataclasses.replace(full, num_heads=h, num_kv_heads=kh,
+                                   d_ff=ff)
+        step = [(d, h * hd), (d, kh * hd), (d, kh * hd), (h * hd, d),
+                (ff, d)]
+        out[key], _ = served_kernel_rows(
+            torch, timer, rank, step, mlp=True,
+            big_m=(c["rows"] * (c["prompt"] + full.num_prefix_tokens),))
+        print(f"phase 14({key}) rows 1-4 above at a TP-{tp} rank's "
+              f"{c['arch']} shapes")
+    return out
+
+
+def tp_report(torch, ranks):
+    """14(g)-(h)'s gates and numbers over the 4 card ranks' results: fails
+    the script where a layer-0 piece is not bitwise the one process's
+    cut, a call's logits cosine is at or under 0.9999, a greedy choice
+    parts outside a near tie, a leaf's bytes on a rank are not the whole
+    leaf's over its pieces, or a row of the path never launched on a
+    rank.  Returns the path's launches of rows 1-4 (over both cases and
+    every rank) and the report."""
+    from repro_torch.dist import serving as sv
+    from repro_torch.models import build as build_model
+    from repro_torch.models.params import tree_leaves
+    launches, report = {}, {"reduced": TP_REDUCED}
+    for key, c in TP_CASES.items():
+        res = [r[f"serve_tp_{key}"] for r in ranks]
+        single = res[0]["single"]
+        cfg = tp_config(c["arch"], c["layers"])
+        model = build_model(cfg)
+        tag = f"phase 14({key}) {c['arch']}"
+        if not all(single["l0_prefill"]) or not all(single["l0_end"]):
+            fail(f"{tag}: layer-0 K/V pieces not bitwise the one process's "
+                 f"cut: prefill {single['l0_prefill']}, end "
+                 f"{single['l0_end']}")
+        bad = [ch for ch in single["choices"]
+               if not ch["equal"] and ch["gap"] >= ch["tie_below"]]
+        if not min(single["cosines"]) > 0.9999 or bad:
+            fail(f"{tag}: cosines {single['cosines']}, greedy choices "
+                 f"parting outside a near tie {bad}")
+        # bytes: each split leaf on a rank is the whole leaf's over its
+        # pieces (the one process's weights from the schema, its cache
+        # from its own run)
+        shape = _Shape(c["mesh"])
+        pl = dict(("/".join(k), v) for k, v in tree_leaves(
+            sv.serve_placements(model, shape, sv.serving_rules(
+                shape, "prefill", c["rows"]))))
+        whole = {"/".join(k): math.prod(d.shape) * d.dtype.itemsize
+                 for k, d in tree_leaves(model.schema())}
+        faults = []
+        for r in res:
+            for k, n in whole.items():
+                pieces = math.prod(c["mesh"][a] for e in pl[k]
+                                   if e is not None
+                                   for a in ((e,) if isinstance(e, str)
+                                             else e))
+                if r["param_bytes"][k] * pieces != n:
+                    faults.append((k, r["param_bytes"][k], n, pieces))
+            (lo, hi), (_, kh) = r["rows"], r["kv_heads"]
+            for k, n in single["cache_bytes"].items():
+                part = n * (hi - lo) // c["rows"]
+                if k.split("/")[-1] != "pos":
+                    part = part * kh // cfg.num_kv_heads
+                if r["cache_bytes"][k] != part:
+                    faults.append((k, r["cache_bytes"][k], part))
+        if faults:
+            fail(f"{tag}: bytes not the whole leaf's over its pieces: "
+                 f"{faults[:6]}")
+        per_rank = [{k: v for k, v in r["launches"].items() if k in SERVED}
+                    for r in res]
+        if any(p.get(k, 0) <= 0 for p in per_rank for k in SERVED):
+            fail(f"{tag}: a row of {SERVED} never launched on a rank: "
+                 f"{per_rank}")
+        for p in per_rank:
+            for k, v in p.items():
+                launches[k] = launches.get(k, 0) + v
+        med = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]
+        step = [max(r["step_s"][i] for r in res)
+                for i in range(c["steps"])]
+        parted = sum(not ch["equal"] for ch in single["choices"])
+        print(f"{tag} on {c['mesh']} ({res[0]['init_s']:.1f}s init a rank, "
+              f"plan {res[0]['plan']}): prefill "
+              f"{max(r['prefill_s'] for r in res):.3f}s on the mesh "
+              f"(slowest rank) vs {single['prefill_s']:.3f}s single; decode "
+              f"step median {med(step) * 1e3:.1f} ms mesh vs "
+              f"{med(single['step_s']) * 1e3:.1f} ms single; layer-0 K/V "
+              f"bitwise the one process's cut on every rank; logits "
+              f"cosines min {min(single['cosines']):.7f}; greedy tokens "
+              f"equal at {len(single['choices']) - parted} of "
+              f"{len(single['choices'])} (least top-2 gap "
+              f"{min(ch['gap'] for ch in single['choices']):.4g}); weight "
+              f"GB a rank " + ", ".join(
+                  f"{sum(r['param_bytes'].values()) / 1e9:.2f}" for r in res)
+              + f" vs {sum(whole.values()) / 1e9:.2f} whole; cache bytes a "
+              f"rank " + ", ".join(str(sum(r["cache_bytes"].values()))
+                                   for r in res)
+              + f" vs {sum(single['cache_bytes'].values())} single; peak GB "
+              f"a rank " + ", ".join(f"{r['peak_gb']:.2f}" for r in res)
+              + f" vs {single['peak_gb']:.2f} single; decode share in "
+              f"collectives a rank " + ", ".join(
+                  f"{r['decode_collective_share']:.3f}" for r in res)
+              + ", collectives a step " + ", ".join(
+                  f"{r['decode_collectives_per_step']:.0f}" for r in res)
+              + "; launches of rows 1-4 a rank " + ", ".join(
+                  str(p) for p in per_rank))
+        report[key] = {"ranks": [{k: v for k, v in r.items()
+                                  if k != "single"} for r in res],
+                       "single": single}
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the OISMA reference and the engine model
 # ---------------------------------------------------------------------------
 
@@ -6391,7 +6819,8 @@ def main() -> None:
             cfg2 = dataclasses.replace(full, num_layers=CPU_CHECK_LAYERS,
                                        matmul_mode=mode)
             # PHASE3_PROMPTS of the three drawn (the draws keep the later
-            # phases' prompts): a part of a chunk and two chunks
+            # phases' prompts): 37 tokens, a part of a chunk, and 101, a
+            # chunk and a part of one
             report["cpu_s"][mode] = card_vs_cpu(
                 torch, cfg2, [prompts[i] for i in PHASE3_PROMPTS])
 
@@ -6526,8 +6955,8 @@ def main() -> None:
     # ---- phase 14: the distributed layer ----
     with Phase("14 the distributed layer (mesh, sharding, TP, pipeline)",
                report):
-        (dist_rows, dist_launches, ring_rows, ring_launches,
-         report["phase14"]) = phase_dist(torch, timer, build)
+        (dist_rows, dist_launches, ring_rows, ring_launches, tp_rows,
+         tp_launches, report["phase14"]) = phase_dist(torch, timer, build)
 
     # ---- phase 15: the OISMA reference and the engine model ----
     with Phase("15 the OISMA reference and the engine model", report):
@@ -6537,6 +6966,7 @@ def main() -> None:
     path_launches = {"serve_bp8_fused": launches, "unfused": unfused_launches,
                      "train_bp8_fused": train_launches,
                      DIST_PATH: dist_launches, SEQ_PATH: ring_launches,
+                     TP_PATH: tp_launches,
                      OISMA_REF_PATH: oisma_launches}
     for arch, path in GEMMA_PATHS.items():
         path_launches[path] = gemma_launches[arch]
@@ -6568,6 +6998,7 @@ def main() -> None:
                              for n, r in arch_rows.items()]
                           + [(n, DIST_PATH, r) for n, r in dist_rows.items()]
                           + [(n, SEQ_PATH, r) for n, r in ring_rows.items()]
+                          + [(n, TP_PATH, r) for n, r in tp_rows.items()]
                           + [(n, OISMA_REF_PATH, r)
                              for n, r in oisma_rows.items()]):
         b = r["b"]

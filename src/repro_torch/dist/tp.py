@@ -248,6 +248,13 @@ def tp_index(tpc: TPRuntime) -> int:
     return tpc.index
 
 
+def group_kv_head(cfg: ModelConfig, tp: int, index: int) -> int:
+    """In "group" mode, the kv head that rank ``index`` of ``tp`` reads:
+    the one its contiguous block of q heads maps to."""
+    h = cfg.num_heads
+    return (index * (h // tp)) // (h // cfg.num_kv_heads)
+
+
 # ---------------------------------------------------------------------------
 # placements of the layer stack
 # ---------------------------------------------------------------------------

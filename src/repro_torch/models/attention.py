@@ -437,13 +437,15 @@ def kv_quantized(cfg: ModelConfig) -> bool:
 
 
 def kv_cache_spec(cfg: ModelConfig, batch: int, length: int,
-                  ring: bool = False) -> Dict[str, tuple]:
+                  ring: bool = False,
+                  kv_heads: Optional[int] = None) -> Dict[str, tuple]:
     """One attention layer's cache: {leaf: (shape, dtype)}.  A ``ring``
     cache of a windowed layer keeps ``min(length, window)`` slots,
-    addressed pos % slots."""
+    addressed pos % slots.  ``kv_heads``: the heads a rank holds under a
+    TP plan (default all)."""
     if ring and cfg.window_size:
         length = min(length, cfg.window_size)
-    kh, d = cfg.num_kv_heads, cfg.head_dim
+    kh, d = kv_heads or cfg.num_kv_heads, cfg.head_dim
     quant = kv_quantized(cfg)       # raises for mla + kv_quant='bp8'
     if cfg.attention_type == "mla":
         return {
@@ -624,16 +626,22 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     its token only on the rank whose block holds it, prefill writes the
     block from the whole prompt's keys (gathered over the ring when the
     rows are sharded), and attention runs through ``seq.ring_attend``.
+
+    Under a TP plan that splits the heads (``dist/tp.py``: training, or
+    serving on a mesh, ``dist/serving.py``) the layer runs this rank's q
+    heads and the kv heads they read ("shard": its block of them;
+    "group": the one its q-head block maps to, sliced before any cache
+    write), the cache holds those kv heads, and ``wo`` is row-parallel.
     """
     b, sq, _ = x.shape
     h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mode = cfg.matmul_mode
-    # tensor parallelism (training under a plan, dist/tp.py): wq/wo (and
-    # in "shard" kv mode wk/wv) hold this rank's heads; the local head
-    # counts come from the weights' shapes
+    # tensor parallelism (training or serving under a plan, dist/tp.py):
+    # wq/wo (and in "shard" kv mode wk/wv) hold this rank's heads, and so
+    # does a cache; the local head counts come from the weights' shapes
     tpc = _tp.current_tp()
     tp_attn = (tpc is not None and tpc.plan.shard_heads
-               and cross_kv is None and cache is None)
+               and cross_kv is None)
     group = tp_attn and tpc.plan.kv_mode == _tp.KV_GROUP
     col = "col" if tp_attn else None
     q = dense(x, p["wq"], mode, p.get("bq"), tp=col).reshape(b, sq, -1, d)
@@ -661,6 +669,13 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                           _tp.tp_gather(k_norm, tpc))
     k = dense(x, wk, mode, bk, tp=col).reshape(b, sq, -1, d)
     v = dense(x, wv, mode, bv, tp=col).reshape(b, sq, -1, d)
+    if group:
+        # kv_heads < tp: every rank computes the whole (small) k/v and
+        # keeps the one kv head its contiguous q-head block maps to,
+        # before any cache write (the cache holds that head only)
+        kvh = _tp.group_kv_head(cfg, tpc.plan.size, _tp.tp_index(tpc))
+        k, v = k[:, :, kvh:kvh + 1], v[:, :, kvh:kvh + 1]
+    kh_loc = k.shape[2]
     if cfg.qk_norm:
         q = rms_norm(q, q_norm, cfg.norm_eps)
         k = rms_norm(k, k_norm, cfg.norm_eps)
@@ -692,14 +707,15 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         if quant and prefix_len is None and ring is None:
             # codes stream into the kernel and dequantise on chip; the
             # cache is never expanded in device memory
-            qg = q[:, 0].reshape(b, kh, h // kh, d).to(torch.float32)
+            qg = q[:, 0].reshape(b, kh_loc, h_loc // kh_loc, d).to(
+                torch.float32)
             qg = qg / _sqrt_d(d, qg.device)
             o = kq.bp8_decode_attention(
                 qg.contiguous(), cache["k_codes"], cache["k_scale"],
                 cache["v_codes"], cache["v_scale"], cache["pos"],
                 q_pos[:, 0].to(torch.int32).contiguous(), window,
                 softcap=cfg.logit_softcap, causal=causal)
-            out = o.reshape(b, 1, h, d)
+            out = o.reshape(b, 1, h_loc, d)
         elif quant:
             k_all = kq.dequantize_kv(cache["k_codes"], cache["k_scale"])
             v_all = kq.dequantize_kv(cache["v_codes"], cache["v_scale"])
@@ -741,11 +757,6 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             k_all, v_all = k, v
         kv_pos = q_pos
     if out is None:
-        if group:
-            # kv_heads < tp: every rank computes the whole (small) k/v and
-            # slices the one kv head its contiguous q-head block maps to
-            kvh = (_tp.tp_index(tpc) * h_loc) // (h // kh)
-            k_all, v_all = k_all[:, :, kvh:kvh + 1], v_all[:, :, kvh:kvh + 1]
         if ring is not None and not tp_attn:
             # the ring over the seq-sharded KV: decode's is the cache
             # block, prefill's the rank's block of the prompt when its
@@ -848,14 +859,17 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     the absorbed scores over it (``seq.ring_attend_mla``), and prefill,
     which the reference does not ring, gathers the latents of sharded rows
     over the ring, attends this rank's queries over the whole sequence
-    and writes the rank's block."""
+    and writes the rank's block.  Under a TP plan that splits the heads
+    every branch runs this rank's heads (``_mla_q``, ``wuk``, ``wuv``),
+    the latents and their cache are whole on every rank, and ``wo`` is
+    row-parallel."""
     b, sq, _ = x.shape
     mode = cfg.matmul_mode
-    # tensor parallelism (training under a plan, dist/tp.py): the latent
-    # projections are replicated, wuq/wuk/wuv/wo hold this rank's heads
+    # tensor parallelism (training or serving under a plan, dist/tp.py):
+    # the latent projections are replicated and the latent cache whole on
+    # every rank, wuq/wuk/wuv/wo hold this rank's heads
     tpc = _tp.current_tp()
-    tpc = tpc if (tpc is not None and tpc.plan.shard_heads
-                  and cache is None) else None
+    tpc = tpc if (tpc is not None and tpc.plan.shard_heads) else None
     q_nope, q_rope = _mla_q(p, cfg, x, tpc)
     dkv = dense(x, p["wdkv"], mode)
     ckv = rms_norm(dkv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)

@@ -211,11 +211,27 @@ def embed_def(vocab: int, d_model: int, dtype=torch.bfloat16) -> ParamDef:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
-                 scale: bool = False) -> torch.Tensor:
+                 scale: bool = False, split=None) -> torch.Tensor:
     """Rows of ``table``; with ``scale`` times sqrt(d_model), that factor
     computed in f32 and rounded to the table's dtype before the multiply
-    (62.0 at 3840 and 45.25 at 2048 in bf16), as the reference's."""
-    out = table[ids]
+    (62.0 at 3840 and 45.25 at 2048 in bf16), as the reference's.
+
+    ``split`` = (mesh, axes): ``table`` is this rank's contiguous slice of
+    a vocabulary cut over ``axes``; each rank looks up the ids in its
+    slice, -0.0 elsewhere, and the ranks sum.  The sum is exact, signed
+    zeros too: every other term is -0.0, which adds nothing."""
+    if split is None:
+        out = table[ids]
+    else:
+        mesh, axes = split
+        n = table.shape[0]
+        local = ids - mesh.index(axes) * n
+        mine = (local >= 0) & (local < n)
+        out = table[local.clamp(0, n - 1)]
+        out = torch.where(mine[..., None], out,
+                          torch.full((), -0.0, dtype=out.dtype,
+                                     device=out.device))
+        mesh.all_reduce(out, axes)
     if scale:
         out = out * _embed_scale(table.shape[-1], out.dtype, out.device)
     return out

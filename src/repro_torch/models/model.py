@@ -31,6 +31,16 @@ Weights stay whole on every ring rank: the preset's folding of
 ``ffn``/``heads``/``vocab``/``experts`` over "seq" waits for the ZeRO
 slice (ROADMAP Queue 1 item 5c), as do the other families, a "model"
 axis and chunked prefill under a ring, which refuse.
+
+Tensor-parallel serving (``dist/serving.py``): under
+``serving.use_tp_serving(mesh, phase, batch=)`` on a stage-free ("data",
+"model") mesh, a decoder's three serving entry points take the whole
+batch on every rank and return every row's logits.  Each rank runs its
+rows (the rules' "batch" cut) on its pieces of the weights
+(``serving.serve_params``) under the rules' TP plan with global BP
+scales; its cache holds its rows and the kv heads its q heads read
+(``cache_spec``); the embedding lookup and the logits run on its slice of
+a vocabulary split over the rules' axes, summed and gathered.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import seq as _seq
+from repro_torch.dist import serving as _serving
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -59,12 +70,14 @@ BIG_WINDOW = 1 << 30  # "no window"
 
 
 def _served(fn):
-    """A serving entry point: refused under a ring where this slice does
-    not serve (``dist.seq.check_serving``: the families other than the
-    decoders, and a "model" axis)."""
+    """A serving entry point: refused under a ring or a serving mesh where
+    this slice does not serve (``dist.seq.check_serving``: the families
+    other than the decoders, and a "model" axis; ``dist.serving.check``:
+    the families other than the decoders)."""
     @functools.wraps(fn)
     def wrapper(self, *args, **kw):
         _seq.check_serving(self.cfg)
+        _serving.check(self.cfg)
         return fn(self, *args, **kw)
     return wrapper
 
@@ -236,7 +249,9 @@ class DecoderModel:
         which needs every layer windowed (a uniform window).  Under a ring
         whose rules shard "kv_seq" (``dist.seq.kv_ring``) a rank holds one
         block of ``ceil(length / n)`` slots of a cache padded to n such
-        blocks."""
+        blocks.  On a serving mesh (``dist.serving``) ``batch`` is the
+        whole batch and a rank holds its rows and the kv heads its q heads
+        read (``serving.local_kv_heads``; MLA's latent whole)."""
         cfg = self.cfg
         if cfg.ring_cache and (not cfg.window_size
                                or cfg.local_global_pattern):
@@ -250,7 +265,15 @@ class DecoderModel:
                     f"{cfg.name}: a ring-buffer cache over a seq-sharded "
                     f"ring {_seq.NEEDS_NEXT}")
             length = lay.block(length)[1]
-        one = attn.kv_cache_spec(cfg, batch, length, ring=cfg.ring_cache)
+        kv_heads = None
+        sv = _serving.current_serving()
+        if sv is not None:
+            _serving.check(cfg, batch)
+            lo, hi = sv.rows(batch)
+            batch = hi - lo
+            kv_heads = sv.kv_heads(cfg)[1]
+        one = attn.kv_cache_spec(cfg, batch, length, ring=cfg.ring_cache,
+                                 kv_heads=kv_heads)
         return {name: {k: ((n,) + shape, dtype)
                        for k, (shape, dtype) in one.items()}
                 for name, n in self._stacks()}
@@ -261,8 +284,13 @@ class DecoderModel:
 
     @_served
     def init_cache(self, batch: int, length: int, device):
-        """Empty cache: zeros, and ``pos = -1`` (empty) everywhere."""
-        return _init_cache(self.cache_spec(batch, length), device)
+        """Empty cache: zeros, and ``pos = -1`` (empty) everywhere; on a
+        serving mesh this rank's piece, marked with its layout."""
+        cache = _init_cache(self.cache_spec(batch, length), device)
+        sv = _serving.current_serving()
+        if sv is not None:
+            _serving.mark_cache(cache, sv.cache_layout(self.cfg, batch))
+        return cache
 
     # ---------------- forward over the stack ----------------
     def _stack(self, params, x, positions, caches, prefix_len, mode: str):
@@ -306,8 +334,7 @@ class DecoderModel:
     def _embed_in(self, params, batch):
         """Token embeddings, and for paligemma the batch's patch
         embeddings (the stub vision tower's output) prepended unscaled."""
-        x = embed_lookup(params["embed"], batch["tokens"],
-                         scale=self._scaled_embed())
+        x = self._embed(params, batch["tokens"])
         if self.cfg.num_prefix_tokens and "patches" in batch:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         return x
@@ -318,12 +345,34 @@ class DecoderModel:
         return (torch.full((b,), n, dtype=torch.int32, device=device)
                 if n else None)
 
+    def _vocab(self, params):
+        """(mesh, axes) of the vocabulary's split on a serving mesh, or
+        None where every rank holds it whole."""
+        sv = _serving.current_serving()
+        axes = () if sv is None else sv.vocab_axes(self.cfg)
+        return (sv.mesh, axes) if axes else None
+
+    def _embed(self, params, tokens):
+        """Token embeddings; on a serving mesh that splits the vocabulary,
+        each rank looks up its slice and the ranks sum."""
+        return embed_lookup(params["embed"], tokens,
+                            scale=self._scaled_embed(),
+                            split=self._vocab(params))
+
     def _logits(self, params, h):
+        """f32 logits; on a serving mesh that splits the vocabulary, each
+        rank computes its columns from its slice (no rank casts more than
+        its slice of the head to f32) and the ranks gather them."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         logits = torch.matmul(h.to(torch.float32), w.to(torch.float32))
         if self.cfg.logit_softcap:
             sc = self.cfg.logit_softcap
             logits = torch.tanh(logits / sc) * sc
+        split = self._vocab(params)
+        if split is not None:
+            mesh, axes = split
+            logits = torch.cat(mesh.all_gather(logits.contiguous(), axes),
+                               -1)
         return logits
 
     # ---------------- entry points ----------------
@@ -510,10 +559,20 @@ class DecoderModel:
         """Prefill ``batch["tokens"]`` (B, S) (after ``batch["patches"]``
         (B, prefix, d_model) for paligemma) into a fresh cache of
         ``cache_len`` plus the prefix; returns (last-position logits
-        (B, V), cache)."""
+        (B, V), cache).  On a serving mesh (``dist.serving``) every rank
+        takes the whole batch, runs its rows and returns every row's
+        logits; its cache holds its piece."""
+        rows = batch["tokens"].shape[0]
+        with _serving.call(self, rows, params) as part:
+            logits, cache = self._prefill(params, part.cut(batch), cache_len,
+                                          rows)
+            return part.gather(logits), cache
+
+    def _prefill(self, params, batch, cache_len: int, rows: int):
+        """``prefill`` on this rank's rows of a batch of ``rows``."""
         x = self._embed_in(params, batch)
         b, s, _ = x.shape
-        cache = self.init_cache(b, cache_len + self.cfg.num_prefix_tokens,
+        cache = self.init_cache(rows, cache_len + self.cfg.num_prefix_tokens,
                                 x.device)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         lay = self._row_ring(b, s)
@@ -558,33 +617,38 @@ class DecoderModel:
         whole cache, which already holds every earlier chunk.  ``pos0`` is
         an int or a one-element int tensor on the model's device, as the
         reference traces it: one CUDA graph then serves every chunk of a
-        shape, wherever it starts."""
+        shape, wherever it starts.  On a serving mesh, as ``prefill``."""
         if self.cfg.num_prefix_tokens:
             raise ValueError("chunked prefill: no prefix tokens")
         if _seq.current_ring() is not None:
             raise NotImplementedError(f"chunked prefill under a ring "
                                       f"{_seq.NEEDS_NEXT}")
         tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = embed_lookup(params["embed"], tokens,
-                         scale=self._scaled_embed())
-        pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
-                else int(pos0))
-        positions = (pos0 + torch.arange(s, device=x.device))[None]
-        h, cache, _ = self._stack(params, x, positions.expand(b, s), cache,
-                                  None, "prefill_chunk")
-        return self._logits(params, h[:, -1:])[:, 0], cache
+        rows = tokens.shape[0]
+        with _serving.call(self, rows, params, cache) as part:
+            tokens = part.cut(tokens)
+            b, s = tokens.shape
+            x = self._embed(params, tokens)
+            pos0 = (pos0.reshape(()) if isinstance(pos0, torch.Tensor)
+                    else int(pos0))
+            positions = (pos0 + torch.arange(s, device=x.device))[None]
+            h, cache, _ = self._stack(params, x, positions.expand(b, s),
+                                      cache, None, "prefill_chunk")
+            return part.gather(self._logits(params, h[:, -1:])[:, 0]), cache
 
     @_served
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache, pos):
-        """One token per row: ``tokens`` (B, 1); ``pos`` a scalar or (B,)."""
-        x = embed_lookup(params["embed"], tokens,
-                         scale=self._scaled_embed())
-        positions = _decode_positions(pos, x.shape[0], x.device)
-        h, cache, _ = self._stack(params, x, positions, cache, None,
-                                  "decode")
-        return self._ring_logits(params, h), cache
+        """One token per row: ``tokens`` (B, 1); ``pos`` a scalar or (B,).
+        On a serving mesh, as ``prefill``."""
+        rows = tokens.shape[0]
+        with _serving.call(self, rows, params, cache) as part:
+            x = self._embed(params, part.cut(tokens))
+            positions = _decode_positions(part.cut(pos), x.shape[0],
+                                          x.device)
+            h, cache, _ = self._stack(params, x, positions, cache, None,
+                                      "decode")
+            return part.gather(self._ring_logits(params, h)), cache
 
 
 # =============================================================================

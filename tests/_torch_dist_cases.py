@@ -406,10 +406,212 @@ def ring_refusals_case(mesh, c):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the decoders on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+def _numel(tree):
+    return {"/".join(k): v.numel() for k, v in tree_leaves(tree)}
+
+
+def tp_serve_case(mesh, c):
+    """A decoder's serving calls under ``dist.serving`` on this rank:
+    prefill, a chunked prefill of ``c["chunks"]`` into a fresh cache (no
+    prefix), then decode steps of the given tokens from the prefill's
+    cache, the prefill under ``c["phases"][0]``'s rules and the decode
+    under ``[1]``'s.  Returns every call's logits, every rank's cache
+    pieces after each run, each rank's cache spec, plan, rows, kv heads
+    and elements a leaf, whether the ranks' logits agree, and with
+    ``c["single"]`` the same calls' logits and caches in this one process
+    without a mesh."""
+    from repro_torch.dist import serving as sv
+    cfg = cfg_of(c["arch"], c["mode"], kv_quant=c["kv_quant"],
+                 **c.get("cfg", {}))
+    model = build(cfg)
+    whole = params_from_numpy(c["params"], cfg, "cpu")
+    if c["w"] == "f32":
+        whole = tree_map(lambda t: t.float(), whole)
+    toks = torch.from_numpy(c["tokens"])
+    b, s = toks.shape
+    batch = {"tokens": toks}
+    if "patches" in c:
+        batch["patches"] = torch.from_numpy(c["patches"]).to(torch.bfloat16)
+    length = c["cache_len"] + cfg.num_prefix_tokens
+    pre, dec = c["phases"]
+    out = {"logits": [], "caches": [], "ranks": {}}
+
+    def rank_info(phase, params):
+        with sv.use_tp_serving(mesh, phase, batch=b) as ctx:
+            plan = ctx.plan(cfg)
+            spec = model.cache_spec(b, length)
+            rows = ctx.rows(b)
+            heads = ctx.kv_heads(cfg)
+        return {"plan": None if plan is None else dataclasses.asdict(plan),
+                "spec": {n: {k: tuple(v[0]) for k, v in leaves.items()}
+                         for n, leaves in spec.items()},
+                "rows": rows, "kv_heads": heads,
+                "param_elems": _numel(params)}
+
+    def pieces(cache):
+        return {n: {k: _every_rank(mesh, v.float() if v.is_floating_point()
+                                   else v) for k, v in leaves.items()}
+                for n, leaves in cache.items()}
+
+    r_pre = sv.serving_rules(mesh, pre, b)
+    r_dec = sv.serving_rules(mesh, dec, b)
+    p_pre = sv.serve_params(model, whole, mesh, r_pre)
+    p_dec = sv.serve_params(model, whole, mesh, r_dec)
+    with sv.use_tp_serving(mesh, pre, batch=b):
+        lg, cache = model.prefill(p_pre, batch, c["cache_len"])
+        out["logits"].append(lg)
+        out["caches"].append(pieces(cache))
+        if c.get("chunks"):
+            cc = model.init_cache(b, length, "cpu")
+            lo = 0
+            for n in c["chunks"]:
+                lgc, cc = model.prefill_chunk(
+                    p_pre, {"tokens": toks[:, lo:lo + n]}, cc, lo)
+                lo += n
+                out["logits"].append(lgc)
+            out["caches"].append(pieces(cc))
+    out["ranks"]["prefill"] = rank_info(pre, p_pre)
+    with sv.use_tp_serving(mesh, dec, batch=b):
+        for i, tok in enumerate(c["decode"]):
+            lg, cache = model.decode_step(
+                p_dec, torch.from_numpy(tok)[:, None], cache,
+                s + cfg.num_prefix_tokens + i)
+            out["logits"].append(lg)
+        out["caches"].append(pieces(cache))
+    out["ranks"]["decode"] = rank_info(dec, p_dec)
+    if c.get("single"):     # the same calls in this one process
+        out["single"] = _single_serve(model, whole, batch, c)
+    out["ranks_agree"] = all(
+        all(np.array_equal(p, ps[0]) for p in ps)
+        for ps in (_every_rank(mesh, lg.float()) for lg in out["logits"]))
+    out["logits"] = [lg.float().numpy() for lg in out["logits"]]
+    every = [None] * mesh.size(mesh.axis_names)
+    torch.distributed.all_gather_object(every, out["ranks"],
+                                        group=mesh.group(mesh.axis_names))
+    out["ranks"] = every
+    return out
+
+
+def _single_serve(model, params, batch, c):
+    """``tp_serve_case``'s calls without a mesh: every call's logits and
+    the cache after each run, whole."""
+    toks = batch["tokens"]
+    b, s = toks.shape
+    cfg = model.cfg
+    logits, caches = [], []
+
+    def whole(cache):
+        return {n: {k: (v.float() if v.is_floating_point() else v).numpy()
+                    .copy() for k, v in leaves.items()}
+                for n, leaves in cache.items()}
+
+    lg, cache = model.prefill(params, batch, c["cache_len"])
+    logits.append(lg)
+    caches.append(whole(cache))
+    if c.get("chunks"):
+        cc = model.init_cache(b, c["cache_len"] + cfg.num_prefix_tokens,
+                              "cpu")
+        lo = 0
+        for n in c["chunks"]:
+            lgc, cc = model.prefill_chunk(
+                params, {"tokens": toks[:, lo:lo + n]}, cc, lo)
+            lo += n
+            logits.append(lgc)
+        caches.append(whole(cc))
+    for i, tok in enumerate(c["decode"]):
+        lg, cache = model.decode_step(params, torch.from_numpy(tok)[:, None],
+                                      cache, s + cfg.num_prefix_tokens + i)
+        logits.append(lg)
+    caches.append(whole(cache))
+    return {"logits": [lg.float().numpy() for lg in logits],
+            "caches": caches}
+
+
+def tp_refusals_case(mesh, c):
+    """What a serving mesh refuses: each (arch, mode, batch, call) of
+    ``c["calls"]`` under ``use_tp_serving(mesh, "prefill", batch=)``
+    gives the error's type and message, or None."""
+    from repro_torch.dist import serving as sv
+    out = {}
+    for name, arch, mode, b, what in c["calls"]:
+        cfg = cfg_of(arch, mode)
+        model = build(cfg)
+        try:
+            with sv.use_tp_serving(mesh, "prefill", batch=b):
+                if what == "init_cache":
+                    model.init_cache(b, 8, "cpu")
+                else:
+                    model.prefill({}, {"tokens": torch.ones(
+                        (b, 4), dtype=torch.long)}, 8)
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def tp_layout_case(mesh, c):
+    """What a serving call refuses in the params and the cache it is
+    given, at batch 1 on a mesh with "data" (the "decode" rules fold it
+    into "model"), for each (arch, kv_quant, config overrides) of
+    ``c["archs"]``: the prefill's pieces or the whole params where the
+    plan wants others, a cache made without a mesh, and the handover of
+    the "prefill" rules' cache to the fold.  Returns {arch/what: None or
+    (error type, message)}, and where the handover is taken, its decode
+    logits beside those of the request served under the fold alone."""
+    from repro_torch.dist import serving as sv
+    from repro_torch.models.params import init_params
+    out = {}
+    for arch, kvq, over in c["archs"]:
+        cfg = cfg_of(arch, "bp8_fused", kv_quant=kvq, **over)
+        model = build(cfg)
+        whole = init_params(model.schema(), 7, "cpu")
+        toks = torch.randint(3, cfg.vocab_size, (1, 9),
+                             generator=torch.Generator().manual_seed(7))
+        tok, length = toks[:, -1:], 16
+        pieces = {ph: sv.serve_params(model, whole, mesh,
+                                      sv.serving_rules(mesh, ph, 1))
+                  for ph in ("prefill", "decode")}
+        with sv.use_tp_serving(mesh, "prefill", batch=1):
+            _, cache = model.prefill(pieces["prefill"], {"tokens": toks},
+                                     length)
+        with sv.use_tp_serving(mesh, "decode", batch=1):
+            _, fold_cache = model.prefill(pieces["decode"],
+                                          {"tokens": toks}, length)
+            want, _ = model.decode_step(pieces["decode"], tok, fold_cache, 9)
+        bare = model.init_cache(1, length, "cpu")
+        calls = {
+            "prefill_pieces": ("decode", lambda: model.decode_step(
+                pieces["prefill"], tok, fold_cache, 9)),
+            "whole_params": ("prefill", lambda: model.prefill(
+                whole, {"tokens": toks}, length)),
+            "bare_cache": ("decode", lambda: model.decode_step(
+                pieces["decode"], tok, bare, 9)),
+            "handover": ("decode", lambda: model.decode_step(
+                pieces["decode"], tok, cache, 9)),
+        }
+        for what, (phase, fn) in calls.items():
+            try:
+                with sv.use_tp_serving(mesh, phase, batch=1):
+                    got, _ = fn()
+                out[f"{arch}/{what}"] = None
+                if what == "handover":
+                    out[f"{arch}/handover_logits"] = (got.float().numpy(),
+                                                      want.float().numpy())
+            except (NotImplementedError, ValueError) as e:
+                out[f"{arch}/{what}"] = (type(e).__name__, str(e))
+    return out
+
+
 KINDS = {"loss": loss_case, "per_shard": per_shard_case, "toy": toy_case,
          "layer": layer_case, "trainer": trainer_case,
          "restore": restore_case, "ring_core": ring_core_case,
-         "ring_model": ring_model_case, "ring_refusals": ring_refusals_case}
+         "ring_model": ring_model_case, "ring_refusals": ring_refusals_case,
+         "tp_serve": tp_serve_case, "tp_refusals": tp_refusals_case,
+         "tp_layout": tp_layout_case}
 
 
 def world(device, cases):

@@ -54,6 +54,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                                     "repro_torch.dist.tp",
                                     "repro_torch.dist.pipeline",
                                     "repro_torch.dist.seq",
+                                    "repro_torch.dist.serving",
                                     "repro_torch.launch.mesh"])
 def test_distributed_layer_is_held_to_the_same_rules(module):
     """The distributed layer's modules are among those imported above
